@@ -1,0 +1,4 @@
+"""Sampling-based MPC (MPPI) and the waypoint course
+(counterpart: ``tpunav/control/__init__.py``)."""
+
+from .mppi import MPPIConfig, MPPIController, init_controls, mppi_solve  # noqa: F401

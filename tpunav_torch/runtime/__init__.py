@@ -1,0 +1,10 @@
+"""Host runtime: configuration loaders
+(counterpart: ``tpunav/runtime/__init__.py``)."""
+
+from .config import (  # noqa: F401
+    RobotConfig,
+    load_mppi_config,
+    load_robot_config,
+    load_waypoints,
+    load_yaml_config,
+)
