@@ -2,14 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 (the fused MPPI solve, ``tpunav_torch/ops/csrc/``) from
-source with nvcc, checks it against its plain PyTorch version on the card,
-then runs the MPPI waypoint course (the demo's flagship configuration:
-configs/mppi_params.yaml at horizon 0.5 s and K=4,096, the pentagon of
-configs/real_waypoints.yaml) through the fused kernel, and times the
-kernel beside its plain version. Each phase prints one JSON line; any
-failure raises and the script exits non-zero. It needs CUDA and has no
-CPU path. The last line is {"ok": true, "device": {...}}.
+Builds the port's kernels (``tpunav_torch/ops/csrc/``) from source with
+nvcc: K1 the fused MPPI solve, K2 the likelihood field, K3 the map update
+with its distance field, K4 the distance field alone. Checks each against
+its plain PyTorch version on the card, then drives the port's two paths:
+
+- the MPPI waypoint course (the demo's flagship configuration:
+  configs/mppi_params.yaml at horizon 0.5 s and K=4,096, the pentagon of
+  configs/real_waypoints.yaml) through K1;
+- RBPF grid SLAM at BASELINE config 5 (P=500 particles, k=50 proposal
+  samples, an 80×80 map at 0.05 m, the 360-beam LDS-01 geometry of
+  configs/lds01_lidar.yaml), 120 updates of the bench's box-world course,
+  through K2, K3 and K4;
+
+and times every kernel beside its plain version. Each phase prints one
+JSON line; any failure raises and the script exits non-zero. It needs
+CUDA and has no CPU path. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -112,7 +121,8 @@ class Smoke:
         secs = time.perf_counter() - t0
         emit("build", seconds=secs, library=str(_build.library_path()),
              nvcc=run([_build.nvcc_path(), "--version"]).splitlines()[-1],
-             torch=torch.__version__, cuda=torch.version.cuda)
+             torch=torch.__version__, cuda=torch.version.cuda,
+             ptxas=ptxas_summary(_build.ptxas_report()))
         self.card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"]).splitlines()[0]
         emit("card", nvidia_smi=self.card)
@@ -224,13 +234,13 @@ class Smoke:
                 raise AssertionError("bad telemetry shape")
 
         torch.cuda.synchronize()
-        self.fm.KERNEL_LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         st = run_course_chunked(cfg, course, self.model, waypoints, st,
                                 chunk=chunk, on_chunk=on_chunk)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = self.fm.KERNEL_LAUNCHES
+        launches = read_counts()["K1"]
         ticks = int(st.ticks)
         pose = st.pose.cpu()
         last = waypoints[-1].cpu()
@@ -254,20 +264,6 @@ class Smoke:
              kernel_launches=launches, first_chunk_seconds=marks[0] - t0,
              steady_solves_per_s=steady)
 
-    def time_ms(self, fn, reps=30, warmup=5):
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     def times(self):
         t0 = time.perf_counter()
         rows = []
@@ -279,11 +275,11 @@ class Smoke:
             gen.manual_seed(0)
             rows.append({
                 "K": k, "N": cfg.steps,
-                "kernel_ms": self.time_ms(lambda: self.fm.mppi_solve_fused(
+                "kernel_ms": time_ms(lambda: self.fm.mppi_solve_fused(
                     cfg, self.model, u, seed, pose, xd)),
-                "plain_ms": self.time_ms(lambda: self.plain(
+                "plain_ms": time_ms(lambda: self.plain(
                     cfg, u, seed, pose, xd)),
-                "plain_solver_ms": self.time_ms(lambda: self.mppi.mppi_solve(
+                "plain_solver_ms": time_ms(lambda: self.mppi.mppi_solve(
                     cfg, self.model, u, gen, pose, xd)),
             })
         self.timing = rows
@@ -329,6 +325,405 @@ class Smoke:
                                       for name, (us, _) in top})
 
 
+class Rbpf:
+    """The RBPF phases: K2, K3 and K4 against their plain versions, the
+    course through them, their event times and the course's profile."""
+
+    P, K, UPDATES, WARM = 500, 50, 120, 20
+
+    def __init__(self, card: str):
+        from tpunav_torch.estimation.rbpf import grid, particle_filter
+        from tpunav_torch.estimation.rbpf.icp import ICPConfig
+        from tpunav_torch.ops import likelihood, map_update
+        from tpunav_torch.runtime.config import load_lidar_config
+        from tpunav_torch.sim import lidar
+
+        self.grid, self.pf, self.lik, self.mu, self.lidar = (
+            grid, particle_filter, likelihood, map_update, lidar)
+        self.dev = torch.device("cuda", 0)
+        self.card = card
+        lid = load_lidar_config(os.path.join(CONFIGS, "lds01_lidar.yaml"))
+        beams = dict(num_beams=lid.num_beams, beam_min=lid.beam_min_rad,
+                     beam_delta=lid.beam_delta_rad, range_min=lid.range_min,
+                     range_max=lid.range_max)
+        # BASELINE config 5: 4×4 m at 0.05 m (80×80); and the 8×8 m
+        # 160×160 map of bench_rbpf.py's big-map entry.
+        self.g80 = grid.GridConfig(resolution=0.05, **beams)
+        self.g160 = grid.GridConfig(resolution=0.05, xmin=-4.0, xmax=4.0,
+                                    ymin=-4.0, ymax=4.0, **beams)
+        self.cfg = particle_filter.PFConfig(
+            num_particles=self.P, k_samples=self.K,
+            sample_range=(1e-6, 1e-5, 1e-5), motion_noise=(1e-6, 1e-5, 1e-5),
+            grid=self.g80, icp=ICPConfig(max_iter=25))
+        self.max_err = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+
+    def world(self, gcfg, p):
+        """The TPU gate's inputs (tests_tpu/test_tpu_gate.py:_make_world,
+        _make_particles): a noisy scan of a ±1.5 m box from one pose, and
+        p particles scattered around it whose grids hold that scan."""
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(0)
+        pose = torch.tensor([0.1, 0.05, -0.02], device=self.dev)
+        segs = self.lidar.box_segments(-1.5, -1.5, 1.5, 1.5, device=self.dev)
+        scan = self.lidar.scan_segments(
+            pose, segs, num_beams=gcfg.num_beams, beam_min=gcfg.beam_min,
+            beam_delta=gcfg.beam_delta, max_range=gcfg.range_max,
+            generator=gen, noise_std=0.01)
+        poses = (pose + 0.05 * torch.randn((p, 3), generator=gen,
+                                           device=self.dev)).contiguous()
+        fresh = self.grid.grid_init(gcfg, device=self.dev).expand(p, -1, -1)
+        grids = self.grid.integrate_scan(gcfg, fresh, scan, poses)
+        return scan, poses, grids.contiguous(), gen
+
+    def lik_kernel(self):
+        """K2 against its plain version at the gate's bar
+        (tests_tpu/test_tpu_gate.py:257-259), at the gate's shapes and at
+        the course's (k+1 = 51 samples per particle)."""
+        t0 = time.perf_counter()
+        cases = []
+        for gcfg, p, k in [(self.g80, 8, 12), (self.g80, 500, 50),
+                           (self.g80, 500, 51), (self.g160, 40, 50)]:
+            scan, poses, grids, gen = self.world(gcfg, p)
+            dists = self.grid.esdf(gcfg, grids)
+            if p == 8:
+                dists[-1] = gcfg.max_occ_dist          # an empty map
+            samples = (poses[:, None, :] + 0.01 * torch.randn(
+                (p, k, 3), generator=gen, device=self.dev)).contiguous()
+            got = self.lik.likelihood_field_batch(gcfg, dists, scan, samples)
+            want = self.lik._lik_reference(gcfg, dists, scan, samples)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            row = {"P": p, "k": k, "map": gcfg.height,
+                   "max_abs_err": float(err.max()),
+                   "p99_abs_err": float(torch.quantile(err.flatten(), 0.99)),
+                   "share_above_1e-4": float((err > 1e-4).float().mean())}
+            if not (row["p99_abs_err"] <= 1e-4 and row["max_abs_err"] <= 0.05
+                    and row["share_above_1e-4"] <= 0.01
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"K2 vs plain out of bounds: {row}")
+            if p == 8 and not bool((got[-1] == 0.0).all()):
+                raise AssertionError("K2: an empty map must score exactly 0")
+            self.max_err["K2"] = max(self.max_err["K2"], row["max_abs_err"])
+            cases.append(row)
+        emit("lik_kernel", seconds=time.perf_counter() - t0,
+             bar={"p99": 1e-4, "max": 0.05, "share_above_1e-4": 0.01},
+             empty_map_exactly_zero=True, cases=cases)
+
+    def map_kernel(self):
+        """K3 against its plain version (grids atol 1e-3/rtol 1e-4, dist
+        atol 1e-4: tests_tpu/test_tpu_gate.py:218-220), its beam index
+        against the plain quantizer (0 mismatches), and K4 on K3's grids
+        bit for bit against K3's fields."""
+        t0 = time.perf_counter()
+        cases = []
+        for gcfg, p in [(self.g80, 8), (self.g80, 500), (self.g160, 40)]:
+            scan, poses, grids, _ = self.world(gcfg, p)
+            beam = torch.empty(grids.shape, dtype=torch.int32, device=self.dev)
+            g_k, d_k = self.mu.map_update_batch(gcfg, grids, scan, poses,
+                                                beam_out=beam)
+            g_p, d_p = self.mu._map_update_reference(gcfg, grids, scan, poses)
+            _, beam_p = self.mu._beam_index_reference(gcfg, poses)
+            d_alone = self.mu.edt_batch(gcfg, g_k)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(g_k, g_p, rtol=1e-4, atol=1e-3)
+            torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-4)
+            row = {"P": p, "map": gcfg.height,
+                   "grid_max_abs_err": float((g_k - g_p).abs().max()),
+                   "dist_max_abs_err": float((d_k - d_p).abs().max()),
+                   "beam_index_mismatches": int((beam.long() != beam_p).sum()),
+                   "k4_bit_identical": bool(torch.equal(d_alone, d_k)),
+                   "occupied_cells": int((g_k >= gcfg.l_occ).sum())}
+            if row["beam_index_mismatches"] or not row["k4_bit_identical"]:
+                raise AssertionError(f"K3/K4 checks failed: {row}")
+            self.max_err["K3"] = max(self.max_err["K3"],
+                                     row["grid_max_abs_err"],
+                                     row["dist_max_abs_err"])
+            self.max_err["K4"] = max(
+                self.max_err["K4"],
+                float((d_alone - self.mu._edt_reference(gcfg, g_k))
+                      .abs().max()))
+            cases.append(row)
+        emit("map_kernel", seconds=time.perf_counter() - t0,
+             bar={"grids": {"atol": 1e-3, "rtol": 1e-4}, "dist_atol": 1e-4,
+                  "beam_index_mismatches": 0, "k4_vs_k3": "bit-identical"},
+             cases=cases)
+
+    def course_inputs(self, seed: int = 7):
+        """The demo's and bench's course (examples/rbpf_slam_demo.py,
+        bench.py:bench_rbpf): an arc at u = (0.03 rad, 0.02 m) per update
+        inside walls at ±1.8 m, 360-beam scans with 2 mm range noise drawn
+        from a generator seeded with ``seed``, odometry = ground truth. Made
+        up front, as scans arrive."""
+        u = torch.tensor([0.03, 0.02], device=self.dev)
+        segs = self.lidar.box_segments(-1.8, -1.8, 1.8, 1.8, device=self.dev)
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        g = self.g80
+        pose = torch.zeros(3, device=self.dev)
+        scans, odoms = [], []
+        for _ in range(self.UPDATES):
+            th = pose[0] + u[0]
+            pose = torch.stack([th, pose[1] + u[1] * torch.cos(th),
+                                pose[2] + u[1] * torch.sin(th)])
+            odoms.append(pose)
+            scans.append(self.lidar.scan_segments(
+                pose, segs, num_beams=g.num_beams, beam_min=g.beam_min,
+                beam_delta=g.beam_delta, max_range=g.range_max,
+                generator=gen, noise_std=0.002))
+        prevs = [torch.zeros(3, device=self.dev)] + odoms[:-1]
+        return u, scans, odoms, prevs
+
+    def pose_error_cm(self, seed, inputs):
+        """The best particle's |xy| error in cm after the course on
+        ``inputs`` (u, scans, odoms, prevs), from filter seed ``seed``."""
+        u, scans, odoms, prevs = inputs
+        st = self.pf.pf_init(self.cfg, seed=seed, device=self.dev)
+        for i in range(len(scans)):
+            st = self.pf.pf_slam_step(self.cfg, st, scans[i], u, odoms[i],
+                                      prevs[i])
+        e = (self.pf.best_particle(st)[0] - odoms[-1]).cpu()
+        return 100 * float(torch.hypot(e[1], e[2]))
+
+    def course(self):
+        u, scans, odoms, prevs = self.course_inputs()
+        self.inputs = (u, scans, odoms, prevs)
+        cfg = self.cfg
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        st = self.pf.pf_init(cfg, seed=0, device=self.dev)
+        for i in range(self.UPDATES):
+            st = self.pf.pf_slam_step(cfg, st, scans[i], u, odoms[i],
+                                      prevs[i])
+            if i == self.WARM - 1:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = read_counts()
+        pose, grid = self.pf.best_particle(st)
+        truth = odoms[-1]
+        err = (pose - truth).cpu()
+        xy_err = float(torch.hypot(err[1], err[2]))
+        heading = float((err[0] + math.pi) % (2 * math.pi) - math.pi)
+        for name in ("poses", "log_weights", "grids", "dists"):
+            if not bool(torch.isfinite(getattr(st, name)).all()):
+                raise AssertionError(f"non-finite {name} after the course")
+        if not xy_err < 0.2:
+            raise AssertionError(f"pose diverged: |xy| error {xy_err} m")
+        want = {"K1": 0, "K2": self.UPDATES, "K3": self.UPDATES, "K4": 1}
+        if counts != want:
+            raise AssertionError(f"launches {counts}, expected {want}: one "
+                                 "K2 and one K3 per update, K4 in pf_init")
+        steady = (self.UPDATES - self.WARM) / (t_end - t_warm)
+        self.state, self.counts, self.ms_per_update = st, counts, 1e3 / steady
+        # The same course from two more seeds of the filter's generator:
+        # the spread of the pose error over the filter's own randomness.
+        other_seeds = {}
+        for seed in (1, 2):
+            other_seeds[seed] = self.pose_error_cm(seed, self.inputs)
+            if not other_seeds[seed] < 20.0:
+                raise AssertionError(f"seed {seed}: pose diverged, "
+                                     f"{other_seeds[seed]} cm")
+        emit("rbpf_course", seconds=t_end - t0, P=cfg.num_particles,
+             k=cfg.k_samples, map=[self.g80.height, self.g80.width],
+             beams=self.g80.num_beams, icp_max_iter=cfg.icp.max_iter,
+             updates=self.UPDATES, first_updates=self.WARM,
+             first_updates_seconds=t_warm - t0,
+             steady_updates_per_s=steady, ms_per_update=1e3 / steady,
+             pose_error_cm=100 * xy_err, heading_error_rad=heading,
+             pose_error_cm_other_seeds=other_seeds,
+             occupied_cells_best=int((grid >= self.g80.l_occ).sum()),
+             launches=counts, card=self.card)
+
+    def work(self, scan, k):
+        """Bytes and float32 operations that the functions of K2 (with k
+        samples), K3 and K4 need at the course's shape, counting the valid
+        beams of ``scan``."""
+        g, p = self.g80, self.P
+        hw, b = g.height * g.width, g.num_beams
+        valid = int(((scan >= g.range_min) & (scan < g.range_max)).sum())
+        # K2: per valid (sample, beam) the endpoint (8), its cell (10) and
+        # the mixture with its sum (7); cos and sin per sample.
+        k2 = (4 * (p * hw + p * k * 3 + b + p * k), p * k * (25 * valid + 2))
+        # An exact EDT needs O(1) work per cell, whatever these kernels'
+        # O(H) column pass spends: the two row sweeps and the square (5);
+        # a linear-time lower envelope down each column, where each cell
+        # enters and leaves the envelope once, at most two intersection
+        # tests of ~8 operations (16), and its evaluation (4); sqrt·res
+        # and the cap (3).
+        edt = 5 + 16 + 4 + 3
+        # K3 per cell: bearing, quantizer, dilation, free test, mass and
+        # update (55) then the EDT; per valid beam its endpoint cell (16).
+        k3 = (4 * (3 * p * hw + 3 * p + b), p * (hw * (55 + edt) + 16 * valid))
+        k4 = (4 * 2 * p * hw, p * hw * (1 + edt))
+        return {"K2": k2, "K3": k3, "K4": k4}
+
+    def times(self):
+        """CUDA-event medians at the course's shape (P=500, k+1=51 samples
+        as the update launches K2, 80×80, 360 beams) on the course's final
+        state, each kernel beside its plain version, and each kernel's
+        device time from torch.profiler."""
+        t0 = time.perf_counter()
+        st, g = self.state, self.g80
+        scan = self.inputs[1][-1]
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(3)
+        k = self.K + 1
+        samples = (st.poses[:, None, :] + 0.01 * torch.randn(
+            (self.P, k, 3), generator=gen, device=self.dev)).contiguous()
+        fns = {
+            "K2": (lambda: self.lik.likelihood_field_batch(
+                       g, st.dists, scan, samples),
+                   lambda: self.lik._lik_reference(g, st.dists, scan,
+                                                   samples)),
+            "K3": (lambda: self.mu.map_update_batch(g, st.grids, scan,
+                                                    st.poses),
+                   lambda: self.mu._map_update_reference(g, st.grids, scan,
+                                                         st.poses)),
+            "K4": (lambda: self.mu.edt_batch(g, st.grids),
+                   lambda: self.mu._edt_reference(g, st.grids)),
+        }
+        tags = {"K2": "likelihood_field_kernel", "K3": "map_update_kernel",
+                "K4": "edt_kernel"}
+        work = self.work(scan, k)
+        rows = {}
+        for name, (kernel, plain) in fns.items():
+            bound_ms, bound_by = bound(*work[name])
+            # The kernel's own device time (the event time above also holds
+            # the wrapper's table-building launches and host gaps).
+            kern = profile_device(kernel, 10)
+            device_us = sum(us for key, (us, _) in kern.items()
+                            if tags[name] in key) / 10
+            rows[name] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                          "device_us": device_us,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "bytes": work[name][0], "ops": work[name][1]}
+        self.timing = rows
+        emit("rbpf_times", seconds=time.perf_counter() - t0, reps=30,
+             P=self.P, k=k, map=g.height, card=self.card, rows=rows)
+
+    def profile(self):
+        """torch.profiler over 20 steady updates of a fresh course: device
+        µs per update by kernel, launches per update, and the device's idle
+        share against the unprofiled ms per update of the course."""
+        t0 = time.perf_counter()
+        u, scans, odoms, prevs = self.inputs
+        box = [self.pf.pf_init(self.cfg, seed=1, device=self.dev), 0]
+
+        def update():
+            st, i = box
+            box[0] = self.pf.pf_slam_step(self.cfg, st, scans[i], u, odoms[i],
+                                          prevs[i])
+            box[1] = i + 1
+
+        for _ in range(10):
+            update()
+        n = 20
+        kern = profile_device(update, n)
+        busy = sum(us for us, _ in kern.values()) / n
+        ours = {name: sum(us for key, (us, _) in kern.items() if tag in key)
+                / n for name, tag in [("K2", "likelihood_field_kernel"),
+                                      ("K3", "map_update_kernel"),
+                                      ("K4", "edt_kernel")]}
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
+        update_us = 1e3 * self.ms_per_update
+        # The scan matcher alone, as one update calls it.
+        from tpunav_torch.estimation.rbpf.icp import icp_match, scan_to_points
+
+        g = self.g80
+        src, src_ok = scan_to_points(scans[11], g.range_min, g.range_max,
+                                     g.beam_min, g.beam_delta)
+        dst, dst_ok = scan_to_points(scans[10], g.range_min, g.range_max,
+                                     g.beam_min, g.beam_delta)
+        guess = torch.zeros(3, device=self.dev)
+        icp = profile_device(lambda: icp_match(self.cfg.icp, src, src_ok, dst,
+                                               dst_ok, guess), 5)
+        emit("rbpf_profile", seconds=time.perf_counter() - t0,
+             card=self.card, updates=n, device_us_per_update=busy,
+             kernel_device_us_per_update=ours,
+             launches_per_update=sum(c for _, c in kern.values()) / n,
+             icp_launches_per_match=sum(c for _, c in icp.values()) / 5,
+             icp_device_us_per_match=sum(us for us, _ in icp.values()) / 5,
+             unprofiled_update_us=update_us,
+             device_idle_share=1 - busy / update_us,
+             top_kernels_us_per_update={name[:60]: us / n
+                                        for name, (us, _) in top})
+
+
+def time_ms(fn, reps=30, warmup=5):
+    """Median CUDA-event time of ``fn`` in ms over ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def ptxas_summary(report: str) -> dict:
+    """{kernel: "registers, shared memory, spills"} from ptxas -v."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = next((k for k in ("mppi_combine", "mppi_rollout_partials",
+                                     "likelihood_field_kernel",
+                                     "map_update_kernel", "edt_kernel")
+                         if k in m.group(1)), m.group(1))
+        elif name and ("spill" in line or "Used" in line):
+            out[name] = (out.get(name, "") + " " + line.strip()).strip()
+    return out
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from tpunav_torch.ops import fused_mppi, likelihood, map_update
+
+    fused_mppi.KERNEL_LAUNCHES = 0
+    likelihood.LIK_LAUNCHES = 0
+    map_update.MAP_LAUNCHES = 0
+    map_update.EDT_LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from tpunav_torch.ops import fused_mppi, likelihood, map_update
+
+    return {"K1": fused_mppi.KERNEL_LAUNCHES, "K2": likelihood.LIK_LAUNCHES,
+            "K3": map_update.MAP_LAUNCHES, "K4": map_update.EDT_LAUNCHES}
+
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes/s
+# and float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time for ``nbytes`` of traffic and
+    ``ops`` float32 operations at the card's peak rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_work(k: int, n: int):
+    """K1's bytes (u, pose, goal and seed in, u_next out) and the operations
+    its function needs: per rollout and step about 171 — one Philox4x32-10
+    draw (~100 integer operations; the kernel's replay of it in the
+    reduction is its own design's cost), one Box-Muller pair (~8), the RK4
+    step with its six cos/sin (~35), the loss (~17), the cost-to-go add and
+    the softmax partial (~11)."""
+    return 4 * (2 * n + 3 + 3 + 1 + 2 * n), 171.0 * k * n
+
+
 def device_kernels(prof):
     """{kernel name: (device µs, launches)} from a torch.profiler run."""
     out = {}
@@ -371,8 +766,16 @@ def main() -> int:
     smoke.course()
     smoke.times()
     smoke.profile()
+    rbpf = Rbpf(smoke.card)
+    rbpf.lik_kernel()
+    rbpf.map_kernel()
+    rbpf.course()
+    rbpf.times()
+    rbpf.profile()
+
     main_row = smoke.timing[0]
-    print(json.dumps({"kernels": [{
+    k1_ms, k1_by = bound(*k1_work(main_row["K"], main_row["N"]))
+    kernels = [{
         "name": "fused_mppi (K1: mppi_rollout_partials + mppi_combine)",
         "route": "cuda",
         "source": "tpunav_torch/ops/csrc/fused_mppi.cu",
@@ -381,7 +784,24 @@ def main() -> int:
         "max_abs_err": smoke.max_err,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
-    }]}))
+        "bound_ms": k1_ms, "bound_by": k1_by, "library_ms": None,
+    }]
+    for key, name, source, replaces in [
+            ("K2", "likelihood_field (K2)", "likelihood.cu",
+             "tpunav/ops/pallas_likelihood.py:63"),
+            ("K3", "map_update (K3: grid update + EDT)", "map_update.cu",
+             "tpunav/ops/pallas_map_update.py:54"),
+            ("K4", "edt (K4)", "map_update.cu",
+             "tpunav/ops/pallas_map_update.py:177")]:
+        row = rbpf.timing[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tpunav_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": rbpf.counts[key],
+            "max_abs_err": rbpf.max_err[key], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -191,7 +191,7 @@ def test_cost_to_go_reverse_cumsum():
 
 def test_controls_clamped():
     cfg = tm.MPPIConfig(ul_var=100.0, ur_var=100.0)
-    u = tm.init_controls(cfg, dtype=torch.float64)
+    u = tm.init_controls(cfg, dtype=torch.float64, device="cpu")
     gen = torch.Generator().manual_seed(0)
     cmd, u_next = tm.mppi_solve(cfg, MODEL, u, gen,
                                 torch.zeros(3, dtype=torch.float64),
@@ -214,8 +214,10 @@ def test_shift_refills_with_u_init():
 
 def test_sample_perturbations_scale_and_generator():
     cfg = tm.MPPIConfig(rollouts=2000, horizon=0.1, ul_var=0.25, ur_var=4.0)
-    a = tm.sample_perturbations(cfg, torch.Generator().manual_seed(3))
-    b = tm.sample_perturbations(cfg, torch.Generator().manual_seed(3))
+    a = tm.sample_perturbations(cfg, torch.Generator().manual_seed(3),
+                                device="cpu")
+    b = tm.sample_perturbations(cfg, torch.Generator().manual_seed(3),
+                                device="cpu")
     assert a.shape == (2000, 10, 2) and a.dtype == torch.float32
     assert torch.equal(a, b)
     std = a.reshape(-1, 2).std(0).numpy()
@@ -226,7 +228,8 @@ def test_controller_reaches_waypoint():
     # The solver drives the cart from the origin to a 0.5 m goal within a
     # simulated 10 s at 60 Hz.
     cfg = tm.MPPIConfig(horizon=0.5, rollouts=64)
-    ctl = tm.MPPIController(cfg, MODEL, seed=7, dtype=torch.float64)
+    ctl = tm.MPPIController(cfg, MODEL, seed=7, dtype=torch.float64,
+                            device="cpu")
     ctl.set_waypoint([0.5, 0.5, 0.0])
     pose = torch.zeros(3, dtype=torch.float64)
     f = lambda x, uu: kinematic_cart(MODEL, x, uu)
@@ -241,7 +244,7 @@ def test_controller_reaches_waypoint():
 
 def test_set_initial_controls():
     cfg = tm.MPPIConfig(horizon=0.1)
-    ctl = tm.MPPIController(cfg, MODEL)
+    ctl = tm.MPPIController(cfg, MODEL, device="cpu")
     ctl.set_initial_controls(1.0, -2.0)
     assert ctl.u.shape == (10, 2)
     np.testing.assert_allclose(ctl.u.numpy(), np.tile([1.0, -2.0], (10, 1)))
@@ -250,14 +253,20 @@ def test_set_initial_controls():
 # ------------------------------------------------------------ guards ----
 
 def test_port_imports_no_jax():
+    """Every module of the package imports without jax or tpunav."""
     code = (
-        "import sys\n"
-        "import tpunav_torch, tpunav_torch.interop\n"
-        "import tpunav_torch.models.cart, tpunav_torch.ops.rk4\n"
-        "import tpunav_torch.ops.philox, tpunav_torch.ops.fused_mppi\n"
-        "import tpunav_torch.ops._build, tpunav_torch.control.mppi\n"
-        "import tpunav_torch.control.waypoint_loop\n"
-        "import tpunav_torch.sim.motor, tpunav_torch.runtime.config\n"
+        "import importlib, pkgutil, sys\n"
+        "import tpunav_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    tpunav_torch.__path__, 'tpunav_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "need = {'tpunav_torch.interop', 'tpunav_torch.ops.fused_mppi',\n"
+        "        'tpunav_torch.ops.likelihood', 'tpunav_torch.ops.map_update',\n"
+        "        'tpunav_torch.estimation.rbpf.particle_filter',\n"
+        "        'tpunav_torch.estimation.rbpf.icp', 'tpunav_torch.core.se2',\n"
+        "        'tpunav_torch.sim.lidar', 'tpunav_torch.ops.beams'}\n"
+        "assert need <= set(names), need - set(names)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpunav'))\n"
         "assert not bad, bad\n"

@@ -91,7 +91,7 @@ def test_course_ticks_match_tpunav(use_fused):
     st = interop.course_state_from_numpy(
         {name: np.asarray(getattr(jst, name))
          for name in ("pose", "u", "wpt_idx", "visits", "ticks", "done",
-                      "wheel_vel")})
+                      "wheel_vel")}, device="cpu")
     twpts = torch.as_tensor(wpts, dtype=torch.float32)
 
     max_dpose = 0.0
@@ -145,9 +145,9 @@ def test_interop_round_trip_and_configs():
                                         dataclasses.asdict(jcourse))
     assert course.motor == MotorParams(time_const=0.05)
     assert dataclasses.asdict(course) == dataclasses.asdict(jcourse)
-    st = course_init(CFG, [0.1, 0.2, 0.3], seed=4)
+    st = course_init(CFG, [0.1, 0.2, 0.3], seed=4, device="cpu")
     back = interop.course_state_from_numpy(
-        interop.course_state_to_numpy(st), seed=4)
+        interop.course_state_to_numpy(st), device="cpu", seed=4)
     for name, val in interop.course_state_to_numpy(back).items():
         ref = getattr(st, name)
         assert getattr(back, name).dtype == ref.dtype
@@ -161,7 +161,7 @@ def test_interop_round_trip_and_configs():
 def finished():
     """One plain-backend course run to completion, shared by three tests."""
     course = CourseConfig(goal_thresh=0.1, max_ticks=6000)
-    st0 = course_init(CFG, torch.zeros(3), seed=0)
+    st0 = course_init(CFG, torch.zeros(3), seed=0, device="cpu")
     return course, st0, run_course(CFG, course, MODEL, COURSE, st0)
 
 
@@ -217,7 +217,7 @@ def test_course_with_motor_dynamics_completes():
     the course still closes all waypoints."""
     course = CourseConfig(goal_thresh=0.1, max_ticks=8000,
                           motor=MotorParams(time_const=0.05))
-    st = course_init(CFG, torch.zeros(3), seed=0)
+    st = course_init(CFG, torch.zeros(3), seed=0, device="cpu")
     out = run_course(CFG, course, MODEL, COURSE, st)
     assert bool(out.done), f"course incomplete after {int(out.ticks)} ticks"
     assert int(out.visits) == len(COURSE)
@@ -243,7 +243,7 @@ def test_motor_track_ramps_and_caps():
 
 def test_course_tick_guards():
     wpts = torch.as_tensor(COURSE, dtype=torch.float32)
-    st = course_init(CFG, torch.zeros(3))
+    st = course_init(CFG, torch.zeros(3), device="cpu")
     with pytest.raises(NotImplementedError):
         course_tick(CFG, CourseConfig(use_fused=True), MODEL, wpts, st,
                     obstacles=torch.zeros(1, 5))

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve
 from ..models.cart import CartParams, kinematic_cart
 from ..ops.rk4 import rk4_solve
 
@@ -47,9 +48,9 @@ class MPPIConfig:
 
 
 def init_controls(cfg: MPPIConfig, dtype=torch.float32,
-                  device=None) -> torch.Tensor:
+                  device=DEFAULT_DEVICE) -> torch.Tensor:
     """Nominal control sequence u ∈ (N, 2), initialized to u_init."""
-    u0 = torch.tensor(cfg.u_init, dtype=dtype, device=device)
+    u0 = torch.tensor(cfg.u_init, dtype=dtype, device=resolve(device))
     return u0.expand(cfg.steps, 2).clone()
 
 
@@ -88,8 +89,9 @@ def cost_to_go(loss):
 
 
 def sample_perturbations(cfg: MPPIConfig, generator: torch.Generator,
-                         dtype=torch.float32, device=None):
+                         dtype=torch.float32, device=DEFAULT_DEVICE):
     """(K, N, 2) Gaussian control perturbations with per-wheel std."""
+    device = resolve(device)
     sig = torch.tensor([cfg.ul_var, cfg.ur_var], dtype=dtype,
                        device=device).sqrt()
     return torch.randn((cfg.rollouts, cfg.steps, 2), generator=generator,
@@ -138,7 +140,7 @@ class MPPIController:
     """Host-side wrapper holding (u, generator) state around the solve."""
 
     def __init__(self, cfg: MPPIConfig, model: CartParams, seed: int = 0,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.model = model
         self.u = init_controls(cfg, dtype=dtype, device=device)

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve
 from ..models.cart import CartParams, kinematic_cart
 from ..ops.fused_mppi import mppi_solve_fused
 from ..ops.rk4 import rk4_step
@@ -52,8 +53,8 @@ class CourseState(NamedTuple):
 
 
 def course_init(cfg: MPPIConfig, pose, seed: int = 0,
-                device=None) -> CourseState:
-    pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
+                device=DEFAULT_DEVICE) -> CourseState:
+    pose = torch.as_tensor(pose, dtype=torch.float32, device=resolve(device))
     device = pose.device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -1,9 +1,10 @@
-"""Carries configuration and course state across from ``tpunav``, as numpy.
+"""Carries configuration and state across from ``tpunav``, as numpy.
 
-No counterpart in ``tpunav``. The MPPI path has no weights: its
-parameters are the configurations (``MPPIConfig``, ``CartParams``,
-``MotorParams``, ``CourseConfig``) and its state is ``CourseState``. Nothing
-here imports jax: the caller hands over plain dicts and numpy arrays.
+No counterpart in ``tpunav``. Neither path has weights: their parameters
+are the configurations (``MPPIConfig``, ``CartParams``, ``MotorParams``,
+``CourseConfig``; ``PFConfig`` with its ``GridConfig`` and ``ICPConfig``)
+and their state is ``CourseState`` or ``PFState``. Nothing here imports
+jax: the caller hands over plain dicts and numpy arrays.
 """
 
 from __future__ import annotations
@@ -16,18 +17,25 @@ import numpy as np
 import torch
 
 from .control.waypoint_loop import CourseState
+from .device import DEFAULT_DEVICE, resolve
+from .estimation.rbpf.particle_filter import PFState
 
 _STATE_DTYPES = {"pose": torch.float32, "u": torch.float32,
                  "wpt_idx": torch.int32, "visits": torch.int32,
                  "ticks": torch.int32, "done": torch.bool,
                  "wheel_vel": torch.float32}
+_PF_DTYPES = {"poses": torch.float32, "prev_poses": torch.float32,
+              "log_weights": torch.float32, "grids": torch.float32,
+              "dists": torch.float32, "prev_scan": torch.float32,
+              "has_prev": torch.bool}
 
 
 def config_from_fields(cls, fields: Dict[str, Any]):
     """Build one of the port's configurations from the fields of its
     ``tpunav`` twin: ``dataclasses.asdict(cfg)`` for a dataclass, or
     ``params._asdict()`` for a NamedTuple. Nested dataclass fields given
-    as dicts (``CourseConfig.motor``) are built recursively."""
+    as dicts (``CourseConfig.motor``, ``PFConfig.grid`` and
+    ``PFConfig.icp``) are built recursively."""
     if not dataclasses.is_dataclass(cls):
         return cls(**fields)
     hints = typing.get_type_hints(cls)
@@ -42,11 +50,12 @@ def config_from_fields(cls, fields: Dict[str, Any]):
     return cls(**kwargs)
 
 
-def course_state_from_numpy(d: Dict[str, Any], device=None,
+def course_state_from_numpy(d: Dict[str, Any], device=DEFAULT_DEVICE,
                             seed: int = 0) -> CourseState:
     """A ``CourseState`` from numpy arrays {pose, u, wpt_idx, visits, ticks,
     done, wheel_vel}. The jax PRNG key has no counterpart: the port's state
     gets a fresh ``torch.Generator`` seeded with ``seed``."""
+    device = resolve(device)
     t = {name: torch.as_tensor(np.array(d[name]), device=device).to(dtype)
          for name, dtype in _STATE_DTYPES.items()}
     gen = torch.Generator(device=t["pose"].device)
@@ -59,3 +68,24 @@ def course_state_to_numpy(st: CourseState) -> Dict[str, np.ndarray]:
     its seed stay behind)."""
     return {name: getattr(st, name).detach().cpu().numpy()
             for name in _STATE_DTYPES}
+
+
+def pf_state_from_numpy(d: Dict[str, Any], device=DEFAULT_DEVICE,
+                        seed: int = 0) -> PFState:
+    """A ``PFState`` from numpy arrays {poses, prev_poses, log_weights,
+    grids, dists, prev_scan, has_prev}, as float32 (bool for has_prev).
+    The jax PRNG key has no counterpart: the port's state gets a fresh
+    ``torch.Generator`` seeded with ``seed``."""
+    device = resolve(device)
+    t = {name: torch.as_tensor(np.array(d[name]), device=device).to(dtype)
+         for name, dtype in _PF_DTYPES.items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return PFState(generator=gen, **t)
+
+
+def pf_state_to_numpy(st: PFState) -> Dict[str, np.ndarray]:
+    """The tensors of a ``PFState`` as numpy arrays (the generator stays
+    behind)."""
+    return {name: getattr(st, name).detach().cpu().numpy()
+            for name in _PF_DTYPES}

@@ -32,6 +32,7 @@ import torch
 from ..control.mppi import MPPIConfig, shift_controls
 from ..models.cart import CartParams
 from . import philox
+from ._build import check_launch, check_tensors, load
 
 _BLOCK = 128                # rollouts per block of kernel A
 KERNEL_LAUNCHES = 0         # kernel solves launched (one per solve)
@@ -76,16 +77,7 @@ def _check_inputs(cfg: MPPIConfig, u, seed, pose_xyt, xd, noise):
     named = [("u", u, (n, 2)), ("pose_xyt", pose_xyt, (3,)), ("xd", xd, (3,))]
     if noise is not None:
         named.append(("noise", noise, (n, k, 2)))
-    for name, t, shape in named:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, u on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, "
-                             f"got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tensors(named, dev)
     if seed.device != dev or seed.dtype != torch.int32 or seed.numel() != 1:
         raise ValueError("seed must be one int32 value on u's device")
 
@@ -189,8 +181,6 @@ def _combine_reference(cfg: MPPIConfig, u, parts, partial_out: bool):
 def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
             noise, partial_out: bool):
     global KERNEL_LAUNCHES
-    from ._build import load
-
     lib = load()
     n, k = cfg.steps, cfg.rollouts
     blocks = -(-k // _BLOCK)
@@ -206,9 +196,7 @@ def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
             xd.data_ptr(), seed.data_ptr(),
             None if noise is None else noise.data_ptr(),
             scratch.data_ptr(), parts.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        msg = lib.tpunav_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused MPPI kernel launch failed: {msg} ({err})")
+    check_launch(lib, err, "fused MPPI")
     KERNEL_LAUNCHES += 1
     return out
 

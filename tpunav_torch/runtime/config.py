@@ -9,6 +9,7 @@ directly onto the frozen config dataclasses, with the same key names, so
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Type, TypeVar
 
 import numpy as np
@@ -63,8 +64,37 @@ class RobotConfig:
     max_motor_torque: float = 1.5
 
 
+@dataclasses.dataclass(frozen=True)
+class LidarConfig:
+    """2D scanner geometry (schema: configs/lds01_lidar.yaml, the
+    reference's bmapping/config/LDS_01_lidar.yaml:1-11). Angles in DEGREES
+    like the file; the properties give radians and the beam count."""
+
+    beam_min: float = 0.0
+    beam_max: float = 360.0
+    beam_delta: float = 1.0
+    range_min: float = 0.12
+    range_max: float = 3.5
+
+    @property
+    def num_beams(self) -> int:
+        return int(round((self.beam_max - self.beam_min) / self.beam_delta))
+
+    @property
+    def beam_min_rad(self) -> float:
+        return math.radians(self.beam_min)
+
+    @property
+    def beam_delta_rad(self) -> float:
+        return math.radians(self.beam_delta)
+
+
 def load_robot_config(path: str, **overrides) -> RobotConfig:
     return load_yaml_config(RobotConfig, path, **overrides)
+
+
+def load_lidar_config(path: str, **overrides) -> LidarConfig:
+    return load_yaml_config(LidarConfig, path, **overrides)
 
 
 def load_mppi_config(path: str, **overrides):
