@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's kernels (``tpunav_torch/ops/csrc/``) from source with
-nvcc: K1 the fused MPPI solve, K2 the likelihood field, K3 the map update
-with its distance field, K4 the distance field alone. Checks each against
-its plain PyTorch version on the card, then drives the port's two paths:
+nvcc: K1 the fused MPPI solve (with its obstacle mode), K2 the likelihood
+field, K3 the map update with its distance field, K4 the distance field
+alone. Checks each against its plain PyTorch version on the card, then
+drives the port's three paths:
 
 - the MPPI waypoint course (the demo's flagship configuration:
   configs/mppi_params.yaml at horizon 0.5 s and K=4,096, the pentagon of
@@ -14,6 +15,11 @@ its plain PyTorch version on the card, then drives the port's two paths:
   samples, an 80×80 map at 0.05 m, the 360-beam LDS-01 geometry of
   configs/lds01_lidar.yaml), 120 updates of the bench's box-world course,
   through K2, K3 and K4;
+- the obstacle-aware MPPI course at BASELINE config 2
+  (examples/obstacle_mppi_demo.py: Theta* on an 80-node PRM around a wall,
+  K=4,096, N=50, the wall's 4 segments priced in-kernel) through K1's
+  obstacle mode, with the planning package's grid, roadmap and potential
+  field on the card;
 
 and times every kernel beside its plain version. Each phase prints one
 JSON line; any failure raises and the script exits non-zero. It needs
@@ -40,6 +46,10 @@ CONFIGS = os.path.join(ROOT, "configs")
 BAR = 2e-4                 # K1 vs its plain version: max |Δ| on cmd, u_next[:-1]
 POSE = (0.1, -0.2, 0.3)
 XD = (1.0, 1.0, 0.0)
+# examples/obstacle_mppi_demo.py: the wall, the course's ends and weights.
+WALL = [[[0.95, 0.7], [1.05, 0.7], [1.05, 1.3], [0.95, 1.3]]]
+START, GOAL = (0.2, 1.0), (1.8, 1.0)
+NEAR_TIE_ULPS = 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -651,6 +661,343 @@ class Rbpf:
                                         for name, (us, _) in top})
 
 
+class Obstacle:
+    """BASELINE config 2: K1's obstacle mode against its plain version, the
+    demo's obstacle course through it, the planning package on the card,
+    and the mode's event times and profile."""
+
+    U_OFF = (2.0, 2.0)     # a nominal 0.066 m/s forward, into the obstacles
+
+    def __init__(self, smoke: Smoke):
+        from tpunav_torch import planning
+        from tpunav_torch.control import obstacle_cost as oc
+
+        self.s, self.oc, self.plan = smoke, oc, planning
+        self.fm, self.dev, self.card = smoke.fm, smoke.dev, smoke.card
+        self.demo = oc.SegmentCostParams(r_safe=0.1, w_hit=1e7, w_field=2e3,
+                                         sigma=0.05)
+        ref = planning.REFERENCE_MAP
+        polys = [p[:n].tolist() for p, n in zip(ref.polygons,
+                                                ref.n_vertices)]
+        circle = oc.segments_from_circles([[0.5, 0.1]], [0.05],
+                                          device=self.dev)
+        wall = torch.tensor([[0.3, -0.4, 0.3, 0.4, 0.0]], device=self.dev)
+        # name: (segments, pose, goal, weights). The demo's wall; the
+        # circle and wall of tests/test_pallas_mppi.py:85-88; the 41 edges
+        # of the reference world, from inside its corridor at y = 2.9 m.
+        self.sets = {
+            "demo_wall": (oc.segments_from_polygons(WALL, device=self.dev),
+                          (0.75, 1.0, 0.1), (1.8, 1.0, 0.0), self.demo),
+            "circle_and_wall": (torch.cat([circle, wall]), (0.0, 0.0, 0.0),
+                                (1.0, 0.2, 0.0),
+                                oc.SegmentCostParams(0.1, 1e6, 1e3, 0.2)),
+            "reference_world": (oc.segments_from_polygons(polys,
+                                                          device=self.dev),
+                                (0.7, 2.9, 0.0), (2.5, 2.9, 0.0), self.demo),
+        }
+        self.max_err = 0.0
+
+    def inputs(self, cfg, name, noise_seed=None):
+        segs, pose, xd, params = self.sets[name]
+        u, _, _, noise = self.s.tensors(cfg, u_off=self.U_OFF,
+                                        noise_seed=noise_seed)
+        f32 = dict(dtype=torch.float32, device=self.dev)
+        return (u, torch.tensor(pose, **f32), torch.tensor(xd, **f32), noise,
+                segs, params)
+
+    def compare(self, cfg, name, seed, noise_seed=None):
+        """K1's obstacle mode against its plain version on the same card
+        tensors. Rows of the update (cmd, then u_next[:-1]) above BAR must
+        be near-ties of the float64 solve (see ``rounding_slack``); returns
+        (max |Δ| over the other rows, exempt rows, max |Δ| over all)."""
+        fm = self.fm
+        u, pose, xd, noise, segs, params = self.inputs(cfg, name, noise_seed)
+        cmd, un = fm.mppi_solve_fused(cfg, self.s.model, u, seed, pose, xd,
+                                      noise=noise, obstacles=segs,
+                                      obs_cfg=params)
+        table = fm.pack_obstacles(segs, params, self.dev)
+        seed_t = torch.as_tensor(seed, dtype=torch.int32, device=self.dev)
+        plain = fm._combine_reference(cfg, u, fm._solve_partials_reference(
+            cfg, self.s.model, u, seed_t, pose, xd, noise, table), False)
+        got = torch.cat([cmd[None], un[:-1]])
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("non-finite controls from the kernel")
+        if float(got.abs().max()) > cfg.max_wheel_vel:
+            raise AssertionError("controls not clamped")
+        if noise is None:
+            noise = self.s.philox.mppi_noise(seed_t, cfg.rollouts, cfg.steps,
+                                             float(cfg.ul_var) ** 0.5,
+                                             float(cfg.ur_var) ** 0.5)
+        cost = self.oc.make_segment_obstacle_cost(params, segs,
+                                                  device=self.dev)
+        tie, slack = rounding_slack(self.s.mppi, cfg, self.s.model, u, pose,
+                                    xd, noise, cost)
+        err = (got - plain).abs().cpu().numpy()
+        bad = (err > BAR).any(axis=1)
+        ok = tie | (err <= BAR + slack).all(axis=1)
+        if not ok[bad].all():
+            rows = np.nonzero(bad & ~ok)[0].tolist()
+            raise AssertionError(f"K1 obstacle mode vs plain: rows {rows} "
+                                 f"above {BAR} at K={cfg.rollouts} ({name})")
+        kept = err[~bad]
+        return (float(kept.max()) if kept.size else 0.0, int(bad.sum()),
+                float(err.max()))
+
+    def kernel(self):
+        """Injected noise at K=4,096 and 49,152 on the three obstacle sets,
+        in-kernel Philox at K=49,152, and O=0 through the table equal to
+        the no-obstacle kernel bit for bit."""
+        t0 = time.perf_counter()
+        cases = []
+        for k in (4096, 49152):
+            for name in self.sets:
+                cfg = self.s.cfg(k)
+                err, exempt, err_all = self.compare(cfg, name, 0,
+                                                    noise_seed=k)
+                cases.append({"K": k, "obstacles": name, "noise": "injected",
+                              "O": int(self.sets[name][0].shape[0]),
+                              "max_abs_err": err, "exempt_rows": exempt,
+                              "max_abs_err_all_rows": err_all})
+        for name in ("demo_wall", "reference_world"):
+            cfg = self.s.cfg(49152)
+            err, exempt, err_all = self.compare(cfg, name, 1234567)
+            cases.append({"K": 49152, "obstacles": name, "noise": "philox",
+                          "O": int(self.sets[name][0].shape[0]),
+                          "max_abs_err": err, "exempt_rows": exempt,
+                          "max_abs_err_all_rows": err_all})
+        self.max_err = max(c["max_abs_err"] for c in cases)
+        cfg = self.s.cfg(4096)
+        u, pose, xd, _, _, params = self.inputs(cfg, "demo_wall")
+        none = self.fm.mppi_solve_fused(cfg, self.s.model, u, 5, pose, xd)
+        empty = self.fm.mppi_solve_fused(
+            cfg, self.s.model, u, 5, pose, xd,
+            obstacles=torch.zeros((0, 5), device=self.dev), obs_cfg=params)
+        if not all(torch.equal(a, b) for a, b in zip(none, empty)):
+            raise AssertionError("O=0 differs from the no-obstacle kernel")
+        emit("obstacle_kernel", seconds=time.perf_counter() - t0, bar=BAR,
+             near_tie_rule="float64: two best within max(16, N-t) ulps, or "
+             "the first-order move of that rounding", o0_bit_identical=True,
+             cases=cases)
+
+    def course(self):
+        """The demo's course: Theta* on the port's 80-node PRM around the
+        wall, K=4,096, N=50, run_course_chunked(chunk=240) with the wall's
+        segments in K1's obstacle mode; the demo's own assertions."""
+        from tpunav_torch.control.waypoint_loop import (CourseConfig,
+                                                        course_init,
+                                                        run_course_chunked)
+
+        plan, t_plan = self.plan, time.perf_counter()
+        world = plan.load_obstacle_map(WALL, bounds=[[0.0, 2.0], [0.0, 2.0]],
+                                       resolution=0.05)
+        rm = plan.RoadMap(world, n_nodes=80, k_neighbors=10, clearance=0.18,
+                          seed=2)
+        route = plan.theta_star(rm, rm.add_node(START), rm.add_node(GOAL))
+        if route is None:
+            raise AssertionError("Theta* found no route around the wall")
+        plan_s = time.perf_counter() - t_plan
+        wpts = np.asarray(route, np.float32)[1:]      # skip the start node
+        waypoints = torch.tensor(np.concatenate(
+            [wpts, np.zeros((len(wpts), 1), np.float32)], axis=1),
+            device=self.dev)
+        segs = self.oc.segments_from_polygons(WALL, device=self.dev)
+        cfg = self.s.mppi.MPPIConfig(horizon=0.5, dt=0.01, rollouts=4096)
+        course = CourseConfig(goal_thresh=0.1, tick_dt=1.0 / 60.0,
+                              max_ticks=20_000, use_fused=True)
+        st = course_init(cfg, torch.tensor([START[0], START[1], 0.0]),
+                         seed=0, device=self.dev)
+        chunk, marks, clear = 240, [], [math.inf]
+
+        def on_chunk(s, tel):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            clear[0] = min(clear[0], wall_clearance(tel["pose"].cpu()))
+
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        st = run_course_chunked(cfg, course, self.s.model, waypoints, st,
+                                chunk=chunk, obstacles=segs,
+                                obs_cfg=self.demo, on_chunk=on_chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        ticks = int(st.ticks)
+        pose = st.pose.cpu()
+        if not bool(st.done):
+            raise AssertionError(f"obstacle course incomplete: {ticks} ticks")
+        if not clear[0] > 0.05:
+            raise AssertionError(f"the course scraped the wall: clearance "
+                                 f"{clear[0]} m")
+        if counts != {"K1": ticks, "K2": 0, "K3": 0, "K4": 0}:
+            raise AssertionError(f"launches {counts} for {ticks} ticks: the "
+                                 "course did not run on K1")
+        steady = ((ticks - chunk) / (marks[-1] - marks[0])
+                  if len(marks) > 1 else None)
+        self.course_cfg = (cfg, course, waypoints, segs)
+        self.launches, self.steady = counts["K1"], steady
+        emit("obstacle_course", seconds=wall, K=cfg.rollouts, N=cfg.steps,
+             obstacles=int(segs.shape[0]), route=np.round(route, 4).tolist(),
+             plan_seconds=plan_s, ticks=ticks, done=bool(st.done),
+             final_pose=pose.tolist(), min_wall_clearance_m=clear[0],
+             kernel_launches=counts, first_chunk_seconds=marks[0] - t0,
+             steady_solves_per_s=steady, card=self.card)
+
+    def planning(self):
+        """The grid's labels on the card equal to the CPU's; the 2,000-node
+        PRM with Theta* on the reference world; the potential field on the
+        card reaches its goal (tests/test_planning.py:163-175)."""
+        plan = self.plan
+        t0 = time.perf_counter()
+        ref = plan.REFERENCE_MAP
+        on_card = plan.PlanningGrid(ref, inflation=0.1, device=self.dev)
+        on_cpu = plan.PlanningGrid(ref, inflation=0.1, device="cpu")
+        differ = int((on_card.labels != on_cpu.labels).sum())
+        if differ:
+            raise AssertionError(f"{differ} grid labels differ card vs CPU")
+        t_prm = time.perf_counter()
+        rm = plan.RoadMap(ref, n_nodes=2000, k_neighbors=20, clearance=0.1,
+                          seed=11)
+        path = plan.theta_star(rm, rm.add_node([0.3, 0.3]),
+                               rm.add_node([3.0, 4.4]))
+        prm_s = time.perf_counter() - t_prm
+        if path is None or not all(rm.edge_free(path[i], path[i + 1])
+                                   for i in range(len(path) - 1)):
+            raise AssertionError("the 2,000-node PRM found no free path")
+        square = plan.load_obstacle_map(
+            [[[1.5, 1.5], [2.5, 1.5], [2.5, 2.5], [1.5, 2.5]]],
+            bounds=[[0.0, 4.0], [0.0, 4.0]], resolution=0.1)
+        pf = plan.PotentialField(plan.PotentialFieldConfig(step=0.05,
+                                                           qthresh=0.3),
+                                 square, device=self.dev)
+        t_pf = time.perf_counter()
+        qs = torch.stack(pf.plan([0.5, 1.0], [3.5, 3.0],
+                                 max_steps=500)).cpu().numpy()
+        pf_s = time.perf_counter() - t_pf
+        end = float(np.hypot(*(qs[-1] - [3.5, 3.0])))
+        inside = ((qs > 1.55) & (qs < 2.45)).all(axis=1).any()
+        if not end < 0.06 or inside:
+            raise AssertionError(f"potential field: end {end} m from the "
+                                 f"goal, through the obstacle: {inside}")
+        emit("planning", seconds=time.perf_counter() - t0,
+             grid_cells=int(on_card.labels.size), labels_differ=differ,
+             prm_nodes=2000, prm_theta_star_host_seconds=prm_s,
+             path_nodes=len(path), potential_field_steps=len(qs) - 1,
+             potential_field_seconds=pf_s, potential_field_end_m=end)
+
+    def times(self):
+        """Event ms of K1 in obstacle mode beside its plain version and K1
+        without obstacles (in-kernel Philox), and device µs per launch from
+        torch.profiler, at K=4,096 and 49,152 for O=4 and O=41."""
+        t0 = time.perf_counter()
+        fm, rows = self.fm, []
+        for k in (4096, 49152):
+            cfg = self.s.cfg(k)
+            for name in ("demo_wall", "reference_world"):
+                u, pose, xd, _, segs, params = self.inputs(cfg, name)
+                table = fm.pack_obstacles(segs, params, self.dev)
+                seed = torch.tensor(5, dtype=torch.int32, device=self.dev)
+
+                def kern():
+                    return fm.mppi_solve_fused_packed(
+                        cfg, self.s.model, u, seed, pose, xd, table=table)
+
+                def plain():
+                    return fm._combine_reference(
+                        cfg, u, fm._solve_partials_reference(
+                            cfg, self.s.model, u, seed, pose, xd, None,
+                            table), False)
+
+                prof = profile_device(kern, 20)
+                rows.append({
+                    "K": k, "N": cfg.steps, "O": int(segs.shape[0]),
+                    "kernel_ms": time_ms(kern),
+                    "plain_ms": time_ms(plain, reps=10, warmup=2),
+                    "no_obstacle_kernel_ms": time_ms(
+                        lambda: fm.mppi_solve_fused(cfg, self.s.model, u,
+                                                    seed, pose, xd)),
+                    "device_us": {n: us / 20 for n, (us, _) in prof.items()
+                                  if "mppi_" in n}})
+        self.timing = rows
+        emit("obstacle_times", seconds=time.perf_counter() - t0, reps=30,
+             card=self.card, rows=rows)
+
+    def profile(self):
+        """torch.profiler over 120 steady ticks of the obstacle course:
+        device µs and launches per tick, and the device's idle share
+        against the course's unprofiled steady tick time."""
+        from tpunav_torch.control.waypoint_loop import (_tick, course_init)
+
+        t0 = time.perf_counter()
+        cfg, course, wpts, segs = self.course_cfg
+        table = self.fm.pack_obstacles(segs, self.demo, self.dev)
+        box = [course_init(cfg, torch.tensor([START[0], START[1], 0.0]),
+                           seed=1, device=self.dev)]
+
+        def tick():
+            box[0] = _tick(cfg, course, self.s.model, wpts, box[0], None,
+                           table)
+
+        for _ in range(10):
+            tick()
+        ticks = 120
+        kern = profile_device(tick, ticks)
+        busy = sum(us for us, _ in kern.values()) / ticks
+        tick_us = 1e6 / self.steady if self.steady else None
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+        emit("obstacle_profile", seconds=time.perf_counter() - t0,
+             card=self.card, course_ticks=ticks, device_us_per_tick=busy,
+             kernels_per_tick=sum(c for _, c in kern.values()) / ticks,
+             unprofiled_tick_us=tick_us,
+             device_idle_share=None if tick_us is None else 1 - busy / tick_us,
+             top_kernels_us_per_tick={name[:60]: us / ticks
+                                      for name, (us, _) in top})
+
+
+def wall_clearance(poses) -> float:
+    """The executed poses' closest approach to the demo's wall, 0 inside it
+    (examples/obstacle_mppi_demo.py:61-70)."""
+    p = poses.numpy()
+    dx = np.clip(p[:, 0], 0.95, 1.05) - p[:, 0]
+    dy = np.clip(p[:, 1], 0.7, 1.3) - p[:, 1]
+    d = np.hypot(dx, dy)
+    d[(np.abs(p[:, 0] - 1.0) < 0.05) & (np.abs(p[:, 1] - 1.0) < 0.3)] = 0.0
+    return float(d.min())
+
+
+def rounding_slack(mppi, cfg, model, u, pose, xd, noise, cost):
+    """PR 1's near-tie rule with obstacles, from the float64 solve of the
+    same inputs. Row t of the float32 cost-to-go sums N − t losses, so it
+    may lie ε_t = max(NEAR_TIE_ULPS, N − t) float32 ulps from the float64
+    value. Returns per row whether its two best rollouts lie within ε_t
+    (rounding can swap them), and per row and column how far ε_t of every
+    J moves the update to first order: (ε/λ)·Σ_k w_k·|z_k − ū|."""
+    d = torch.float64
+    z = noise.to(d)                                           # (N, K, 2)
+    loss, _ = mppi.rollout_losses(cfg, model, pose.to(d),
+                                  u.to(d)[None] + z.transpose(0, 1),
+                                  xd.to(d), cost)
+    j = mppi.cost_to_go(loss)                                 # (N, K)
+    n = j.shape[0]
+    ulps = torch.clamp(n - torch.arange(n, device=j.device, dtype=d),
+                       min=NEAR_TIE_ULPS)[:, None]
+
+    def ulp(v):           # float32 spacing at |v|, in float64
+        e = torch.frexp(v.abs().to(torch.float32)).exponent
+        return torch.ldexp(torch.ones_like(v), (e - 24).to(torch.int32))
+
+    two = torch.topk(j, 2, dim=1, largest=False).values
+    tie = (two[:, 1] - two[:, 0]) < ulps[:, 0] * ulp(two[:, 0])
+    eps = ulps * ulp(j)
+    e = torch.exp((two[:, :1] - j) / cfg.lambda_)
+    w = e / e.sum(dim=1, keepdim=True)
+    ubar = torch.einsum("nk,nkc->nc", w, z)
+    slack = torch.einsum("nk,nkc->nc", w * eps,
+                         (z - ubar[:, None]).abs()) / cfg.lambda_
+    return tie.cpu().numpy(), slack.cpu().numpy()
+
+
 def time_ms(fn, reps=30, warmup=5):
     """Median CUDA-event time of ``fn`` in ms over ``reps`` calls."""
     for _ in range(warmup):
@@ -714,14 +1061,18 @@ def bound(nbytes: float, ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_work(k: int, n: int):
-    """K1's bytes (u, pose, goal and seed in, u_next out) and the operations
-    its function needs: per rollout and step about 171 — one Philox4x32-10
-    draw (~100 integer operations; the kernel's replay of it in the
-    reduction is its own design's cost), one Box-Muller pair (~8), the RK4
-    step with its six cos/sin (~35), the loss (~17), the cost-to-go add and
-    the softmax partial (~11)."""
-    return 4 * (2 * n + 3 + 3 + 1 + 2 * n), 171.0 * k * n
+def k1_work(k: int, n: int, n_obs: int = 0):
+    """K1's bytes (u, pose, goal, seed and the (O+1, 5) obstacle table in,
+    u_next out) and the operations its function needs: per rollout and step
+    about 171 — one Philox4x32-10 draw (~100 integer operations; the
+    kernel's replay of it in the reduction is its own design's cost), one
+    Box-Muller pair (~8), the RK4 step with its six cos/sin (~35), the loss
+    (~17), the cost-to-go add and the softmax partial (~11) — and with O
+    obstacle segments about 18·O for the segment distances (projection,
+    clamp, offset, norm, min) plus 8 for the hit test and the field term."""
+    table = 5 * (n_obs + 1) if n_obs else 0
+    ops = 171.0 + (18.0 * n_obs + 8.0 if n_obs else 0.0)
+    return 4 * (2 * n + 3 + 3 + 1 + table + 2 * n), ops * k * n
 
 
 def device_kernels(prof):
@@ -772,6 +1123,12 @@ def main() -> int:
     rbpf.course()
     rbpf.times()
     rbpf.profile()
+    obst = Obstacle(smoke)
+    obst.kernel()
+    obst.course()
+    obst.planning()
+    obst.times()
+    obst.profile()
 
     main_row = smoke.timing[0]
     k1_ms, k1_by = bound(*k1_work(main_row["K"], main_row["N"]))
@@ -801,6 +1158,16 @@ def main() -> int:
             "max_abs_err": rbpf.max_err[key], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+    obst_row = obst.timing[0]                  # K=4,096, O=4: the course's
+    ob_ms, ob_by = bound(*k1_work(obst_row["K"], obst_row["N"],
+                                  obst_row["O"]))
+    kernels.append({
+        "name": "fused_mppi obstacle mode (K1)", "route": "cuda",
+        "source": "tpunav_torch/ops/csrc/fused_mppi.cu",
+        "replaces": "tpunav/ops/pallas_mppi.py:149",
+        "launches": obst.launches, "max_abs_err": obst.max_err,
+        "ms": obst_row["kernel_ms"], "plain_ms": obst_row["plain_ms"],
+        "bound_ms": ob_ms, "bound_by": ob_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {

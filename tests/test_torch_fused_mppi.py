@@ -218,9 +218,11 @@ def test_wrapper_rejects_bad_inputs():
                             noise=noise.transpose(0, 1))
     with pytest.raises(ValueError):
         fm.mppi_solve_fused(cfg, MODEL, u.t().contiguous().t(), 0, pose, xd)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):     # obstacles without obs_cfg
         fm.mppi_solve_fused(cfg, MODEL, u, 0, pose, xd,
                             obstacles=torch.zeros(1, 5))
+    with pytest.raises(ValueError):
+        fm.pack_obstacles(torch.zeros(1, 5), None, device="cpu")
 
 
 # ------------------------------------------------------------ Philox ----

@@ -265,7 +265,9 @@ def test_port_imports_no_jax():
         "        'tpunav_torch.ops.likelihood', 'tpunav_torch.ops.map_update',\n"
         "        'tpunav_torch.estimation.rbpf.particle_filter',\n"
         "        'tpunav_torch.estimation.rbpf.icp', 'tpunav_torch.core.se2',\n"
-        "        'tpunav_torch.sim.lidar', 'tpunav_torch.ops.beams'}\n"
+        "        'tpunav_torch.sim.lidar', 'tpunav_torch.ops.beams',\n"
+        "        'tpunav_torch.control.obstacle_cost',\n"
+        "        'tpunav_torch.planning.prm', 'tpunav_torch.planning.dstar'}\n"
         "assert need <= set(names), need - set(names)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpunav'))\n"

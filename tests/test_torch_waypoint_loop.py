@@ -244,8 +244,8 @@ def test_motor_track_ramps_and_caps():
 def test_course_tick_guards():
     wpts = torch.as_tensor(COURSE, dtype=torch.float32)
     st = course_init(CFG, torch.zeros(3), device="cpu")
-    with pytest.raises(NotImplementedError):
-        course_tick(CFG, CourseConfig(use_fused=True), MODEL, wpts, st,
+    with pytest.raises(ValueError):     # obstacles are fused-kernel only
+        course_tick(CFG, CourseConfig(use_fused=False), MODEL, wpts, st,
                     obstacles=torch.zeros(1, 5))
     with pytest.raises(ValueError):
         course_tick(CFG, CourseConfig(use_fused=True), MODEL, wpts, st,

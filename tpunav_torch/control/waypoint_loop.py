@@ -7,6 +7,12 @@ either backend: the plain solver (``control/mppi.py``) or the fused CUDA
 kernel (``ops/fused_mppi.py``). ``run_course_chunked`` syncs once per
 chunk; ``run_course`` reads ``done`` once per tick so it stops on the same
 tick as ``tpunav``'s ``while_loop``.
+
+Obstacles (BASELINE config 2) enter as in ``tpunav``: the plain backend
+takes an ``extra_cost`` (``control/obstacle_cost.py``), the fused backend
+``obstacles``/``obs_cfg`` for the kernel's obstacle mode. A course packs
+the obstacle table once, not once per tick: a host-to-device copy per
+tick would wait for the card's queue to drain.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve
 from ..models.cart import CartParams, kinematic_cart
-from ..ops.fused_mppi import mppi_solve_fused
+from ..ops.fused_mppi import mppi_solve_fused_packed, pack_obstacles
 from ..ops.rk4 import rk4_step
 from ..sim.motor import MotorParams, track
 from .mppi import MPPIConfig, init_controls, mppi_solve
@@ -77,6 +83,22 @@ def _dist_to_goal(pose, wpt):
     return torch.hypot(pose[0] - wpt[0], pose[1] - wpt[1])
 
 
+def _obstacle_table(course: CourseConfig, st: CourseState, extra_cost,
+                    obstacles, obs_cfg):
+    """``tpunav``'s guards, then the packed obstacle table on the state's
+    device (None without obstacles)."""
+    if course.use_fused and extra_cost is not None:
+        raise ValueError(
+            "extra_cost is plain-path only; with use_fused=True pass the "
+            "kernel's obstacles/obs_cfg instead")
+    if not course.use_fused and (obstacles is not None or
+                                 obs_cfg is not None):
+        raise ValueError(
+            "obstacles/obs_cfg are fused-kernel only; with use_fused=False "
+            "pass extra_cost (control/obstacle_cost.py)")
+    return pack_obstacles(obstacles, obs_cfg, st.pose.device)
+
+
 def course_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
                 waypoints, st: CourseState, extra_cost=None,
                 obstacles=None, obs_cfg=None,
@@ -84,17 +106,20 @@ def course_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
     """One control tick: waypoint advance → MPPI solve → plant step.
 
     ``waypoints``: (W, 3) float32 tensor of [x, y, theta] targets on the
-    state's device. ``noise``: optional (N, K, 2) perturbations for this
-    tick (a parity-test seam): with None the plain backend draws from the
-    state's generator and the fused backend uses in-kernel Philox.
+    state's device. ``extra_cost`` (plain backend) or ``obstacles`` with
+    ``obs_cfg`` (fused backend) add the obstacle cost. ``noise``: optional
+    (N, K, 2) perturbations for this tick (a parity-test seam): with None
+    the plain backend draws from the state's generator and the fused
+    backend uses in-kernel Philox.
     """
-    if course.use_fused and extra_cost is not None:
-        raise ValueError(
-            "extra_cost is plain-path only; the fused kernel's obstacle "
-            "mode is the fused path's cost term")
-    if obstacles is not None or obs_cfg is not None:
-        raise NotImplementedError(
-            "the fused kernel's obstacle mode is not ported yet")
+    table = _obstacle_table(course, st, extra_cost, obstacles, obs_cfg)
+    return _tick(cfg, course, model, waypoints, st, extra_cost, table, noise)
+
+
+def _tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
+          waypoints, st: CourseState, extra_cost, table,
+          noise=None) -> CourseState:
+    """:func:`course_tick` with the obstacle table already packed."""
     n_wpts = waypoints.shape[0]
     d2g = _dist_to_goal(st.pose, _active_waypoint(waypoints, st.wpt_idx))
 
@@ -107,8 +132,8 @@ def course_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
 
     if course.use_fused:
         seed = course.fused_seed + st.ticks          # int32, on the device
-        cmd, u = mppi_solve_fused(cfg, model, st.u, seed, st.pose, wpt,
-                                  noise=noise)
+        cmd, u = mppi_solve_fused_packed(cfg, model, st.u, seed, st.pose,
+                                         wpt, noise, table)
     else:
         cmd, u = mppi_solve(cfg, model, st.u, st.generator, st.pose, wpt,
                             extra_cost, noise=None if noise is None
@@ -132,21 +157,23 @@ def _waypoints_on(st: CourseState, waypoints):
 
 
 def run_course(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
-               waypoints, st: CourseState, extra_cost=None) -> CourseState:
+               waypoints, st: CourseState, extra_cost=None, obstacles=None,
+               obs_cfg=None) -> CourseState:
     """Run ticks until the course completes or ``max_ticks``; stops on the
     same tick as ``tpunav``'s ``while_loop`` (one host read per tick)."""
+    table = _obstacle_table(course, st, extra_cost, obstacles, obs_cfg)
     waypoints = _waypoints_on(st, waypoints)
     ticks = int(st.ticks)
     while ticks < course.max_ticks and not bool(st.done):
-        st = course_tick(cfg, course, model, waypoints, st, extra_cost)
+        st = _tick(cfg, course, model, waypoints, st, extra_cost, table)
         ticks += 1
     return st
 
 
 def run_course_chunked(cfg: MPPIConfig, course: CourseConfig,
                        model: CartParams, waypoints, st: CourseState,
-                       chunk: int = 120, extra_cost=None,
-                       on_chunk=None) -> CourseState:
+                       chunk: int = 120, extra_cost=None, obstacles=None,
+                       obs_cfg=None, on_chunk=None) -> CourseState:
     """Like :func:`run_course` but syncs to the host every ``chunk`` ticks.
 
     ``on_chunk(state, telemetry)`` is called with each chunk's end state;
@@ -154,6 +181,7 @@ def run_course_chunked(cfg: MPPIConfig, course: CourseConfig,
     "wpt_idx": (chunk,), "d2g": (chunk,)}. Rows are PRE-tick samples:
     row i is the state tick i saw, so the stream starts at the initial
     state and the final post-tick pose is only in the returned state."""
+    table = _obstacle_table(course, st, extra_cost, obstacles, obs_cfg)
     waypoints = _waypoints_on(st, waypoints)
     while True:
         tel = {"pose": [], "wpt_idx": [], "d2g": []}
@@ -162,7 +190,7 @@ def run_course_chunked(cfg: MPPIConfig, course: CourseConfig,
             tel["wpt_idx"].append(st.wpt_idx)
             tel["d2g"].append(_dist_to_goal(
                 st.pose, _active_waypoint(waypoints, st.wpt_idx)))
-            st = course_tick(cfg, course, model, waypoints, st, extra_cost)
+            st = _tick(cfg, course, model, waypoints, st, extra_cost, table)
         tel = {name: torch.stack(rows) for name, rows in tel.items()}
         if on_chunk is not None:
             on_chunk(st, tel)

@@ -1,10 +1,11 @@
 """Carries configuration and state across from ``tpunav``, as numpy.
 
-No counterpart in ``tpunav``. Neither path has weights: their parameters
-are the configurations (``MPPIConfig``, ``CartParams``, ``MotorParams``,
-``CourseConfig``; ``PFConfig`` with its ``GridConfig`` and ``ICPConfig``)
-and their state is ``CourseState`` or ``PFState``. Nothing here imports
-jax: the caller hands over plain dicts and numpy arrays.
+No counterpart in ``tpunav``. No path has weights: their parameters are
+the configurations (``MPPIConfig``, ``CartParams``, ``MotorParams``,
+``CourseConfig``; ``SegmentCostParams`` and ``ObstacleCostConfig``;
+``PFConfig`` with its ``GridConfig`` and ``ICPConfig``) and their state is
+``CourseState``, ``PFState`` or a planner's ``RoadMap``. Nothing here
+imports jax: the caller hands over plain dicts and numpy arrays.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 from .control.waypoint_loop import CourseState
 from .device import DEFAULT_DEVICE, resolve
 from .estimation.rbpf.particle_filter import PFState
+from .planning.prm import RoadMap
+from .planning.world import ObstacleMap
 
 _STATE_DTYPES = {"pose": torch.float32, "u": torch.float32,
                  "wpt_idx": torch.int32, "visits": torch.int32,
@@ -89,3 +92,16 @@ def pf_state_to_numpy(st: PFState) -> Dict[str, np.ndarray]:
     behind)."""
     return {name: getattr(st, name).detach().cpu().numpy()
             for name in _PF_DTYPES}
+
+
+def roadmap_from_numpy(obs_map: ObstacleMap, nodes, k_neighbors: int = 10,
+                       clearance: float = 0.15) -> RoadMap:
+    """A ``RoadMap`` over the given (n, 2) node positions (``tpunav``'s
+    sampled ``RoadMap.nodes``, say), connected by the port's own
+    k-nearest-neighbour, collision-checked edges. The port draws its nodes
+    from a ``torch.Generator``, so this is how a roadmap is carried
+    across."""
+    rm = RoadMap.__new__(RoadMap)
+    rm._setup(obs_map, k_neighbors, clearance)
+    rm._build(np.asarray(nodes, np.float64))
+    return rm

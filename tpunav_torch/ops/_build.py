@@ -147,7 +147,7 @@ def load() -> ctypes.CDLL:
         _ptxas_log = _compile(so)
     lib = ctypes.CDLL(str(so))
     vp = ctypes.c_void_p
-    for name, nargs in [("tpunav_mppi_solve", 10),
+    for name, nargs in [("tpunav_mppi_solve", 11),
                         ("tpunav_likelihood_field", 6),
                         ("tpunav_map_update", 9), ("tpunav_edt", 4)]:
         fn = getattr(lib, name)

@@ -15,6 +15,10 @@
 //      The Philox stream is counter-based (key (seed, 0), counter
 //      (k, t, 0, 0)), so the reduction phase regenerates z instead of
 //      storing it, as the TPU kernel re-seeds and replays its PRNG.
+//      With obstacles (BASELINE config 2), each step's loss also pays the
+//      analytic obstacle cost of the TPU kernel's obstacle mode
+//      (pallas_mppi.py:149-175), after the terminal-row overwrite: see
+//      obstacle_cost below.
 //   B. mppi_combine — one 128-thread block per step t. It takes the global
 //      min m_g over the blocks, rescales each block by exp((m_g − m_l)/λ)
 //      and sums, then either writes the combined (N, 6) partials or
@@ -27,7 +31,11 @@
 // at K=49,152 (N=50), so it stays in the 50 MB L2. The design keeps one
 // rollout per thread so the recurrence never leaves registers, and makes
 // the cross-block softmax exact by the rescaled-exponential algebra of
-// combine_softmax_partials instead of atomics.
+// combine_softmax_partials instead of atomics. The obstacle mode adds O
+// segment distances to each step: the block keeps the table in shared
+// memory ((6·O + 4)·4 bytes: 112 B for a 4-segment wall, 1 KB for the
+// reference world's 41 edges), and O is a runtime loop bound, so a new
+// obstacle set needs no new build (the TPU kernel unrolled it statically).
 //
 // Build with -O3 and without --use_fast_math: cosf/sinf/expf/logf are the
 // accurate library functions. At λ=0.01 the softmax is close to a hard
@@ -50,6 +58,7 @@ struct MppiParams {
   int rollouts;      // K
   int steps;         // N
   int partial_out;   // 1: write combined (N, 6) partials instead of u_new
+  int n_obs;         // O: segment rows of the obstacle table (0: none)
   float dt;
   float half_dt;     // 0.5·dt
   float dt6;         // dt/6
@@ -128,15 +137,75 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// Shared-memory layout of the obstacle table: per segment o, kSegFloats
+// floats [ax, ay, abx, aby, r, inv] at 6·o, then the weights row
+// [r_safe, w_hit, w_field, 1/σ] at 6·O.
+constexpr int kSegFloats = 6;
+
+// The block's copy of the packed (O+1, 5) table (pack_obstacles): each
+// segment's b − a and inv = 1/max(|ab|², 1e-12) are formed once here, with
+// the TPU kernel's float32 operations, instead of at every rollout step.
+__device__ void load_obstacles(const float* __restrict__ table, int n_obs,
+                               float* sh) {
+  for (int o = threadIdx.x; o < n_obs; o += kThreads) {
+    const float* row = table + 5 * o;
+    const float ax = row[0], ay = row[1];
+    const float abx = __fsub_rn(row[2], ax);
+    const float aby = __fsub_rn(row[3], ay);
+    const float n2 = __fadd_rn(__fmul_rn(abx, abx), __fmul_rn(aby, aby));
+    float* s = sh + kSegFloats * o;
+    s[0] = ax;
+    s[1] = ay;
+    s[2] = abx;
+    s[3] = aby;
+    s[4] = row[4];
+    s[5] = __fdiv_rn(1.0f, fmaxf(n2, 1e-12f));
+  }
+  if (threadIdx.x < 4) {
+    sh[kSegFloats * n_obs + threadIdx.x] = table[5 * n_obs + threadIdx.x];
+  }
+}
+
+// The obstacle term of one rollout position, added to its step loss l as
+// the TPU kernel adds it: (l + w_hit·[d ≤ r_safe]) + w_field·exp(−(d −
+// r_safe)·inv_σ), where d = min over o of (‖p − proj_o(p)‖ − r_o), taken in
+// the order of pallas_mppi.py:157-168. Every product and sum is an explicit
+// round-to-nearest intrinsic, so nvcc contracts none into a fused
+// multiply-add: at λ=0.01 the softmax turns last-ulp cost differences into
+// weight ratios of e^(100Δ). sqrtf and expf are the accurate library
+// functions (no --use_fast_math).
+__device__ __forceinline__ float obstacle_cost(const float* sh, int n_obs,
+                                               float x, float y, float l) {
+  float d = INFINITY;
+  for (int o = 0; o < n_obs; ++o) {
+    const float* s = sh + kSegFloats * o;
+    float tp = __fmul_rn(__fadd_rn(__fmul_rn(__fsub_rn(x, s[0]), s[2]),
+                                   __fmul_rn(__fsub_rn(y, s[1]), s[3])),
+                         s[5]);
+    tp = fminf(fmaxf(tp, 0.0f), 1.0f);
+    const float px = __fsub_rn(x, __fadd_rn(s[0], __fmul_rn(tp, s[2])));
+    const float py = __fsub_rn(y, __fadd_rn(s[1], __fmul_rn(tp, s[3])));
+    const float dist =
+        sqrtf(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)));
+    d = fminf(d, __fsub_rn(dist, s[4]));
+  }
+  const float* w = sh + kSegFloats * n_obs;
+  const float hit = d <= w[0] ? 1.0f : 0.0f;
+  const float e = expf(__fmul_rn(-__fsub_rn(d, w[0]), w[3]));
+  return __fadd_rn(__fadd_rn(l, __fmul_rn(w[1], hit)), __fmul_rn(w[2], e));
+}
+
 __global__ void __launch_bounds__(kThreads)
 mppi_rollout_partials(MppiParams p, const float* __restrict__ u,
                       const float* __restrict__ pose,
                       const float* __restrict__ xd,
                       const int* __restrict__ seed_ptr,
                       const float* __restrict__ noise,
+                      const float* __restrict__ obstacles,
                       float* __restrict__ J, float* __restrict__ parts) {
   __shared__ float sh_min[kWarps];
   __shared__ float sh_sum[kWarps][5];
+  extern __shared__ float sh_obs[];  // kSegFloats·O + 4 floats
 
   const int K = p.rollouts;
   const int N = p.steps;
@@ -146,6 +215,11 @@ mppi_rollout_partials(MppiParams p, const float* __restrict__ u,
   const int warp = threadIdx.x >> 5;
   const uint32_t seed = noise == nullptr ? (uint32_t)seed_ptr[0] : 0u;
   const float xd0 = xd[0], xd1 = xd[1], xd2 = xd[2];
+  const int n_obs = p.n_obs;
+  if (n_obs > 0) {
+    load_obstacles(obstacles, n_obs, sh_obs);
+    __syncthreads();
+  }
 
   if (valid) {
     // ── Rollout over the horizon; loss column in the (N, K) scratch ──
@@ -184,6 +258,7 @@ mppi_rollout_partials(MppiParams p, const float* __restrict__ u,
         l = p.q0 * ex * ex + p.q1 * ey * ey + p.q2 * et * et +
             p.r0 * ul * ul + p.r1 * ur * ur;
       }
+      if (n_obs > 0) l = obstacle_cost(sh_obs, n_obs, x, y, l);
       J[(size_t)t * K + k] = l;
     }
     // ── Reverse cumulative sum → cost-to-go, down this thread's column ──
@@ -302,19 +377,29 @@ mppi_combine(MppiParams p, const float* __restrict__ u,
 extern "C" {
 
 // One fused MPPI solve on `stream`. Pointers are device pointers; `noise`
-// may be null (in-kernel Philox). `scratch` holds N·K floats, `parts`
-// ceil(K/128)·N·6 floats, `out` N·2 floats (N·6 with partial_out).
-// Returns cudaGetLastError() after both launches.
+// may be null (in-kernel Philox); `obstacles` is the packed (O+1, 5) table
+// with O = params->n_obs, or null when n_obs is 0. `scratch` holds N·K
+// floats, `parts` ceil(K/128)·N·6 floats, `out` N·2 floats (N·6 with
+// partial_out). Returns cudaGetLastError() after both launches.
 int tpunav_mppi_solve(const MppiParams* params, const float* u,
                       const float* pose, const float* xd, const int* seed,
-                      const float* noise, float* scratch, float* parts,
-                      float* out, void* stream) {
+                      const float* noise, const float* obstacles,
+                      float* scratch, float* parts, float* out,
+                      void* stream) {
   const MppiParams p = *params;
   const int blocks = (p.rollouts + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mppi_rollout_partials<<<blocks, kThreads, 0, s>>>(p, u, pose, xd, seed,
-                                                    noise, scratch, parts);
-  cudaError_t err = cudaGetLastError();
+  const size_t smem =
+      p.n_obs > 0 ? (static_cast<size_t>(kSegFloats) * p.n_obs + 4) *
+                        sizeof(float)
+                  : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      mppi_rollout_partials, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mppi_rollout_partials<<<blocks, kThreads, smem, s>>>(
+      p, u, pose, xd, seed, noise, obstacles, scratch, parts);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   mppi_combine<<<p.steps, kThreads, 0, s>>>(p, u, parts, blocks, out);
   return static_cast<int>(cudaGetLastError());

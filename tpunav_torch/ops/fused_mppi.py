@@ -2,8 +2,9 @@
 
 Port of ``tpunav/ops/pallas_mppi.py`` (``_solve_update``,
 ``mppi_solve_partials``, ``combine_softmax_partials``,
-``mppi_solve_fused``). The kernel is hand-written CUDA for Hopper,
-``csrc/fused_mppi.cu``; it replaces the Pallas kernel ``_mppi_kernel``.
+``mppi_solve_fused``, ``pack_obstacles``). The kernel is hand-written CUDA
+for Hopper, ``csrc/fused_mppi.cu``; it replaces the Pallas kernel
+``_mppi_kernel``, its obstacle mode included.
 One solve is two launches: per-128-rollout blocks emit softmax partials
 [m_l, Σe, Σe·z0, Σe·z1, Σz0, Σz1], and a combine kernel merges the blocks
 with the rescaled-exponential algebra of :func:`combine_softmax_partials`
@@ -20,6 +21,15 @@ plain version replays the same stream from ``ops/philox.py``); an
 injected ``noise`` is the time-major (N, K, 2) tensor, which is the TPU
 kernel's (N, K/128, 128, 2) layout reshaped to (N, K, 2). Unlike the TPU
 kernel, any K ≥ 1 is accepted: the ragged last block is masked.
+
+Obstacles (BASELINE config 2): ``obstacles`` (O, 5) segment primitives
+[ax, ay, bx, by, r] and ``obs_cfg`` (``control.obstacle_cost.
+SegmentCostParams``) are packed by :func:`pack_obstacles` into ``tpunav``'s
+(O+1, 5) table, whose last row carries the weights [r_safe, w_hit,
+w_field, 1/σ, 0]. Every rollout step then pays the analytic obstacle cost
+after the terminal-row overwrite, in the TPU kernel's association
+(l + w_hit·hit) + w_field·e. A course packs once and calls
+:func:`mppi_solve_fused_packed` each tick.
 """
 
 from __future__ import annotations
@@ -30,9 +40,10 @@ from typing import Optional
 import torch
 
 from ..control.mppi import MPPIConfig, shift_controls
+from ..device import DEFAULT_DEVICE, resolve
 from ..models.cart import CartParams
 from . import philox
-from ._build import check_launch, check_tensors, load
+from ._build import check_launch, check_shared_memory, check_tensors, load
 
 _BLOCK = 128                # rollouts per block of kernel A
 KERNEL_LAUNCHES = 0         # kernel solves launched (one per solve)
@@ -43,7 +54,7 @@ class _KernelParams(ctypes.Structure):
 
     _fields_ = [
         ("rollouts", ctypes.c_int), ("steps", ctypes.c_int),
-        ("partial_out", ctypes.c_int),
+        ("partial_out", ctypes.c_int), ("n_obs", ctypes.c_int),
         ("dt", ctypes.c_float), ("half_dt", ctypes.c_float),
         ("dt6", ctypes.c_float), ("w_scale", ctypes.c_float),
         ("fwd_scale", ctypes.c_float),
@@ -58,10 +69,10 @@ class _KernelParams(ctypes.Structure):
     ]
 
 
-def _kernel_params(cfg: MPPIConfig, model: CartParams,
-                   partial_out: bool) -> _KernelParams:
+def _kernel_params(cfg: MPPIConfig, model: CartParams, partial_out: bool,
+                   n_obs: int) -> _KernelParams:
     return _KernelParams(
-        cfg.rollouts, cfg.steps, int(partial_out),
+        cfg.rollouts, cfg.steps, int(partial_out), n_obs,
         cfg.dt, 0.5 * cfg.dt, cfg.dt / 6.0,
         model.wheel_radius / model.wheel_base, 0.5 * model.wheel_radius,
         float(cfg.ul_var) ** 0.5, float(cfg.ur_var) ** 0.5,
@@ -69,7 +80,7 @@ def _kernel_params(cfg: MPPIConfig, model: CartParams,
         1.0 / cfg.lambda_, 1e-8 * cfg.rollouts, cfg.max_wheel_vel)
 
 
-def _check_inputs(cfg: MPPIConfig, u, seed, pose_xyt, xd, noise):
+def _check_inputs(cfg: MPPIConfig, u, seed, pose_xyt, xd, noise, table):
     n, k = cfg.steps, cfg.rollouts
     if k < 1 or n < 1:
         raise ValueError(f"need rollouts >= 1 and steps >= 1, got K={k} N={n}")
@@ -77,6 +88,11 @@ def _check_inputs(cfg: MPPIConfig, u, seed, pose_xyt, xd, noise):
     named = [("u", u, (n, 2)), ("pose_xyt", pose_xyt, (3,)), ("xd", xd, (3,))]
     if noise is not None:
         named.append(("noise", noise, (n, k, 2)))
+    if table is not None:
+        if table.dim() != 2 or table.shape[0] < 1:
+            raise ValueError("the obstacle table must be (O+1, 5), from "
+                             "pack_obstacles")
+        named.append(("obstacle table", table, (table.shape[0], 5)))
     check_tensors(named, dev)
     if seed.device != dev or seed.dtype != torch.int32 or seed.numel() != 1:
         raise ValueError("seed must be one int32 value on u's device")
@@ -85,12 +101,41 @@ def _check_inputs(cfg: MPPIConfig, u, seed, pose_xyt, xd, noise):
 # ── The plain version: the kernel's decomposition in plain torch ──
 
 
+def _segment_constants(table):
+    """Per segment of a packed table: a, b − a, r and inv = 1/max(|ab|²,
+    1e-12), formed once as the kernel forms them per block; then the
+    weights row [r_safe, w_hit, w_field, 1/σ, 0]."""
+    seg = table[:-1]
+    ax, ay = seg[:, 0], seg[:, 1]
+    abx = seg[:, 2] - ax
+    aby = seg[:, 3] - ay
+    n2 = torch.clamp(abx * abx + aby * aby, min=1e-12)
+    inv = torch.ones_like(n2) / n2      # tensor / tensor: a true division
+    return ax, ay, abx, aby, seg[:, 4], inv, table[-1]
+
+
+def _add_obstacle_cost(loss, x, y, consts):
+    """loss (K,) plus the obstacle cost of the (K,) positions, in the
+    kernel's order: d is the min over segments (exact, so its order does
+    not matter), then (l + w_hit·hit) + w_field·exp(−(d − r_safe)·inv_σ)."""
+    ax, ay, abx, aby, rr, inv, w = consts
+    xo, yo = x[:, None], y[:, None]                          # (K, 1)
+    tp = torch.clamp(((xo - ax) * abx + (yo - ay) * aby) * inv, 0.0, 1.0)
+    px = xo - (ax + tp * abx)
+    py = yo - (ay + tp * aby)
+    d = torch.amin(torch.sqrt(px * px + py * py) - rr, dim=1)
+    hit = (d <= w[0]).to(loss.dtype)
+    return (loss + w[1] * hit) + w[2] * torch.exp(-(d - w[0]) * w[3])
+
+
 def _solve_partials_reference(cfg: MPPIConfig, model: CartParams, u, seed,
-                              pose_xyt, xd, noise=None):
+                              pose_xyt, xd, noise=None, table=None):
     """Kernel A in plain torch: (blocks, N, 6) softmax partials
     [m_l, Σe, Σe·z0, Σe·z1, Σz0, Σz1] over each block of 128 rollouts, with
-    the same RK4 and loss expressions as the kernel."""
+    the same RK4, loss and obstacle expressions as the kernel."""
     n, k = cfg.steps, cfg.rollouts
+    consts = (None if table is None or table.shape[0] == 1
+              else _segment_constants(table))
     if noise is None:
         noise = philox.mppi_noise(seed, k, n, float(cfg.ul_var) ** 0.5,
                                   float(cfg.ur_var) ** 0.5)
@@ -124,10 +169,13 @@ def _solve_partials_reference(cfg: MPPIConfig, model: CartParams, u, seed,
         th = th + dt6 * (w + 2.0 * (w + w) + w)
         ex, ey, et = x - xd[0], y - xd[1], th - xd[2]
         if t == n - 1:   # the terminal loss replaces the running loss
-            rows.append(p0 * ex * ex + p1 * ey * ey + p2 * et * et)
+            row = p0 * ex * ex + p1 * ey * ey + p2 * et * et
         else:
-            rows.append(q0 * ex * ex + q1 * ey * ey + q2 * et * et +
-                        r0 * ul * ul + r1 * ur * ur)
+            row = (q0 * ex * ex + q1 * ey * ey + q2 * et * et +
+                   r0 * ul * ul + r1 * ur * ur)
+        if consts is not None:
+            row = _add_obstacle_cost(row, x, y, consts)
+        rows.append(row)
     j = torch.flip(torch.cumsum(torch.flip(torch.stack(rows), (0,)), 0),
                    (0,))                                     # (N, K)
 
@@ -179,22 +227,26 @@ def _combine_reference(cfg: MPPIConfig, u, parts, partial_out: bool):
 
 
 def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
-            noise, partial_out: bool):
+            noise, table, partial_out: bool):
     global KERNEL_LAUNCHES
     lib = load()
     n, k = cfg.steps, cfg.rollouts
+    n_obs = 0 if table is None else table.shape[0] - 1
+    if n_obs:
+        check_shared_memory(lib, 4 * (6 * n_obs + 4), "the obstacle table")
     blocks = -(-k // _BLOCK)
     scratch = torch.empty((n, k), dtype=torch.float32, device=u.device)
     parts = torch.empty((blocks, n, 6), dtype=torch.float32, device=u.device)
     out = torch.empty((n, 6 if partial_out else 2), dtype=torch.float32,
                       device=u.device)
-    params = _kernel_params(cfg, model, partial_out)
+    params = _kernel_params(cfg, model, partial_out, n_obs)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpunav_mppi_solve(
             ctypes.addressof(params), u.data_ptr(), pose_xyt.data_ptr(),
             xd.data_ptr(), seed.data_ptr(),
             None if noise is None else noise.data_ptr(),
+            table.data_ptr() if n_obs else None,
             scratch.data_ptr(), parts.data_ptr(), out.data_ptr(), stream)
     check_launch(lib, err, "fused MPPI")
     KERNEL_LAUNCHES += 1
@@ -202,24 +254,41 @@ def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
 
 
 def _solve_update(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt,
-                  xd, noise=None, partial_out=False):
+                  xd, noise=None, table=None, partial_out=False):
     """One fused solve; returns the updated (N, 2) controls before the
-    shift, or the merged (N, 6) partials with ``partial_out``."""
+    shift, or the merged (N, 6) partials with ``partial_out``. ``table``:
+    the packed obstacles of :func:`pack_obstacles`, or None."""
     seed = torch.as_tensor(seed, dtype=torch.int32, device=u.device)
-    _check_inputs(cfg, u, seed, pose_xyt, xd, noise)
+    _check_inputs(cfg, u, seed, pose_xyt, xd, noise, table)
     if u.is_cuda:
-        return _launch(cfg, model, u, seed, pose_xyt, xd, noise, partial_out)
+        return _launch(cfg, model, u, seed, pose_xyt, xd, noise, table,
+                       partial_out)
     if u.device.type != "cpu":
         raise ValueError(f"no fused MPPI path for device {u.device}")
     parts = _solve_partials_reference(cfg, model, u, seed, pose_xyt, xd,
-                                      noise)
+                                      noise, table)
     return _combine_reference(cfg, u, parts, partial_out)
 
 
-def _no_obstacles(obstacles, obs_cfg):
-    if obstacles is not None or obs_cfg is not None:
-        raise NotImplementedError(
-            "the fused kernel's obstacle mode is not ported yet")
+def pack_obstacles(obstacles, obs_cfg, device=DEFAULT_DEVICE):
+    """``tpunav``'s packed obstacle table: the (O, 5) segment primitives
+    [ax, ay, bx, by, r] as float32, then the row [r_safe, w_hit, w_field,
+    1/σ, 0] of ``obs_cfg`` (``SegmentCostParams``), formed in double and
+    rounded once to float32. Returns the (O+1, 5) table on ``device``, or
+    None when both are None; raises when only one is given."""
+    if obstacles is None and obs_cfg is None:
+        return None
+    if obstacles is None or obs_cfg is None:
+        raise ValueError("pass obstacles and obs_cfg together")
+    seg = torch.as_tensor(obstacles, dtype=torch.float32)
+    if seg.dim() != 2 or seg.shape[1] != 5:
+        raise ValueError(f"obstacles must be (O, 5) segment rows, got "
+                         f"{tuple(seg.shape)}")
+    row = torch.tensor([[obs_cfg.r_safe, obs_cfg.w_hit, obs_cfg.w_field,
+                         1.0 / obs_cfg.sigma, 0.0]], dtype=torch.float64)
+    table = torch.cat([seg.cpu(), row.to(torch.float32)])
+    # A course packs once; the copy does not wait for the card's queue.
+    return table.to(resolve(device), non_blocking=True)
 
 
 def mppi_solve_partials(cfg: MPPIConfig, model: CartParams, u, seed,
@@ -228,8 +297,8 @@ def mppi_solve_partials(cfg: MPPIConfig, model: CartParams, u, seed,
     """Fused solve returning the (N, 6) softmax partials
     [m_l, Σe, Σe·z0, Σe·z1, Σz0, Σz1] (e = exp((m_l−j)/λ)) of this K, for
     merging across shards with :func:`combine_softmax_partials`."""
-    _no_obstacles(obstacles, obs_cfg)
     return _solve_update(cfg, model, u, seed, pose_xyt, xd, noise,
+                         pack_obstacles(obstacles, obs_cfg, u.device),
                          partial_out=True)
 
 
@@ -252,8 +321,18 @@ def mppi_solve_fused(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt,
     ``seed``: int32 scalar (an int or a 0-dim device tensor) keying the
     in-kernel Philox stream. ``noise``: optional (N, K, 2) time-major
     scaled perturbations that bypass in-kernel sampling (parity tests).
-    Returns (wheel_cmd (2,), u_next (N, 2)) like ``mppi_solve``.
+    ``obstacles`` ((O, 5) segment primitives) with ``obs_cfg``
+    (``SegmentCostParams``) add the analytic obstacle cost to every rollout
+    step. Returns (wheel_cmd (2,), u_next (N, 2)) like ``mppi_solve``.
     """
-    _no_obstacles(obstacles, obs_cfg)
-    u_new = _solve_update(cfg, model, u, seed, pose_xyt, xd, noise)
+    return mppi_solve_fused_packed(
+        cfg, model, u, seed, pose_xyt, xd, noise,
+        pack_obstacles(obstacles, obs_cfg, u.device))
+
+
+def mppi_solve_fused_packed(cfg: MPPIConfig, model: CartParams, u, seed,
+                            pose_xyt, xd, noise=None, table=None):
+    """:func:`mppi_solve_fused` on an obstacle table already packed by
+    :func:`pack_obstacles` (or None), as a course calls it every tick."""
+    u_new = _solve_update(cfg, model, u, seed, pose_xyt, xd, noise, table)
     return u_new[0], shift_controls(cfg, u_new)
