@@ -24,11 +24,20 @@ drives the port's three paths:
 and times every kernel beside its plain version. Each phase prints one
 JSON line; any failure raises and the script exits non-zero. It needs
 CUDA and has no CPU path. The last line is {"ok": true, "device": {...}}.
+
+Phase ``kernel_times`` (:func:`kernel_times`) times K1, K3 and K4 through
+their public entry points only, at the shapes their designs are judged
+at, and prints digests of K3's and K4's outputs. It takes the
+``tpunav_torch`` that ``sys.path`` finds first, so the same code can time
+another checkout's package: run ``Smoke``, ``Rbpf``, ``Obstacle`` and
+``kernel_times`` from this file (``runpy.run_path``) with that checkout's
+root first on ``sys.path``; equal digests mean bit-identical outputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -211,6 +220,34 @@ class Smoke:
         emit("edge_probes", seconds=time.perf_counter() - t0,
              finite_and_clamped=True, abs_diff_vs_plain=out)
 
+    def horizons(self):
+        """K1 against its plain version where the block's layout changes:
+        a horizon longer than one 64-step chunk (N=70), one longer than the
+        256 steps kept in shared memory (N=300: noise and cost-to-go in the
+        global scratch), and ragged 32-rollout blocks (K = 1, 33, 101), on
+        injected noise. Rows above BAR must be near-ties of the float64
+        solve (``gate_rows``)."""
+        t0 = time.perf_counter()
+        cases = []
+        for k, n in [(4096, 70), (4096, 300), (1, 70), (33, 70), (101, 300)]:
+            cfg = self.mppi.MPPIConfig(horizon=n * 0.01, dt=0.01, rollouts=k)
+            assert cfg.steps == n
+            u, pose, xd, noise = self.tensors(cfg, u_off=(0.5, -0.2),
+                                              noise_seed=k + n)
+            cmd, un = self.fm.mppi_solve_fused(cfg, self.model, u, 0, pose,
+                                               xd, noise=noise)
+            cmd_p, un_p = self.plain(cfg, u, 0, pose, xd, noise)
+            err, exempt, err_all = gate_rows(
+                self.mppi, cfg, self.model, torch.cat([cmd[None], un[:-1]]),
+                torch.cat([cmd_p[None], un_p[:-1]]), u, pose, xd, noise, None,
+                f"K1 at K={k}, N={n}")
+            self.max_err = max(self.max_err, err)
+            cases.append({"K": k, "N": n, "max_abs_err": err,
+                          "exempt_rows": exempt,
+                          "max_abs_err_all_rows": err_all})
+        emit("horizons", seconds=time.perf_counter() - t0, bar=BAR,
+             cases=cases)
+
     def flagship(self):
         """The demo's flagship course: configs/mppi_params.yaml at horizon
         0.5 s and K=4,096, diff_params.yaml, the real_waypoints.yaml
@@ -297,21 +334,12 @@ class Smoke:
              card=self.card, rows=rows)
 
     def profile(self):
-        """Device time by kernel (torch.profiler): per fused solve at each
-        K, and per tick of the flagship course, with the device's idle
-        share against the unprofiled steady tick time of the course."""
+        """Device time by kernel (torch.profiler) per tick of the flagship
+        course, with the device's idle share against the unprofiled steady
+        tick time of the course (K1 alone: ``kernel_times``)."""
         from tpunav_torch.control.waypoint_loop import course_tick
 
         t0 = time.perf_counter()
-        solves = {}
-        for k in (4096, 49152):
-            cfg = self.cfg(k)
-            u, pose, xd, _ = self.tensors(cfg)
-            seed = torch.tensor(5, dtype=torch.int32, device=self.dev)
-            kern = profile_device(lambda: self.fm.mppi_solve_fused(
-                cfg, self.model, u, seed, pose, xd), 20)
-            solves[k] = {name: us / 20 for name, (us, _) in kern.items()
-                         if "mppi_" in name}
         cfg, course, wpts, st = self.flagship()
         box = [st]
 
@@ -326,8 +354,7 @@ class Smoke:
         tick_us = 1e6 / self.steady if self.steady else None
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
         emit("profile", seconds=time.perf_counter() - t0,
-             card=self.card, solve_device_us=solves,
-             course_ticks=ticks, device_us_per_tick=busy,
+             card=self.card, course_ticks=ticks, device_us_per_tick=busy,
              kernels_per_tick=sum(c for _, c in kern.values()) / ticks,
              unprofiled_tick_us=tick_us,
              device_idle_share=None if tick_us is None else 1 - busy / tick_us,
@@ -361,6 +388,10 @@ class Rbpf:
         self.g80 = grid.GridConfig(resolution=0.05, **beams)
         self.g160 = grid.GridConfig(resolution=0.05, xmin=-4.0, xmax=4.0,
                                     ymin=-4.0, ymax=4.0, **beams)
+        # A 4 × 2.4 m map, 48 rows × 80 columns: an exchange of H and W in a
+        # kernel shows here.
+        self.g48x80 = grid.GridConfig(resolution=0.05, ymin=-1.2, ymax=1.2,
+                                      **beams)
         self.cfg = particle_filter.PFConfig(
             num_particles=self.P, k_samples=self.K,
             sample_range=(1e-6, 1e-5, 1e-5), motion_noise=(1e-6, 1e-5, 1e-5),
@@ -423,10 +454,11 @@ class Rbpf:
         """K3 against its plain version (grids atol 1e-3/rtol 1e-4, dist
         atol 1e-4: tests_tpu/test_tpu_gate.py:218-220), its beam index
         against the plain quantizer (0 mismatches), and K4 on K3's grids
-        bit for bit against K3's fields."""
+        bit for bit against K3's fields, on square maps and a 48×80 one."""
         t0 = time.perf_counter()
         cases = []
-        for gcfg, p in [(self.g80, 8), (self.g80, 500), (self.g160, 40)]:
+        for gcfg, p in [(self.g80, 8), (self.g80, 500), (self.g160, 40),
+                        (self.g48x80, 40)]:
             scan, poses, grids, _ = self.world(gcfg, p)
             beam = torch.empty(grids.shape, dtype=torch.int32, device=self.dev)
             g_k, d_k = self.mu.map_update_batch(gcfg, grids, scan, poses,
@@ -437,7 +469,7 @@ class Rbpf:
             torch.cuda.synchronize()
             torch.testing.assert_close(g_k, g_p, rtol=1e-4, atol=1e-3)
             torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-4)
-            row = {"P": p, "map": gcfg.height,
+            row = {"P": p, "map": [gcfg.height, gcfg.width],
                    "grid_max_abs_err": float((g_k - g_p).abs().max()),
                    "dist_max_abs_err": float((d_k - d_p).abs().max()),
                    "beam_index_mismatches": int((beam.long() != beam_p).sum()),
@@ -556,12 +588,11 @@ class Rbpf:
         # K2: per valid (sample, beam) the endpoint (8), its cell (10) and
         # the mixture with its sum (7); cos and sin per sample.
         k2 = (4 * (p * hw + p * k * 3 + b + p * k), p * k * (25 * valid + 2))
-        # An exact EDT needs O(1) work per cell, whatever these kernels'
-        # O(H) column pass spends: the two row sweeps and the square (5);
-        # a linear-time lower envelope down each column, where each cell
-        # enters and leaves the envelope once, at most two intersection
-        # tests of ~8 operations (16), and its evaluation (4); sqrt·res
-        # and the cap (3).
+        # An exact EDT needs O(1) work per cell: the two row sweeps and the
+        # square (5); a linear-time lower envelope down each column, where
+        # each cell enters and leaves the envelope once, at most two
+        # intersection tests of ~8 operations (16), and its evaluation (4);
+        # sqrt·res and the cap (3).
         edt = 5 + 16 + 4 + 3
         # K3 per cell: bearing, quantizer, dilation, free test, mass and
         # update (55) then the EDT; per valid beam its endpoint cell (16).
@@ -720,29 +751,15 @@ class Obstacle:
         plain = fm._combine_reference(cfg, u, fm._solve_partials_reference(
             cfg, self.s.model, u, seed_t, pose, xd, noise, table), False)
         got = torch.cat([cmd[None], un[:-1]])
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError("non-finite controls from the kernel")
-        if float(got.abs().max()) > cfg.max_wheel_vel:
-            raise AssertionError("controls not clamped")
         if noise is None:
             noise = self.s.philox.mppi_noise(seed_t, cfg.rollouts, cfg.steps,
                                              float(cfg.ul_var) ** 0.5,
                                              float(cfg.ur_var) ** 0.5)
         cost = self.oc.make_segment_obstacle_cost(params, segs,
                                                   device=self.dev)
-        tie, slack = rounding_slack(self.s.mppi, cfg, self.s.model, u, pose,
-                                    xd, noise, cost)
-        err = (got - plain).abs().cpu().numpy()
-        bad = (err > BAR).any(axis=1)
-        ok = tie | (err <= BAR + slack).all(axis=1)
-        if not ok[bad].all():
-            rows = np.nonzero(bad & ~ok)[0].tolist()
-            raise AssertionError(f"K1 obstacle mode vs plain: rows {rows} "
-                                 f"above {BAR} at K={cfg.rollouts} ({name})")
-        kept = err[~bad]
-        return (float(kept.max()) if kept.size else 0.0, int(bad.sum()),
-                float(err.max()))
+        return gate_rows(self.s.mppi, cfg, self.s.model, got, plain, u, pose,
+                         xd, noise, cost,
+                         f"K1 obstacle mode at K={cfg.rollouts} ({name})")
 
     def kernel(self):
         """Injected noise at K=4,096 and 49,152 on the three obstacle sets,
@@ -888,8 +905,8 @@ class Obstacle:
 
     def times(self):
         """Event ms of K1 in obstacle mode beside its plain version and K1
-        without obstacles (in-kernel Philox), and device µs per launch from
-        torch.profiler, at K=4,096 and 49,152 for O=4 and O=41."""
+        without obstacles (in-kernel Philox), at K=4,096 and 49,152 for O=4
+        and O=41 (device µs: ``kernel_times``)."""
         t0 = time.perf_counter()
         fm, rows = self.fm, []
         for k in (4096, 49152):
@@ -909,16 +926,13 @@ class Obstacle:
                             cfg, self.s.model, u, seed, pose, xd, None,
                             table), False)
 
-                prof = profile_device(kern, 20)
                 rows.append({
                     "K": k, "N": cfg.steps, "O": int(segs.shape[0]),
                     "kernel_ms": time_ms(kern),
                     "plain_ms": time_ms(plain, reps=10, warmup=2),
                     "no_obstacle_kernel_ms": time_ms(
                         lambda: fm.mppi_solve_fused(cfg, self.s.model, u,
-                                                    seed, pose, xd)),
-                    "device_us": {n: us / 20 for n, (us, _) in prof.items()
-                                  if "mppi_" in n}})
+                                                    seed, pose, xd))})
         self.timing = rows
         emit("obstacle_times", seconds=time.perf_counter() - t0, reps=30,
              card=self.card, rows=rows)
@@ -955,6 +969,65 @@ class Obstacle:
                                       for name, (us, _) in top})
 
 
+def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
+    """Device µs per call (torch.profiler over 50 calls, after 5) of K1 with
+    in-kernel Philox at K=4,096 and 49,152, N=50, without obstacles, with
+    the demo's wall (O=4) and with the reference world's 41 edges; and of
+    K3 and K4 at P=500 on 80×80 and P=40 on 160×160 on the gate's world,
+    with a sha256 of K3's grids and fields and of K4's fields."""
+    import tpunav_torch
+
+    t0, reps = time.perf_counter(), 50
+    fm, mu, dev = smoke.fm, rbpf.mu, smoke.dev
+    seed = torch.tensor(5, dtype=torch.int32, device=dev)
+
+    def device_us(fn, tags):
+        for _ in range(5):
+            fn()
+        kern = profile_device(fn, reps)
+        return {tag: sum(us for key, (us, _) in kern.items() if tag in key)
+                / reps for tag in tags}
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    k1 = []
+    for k in (4096, 49152):
+        cfg = smoke.cfg(k)
+        for name in (None, "demo_wall", "reference_world"):
+            if name is None:
+                u, pose, xd, _ = smoke.tensors(cfg)
+                fn = (lambda: fm.mppi_solve_fused(cfg, smoke.model, u, seed,
+                                                  pose, xd))
+                n_obs = 0
+            else:
+                u, pose, xd, _, segs, params = obst.inputs(cfg, name)
+                table = fm.pack_obstacles(segs, params, dev)
+                fn = (lambda: fm.mppi_solve_fused_packed(
+                    cfg, smoke.model, u, seed, pose, xd, table=table))
+                n_obs = int(segs.shape[0])
+            us = device_us(fn, ("mppi_rollout_partials", "mppi_combine"))
+            k1.append({"K": k, "N": cfg.steps, "O": n_obs, "device_us": us,
+                       "total_us": sum(us.values())})
+    maps = []
+    for gcfg, p in [(rbpf.g80, 500), (rbpf.g160, 40)]:
+        scan, poses, grids, _ = rbpf.world(gcfg, p)
+        k3 = device_us(lambda: mu.map_update_batch(gcfg, grids, scan, poses),
+                       ("map_update_kernel",))["map_update_kernel"]
+        g, d = mu.map_update_batch(gcfg, grids, scan, poses)
+        k4 = device_us(lambda: mu.edt_batch(gcfg, g), ("edt_kernel",))
+        maps.append({"P": p, "map": [gcfg.height, gcfg.width],
+                     "K3_device_us": k3, "K4_device_us": k4["edt_kernel"],
+                     "K3_sha256": digest(g, d),
+                     "K4_sha256": digest(mu.edt_batch(gcfg, g))})
+    emit("kernel_times", seconds=time.perf_counter() - t0, card=smoke.card,
+         package=os.path.dirname(tpunav_torch.__file__), reps=reps, k1=k1,
+         maps=maps)
+
+
 def wall_clearance(poses) -> float:
     """The executed poses' closest approach to the demo's wall, 0 inside it
     (examples/obstacle_mppi_demo.py:61-70)."""
@@ -964,6 +1037,27 @@ def wall_clearance(poses) -> float:
     d = np.hypot(dx, dy)
     d[(np.abs(p[:, 0] - 1.0) < 0.05) & (np.abs(p[:, 1] - 1.0) < 0.3)] = 0.0
     return float(d.min())
+
+
+def gate_rows(mppi, cfg, model, got, plain, u, pose, xd, noise, cost, what):
+    """K1's update rows (cmd, then u_next[:-1]) against its plain
+    version's: a row may lie above BAR only where the float64 solve shows a
+    near-tie (``rounding_slack``). Returns (max |Δ| over the other rows,
+    exempt rows, max |Δ| over all rows); raises on a row that is neither."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite controls from the kernel")
+    if float(got.abs().max()) > cfg.max_wheel_vel:
+        raise AssertionError(f"{what}: controls not clamped")
+    tie, slack = rounding_slack(mppi, cfg, model, u, pose, xd, noise, cost)
+    err = (got - plain).abs().cpu().numpy()
+    bad = (err > BAR).any(axis=1)
+    ok = tie | (err <= BAR + slack).all(axis=1)
+    if not ok[bad].all():
+        rows = np.nonzero(bad & ~ok)[0].tolist()
+        raise AssertionError(f"{what} vs plain: rows {rows} above {BAR}")
+    kept = err[~bad]
+    return (float(kept.max()) if kept.size else 0.0, int(bad.sum()),
+            float(err.max()))
 
 
 def rounding_slack(mppi, cfg, model, u, pose, xd, noise, cost):
@@ -987,8 +1081,10 @@ def rounding_slack(mppi, cfg, model, u, pose, xd, noise, cost):
         e = torch.frexp(v.abs().to(torch.float32)).exponent
         return torch.ldexp(torch.ones_like(v), (e - 24).to(torch.int32))
 
-    two = torch.topk(j, 2, dim=1, largest=False).values
-    tie = (two[:, 1] - two[:, 0]) < ulps[:, 0] * ulp(two[:, 0])
+    two = torch.topk(j, min(2, j.shape[1]), dim=1, largest=False).values
+    # With one rollout there is no second best to tie with.
+    tie = ((two[:, -1] - two[:, 0]) < ulps[:, 0] * ulp(two[:, 0])) & (
+        two.shape[1] == 2)
     eps = ulps * ulp(j)
     e = torch.exp((two[:, :1] - j) / cfg.lambda_)
     w = e / e.sum(dim=1, keepdim=True)
@@ -1064,8 +1160,7 @@ def bound(nbytes: float, ops: float):
 def k1_work(k: int, n: int, n_obs: int = 0):
     """K1's bytes (u, pose, goal, seed and the (O+1, 5) obstacle table in,
     u_next out) and the operations its function needs: per rollout and step
-    about 171 — one Philox4x32-10 draw (~100 integer operations; the
-    kernel's replay of it in the reduction is its own design's cost), one
+    about 171 — one Philox4x32-10 draw (~100 integer operations), one
     Box-Muller pair (~8), the RK4 step with its six cos/sin (~35), the loss
     (~17), the cost-to-go add and the softmax partial (~11) — and with O
     obstacle segments about 18·O for the segment distances (projection,
@@ -1114,6 +1209,7 @@ def main() -> int:
     smoke.partials()
     smoke.in_kernel_philox()
     smoke.edge_probes()
+    smoke.horizons()
     smoke.course()
     smoke.times()
     smoke.profile()
@@ -1129,6 +1225,7 @@ def main() -> int:
     obst.planning()
     obst.times()
     obst.profile()
+    kernel_times(smoke, rbpf, obst)
 
     main_row = smoke.timing[0]
     k1_ms, k1_by = bound(*k1_work(main_row["K"], main_row["N"]))

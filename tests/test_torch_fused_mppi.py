@@ -1,12 +1,14 @@
 """The fused MPPI solve (kernel K1) of the port against ``tpunav``.
 
 On the CPU the wrapper runs the kernel's plain version, in the kernel's
-own decomposition (128-rollout blocks of softmax partials, then the
+own decomposition (32-rollout blocks of softmax partials, then the
 combine). It is held against ``tpunav.ops.pallas_mppi`` in Pallas
 interpret mode with injected noise, at the bars of
-``tests/test_pallas_mppi.py`` (rtol 1e-4, atol 1e-5, float32). The
-kernel itself runs only on a CUDA card, where ``chip_smoke.py`` compares
-it with this plain version.
+``tests/test_pallas_mppi.py`` (rtol 1e-4, atol 1e-5, float32); at a K
+that the Pallas kernel does not take (not a multiple of its 128 lanes),
+against ``tpunav``'s XLA solver on the same noise. The kernel itself runs
+only on a CUDA card, where ``chip_smoke.py`` compares it with this plain
+version.
 """
 
 import dataclasses
@@ -29,6 +31,7 @@ torch.set_num_threads(1)
 MODEL = CartParams(0.033, 0.160)
 J_MODEL = JCartParams(0.033, 0.160)
 F32 = jnp.float32
+R = fm._BLOCK                  # rollouts per block of the kernel
 
 
 def _cfgs(k, n):
@@ -56,6 +59,21 @@ def _jax_kernel_noise(noise):
 
 def _torch(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _tpunav_solve(jcfg, u, pose, xd, noise):
+    """``tpunav``'s solve of the same float32 inputs: its Pallas kernel in
+    interpret mode where K is a multiple of its 128 lanes, else its XLA
+    solver (rollout_losses, cost_to_go, update_controls) on the noise."""
+    ju, jpose, jxd = (jnp.asarray(a, F32) for a in (u, pose, xd))
+    if jcfg.rollouts % 128 == 0:
+        return jp.mppi_solve_fused(jcfg, J_MODEL, ju, 0, jpose, jxd,
+                                   noise=_jax_kernel_noise(noise),
+                                   interpret=True)
+    jnoise = jnp.asarray(noise.transpose(1, 0, 2), F32)      # (K, N, 2)
+    loss, _ = jm.rollout_losses(jcfg, J_MODEL, jpose, ju[None] + jnoise, jxd)
+    u_new = jm.update_controls(jcfg, ju, jnoise, jm.cost_to_go(loss))
+    return u_new[0], jm.shift_controls(jcfg, u_new)
 
 
 @pytest.mark.parametrize("k,n", [(128, 10), (256, 25)])
@@ -114,13 +132,14 @@ def test_partials_match_tpunav_row_for_row():
 
 
 def test_partials_of_halves_combine_to_full_solve():
-    cfg = tm.MPPIConfig(horizon=0.2, dt=0.01, rollouts=384)
+    h = 3 * R + 5                                     # ragged 32-blocks
+    cfg = tm.MPPIConfig(horizon=0.2, dt=0.01, rollouts=2 * h)
     u, pose, xd, noise = _inputs(cfg, seed=5, u_off=(0.2, 0.6))
     tu, tpose, txd, tnoise = _torch(u, pose, xd, noise)
-    half = dataclasses.replace(cfg, rollouts=192)      # ragged 128-blocks
+    half = dataclasses.replace(cfg, rollouts=h)
     parts = torch.stack([
         fm.mppi_solve_partials(half, MODEL, tu, 0, tpose, txd,
-                               noise=tnoise[:, 192 * s:192 * (s + 1)]
+                               noise=tnoise[:, h * s:h * (s + 1)]
                                .contiguous())
         for s in range(2)])
     cmd, un = fm.combine_softmax_partials(
@@ -134,9 +153,63 @@ def test_partials_of_halves_combine_to_full_solve():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("k,n", [(1, 70), (R - 1, 70), (R + 1, 70),
+                                 (3 * R + 5, 70), (3 * R + 5, 12),
+                                 (128, 70)])
+def test_block_decomposition_matches_tpunav(k, n):
+    """The plain version's 32-rollout blocks, the last one ragged and
+    masked, against ``tpunav`` at K ∈ {1, R−1, R+1, 3R+5} and at 128 (its
+    Pallas kernel), over a horizon longer than one of the kernel's
+    64-step chunks."""
+    jcfg, cfg = _cfgs(k, n)
+    u, pose, xd, noise = _inputs(cfg, seed=k + n, u_off=(0.4, 0.2))
+    cmd_j, un_j = _tpunav_solve(jcfg, u, pose, xd, noise)
+    tu, tpose, txd, tnoise = _torch(u, pose, xd, noise)
+    cmd, un = fm.mppi_solve_fused(cfg, MODEL, tu, 0, tpose, txd,
+                                  noise=tnoise)
+    assert fm._solve_partials_reference(
+        cfg, MODEL, tu, torch.tensor(0, dtype=torch.int32), tpose, txd,
+        tnoise).shape == (-(-k // R), n, 6)
+    np.testing.assert_allclose(cmd.numpy(), np.asarray(cmd_j), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(un.numpy(), np.asarray(un_j), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_block_partials_merge_to_the_128_block_rows(monkeypatch):
+    """The partials of 32-rollout blocks, merged by
+    ``combine_softmax_partials``, give the rows and the update of the
+    earlier 128-rollout blocks to float32 rounding: the rescaling
+    exp((m_g − m_l)/λ) rounds its argument, 100× a cost difference."""
+    cfg = tm.MPPIConfig(horizon=0.3, dt=0.01, rollouts=3 * 128 + 5)
+    u, pose, xd, noise = _inputs(cfg, seed=9, u_off=(0.3, -0.1))
+    tu, tpose, txd, tnoise = _torch(u, pose, xd, noise)
+    seed = torch.tensor(0, dtype=torch.int32)
+    merged = {}
+    for block in (R, 128):
+        monkeypatch.setattr(fm, "_BLOCK", block)
+        parts = fm._solve_partials_reference(cfg, MODEL, tu, seed, tpose, txd,
+                                             tnoise)
+        assert parts.shape == (-(-cfg.rollouts // block), cfg.steps, 6)
+        rows = fm._combine_rows(cfg, parts, lambda m: torch.amin(m, dim=0),
+                                lambda v: torch.sum(v, dim=0))
+        merged[block] = (rows, fm.combine_softmax_partials(
+            cfg, tu, parts, min_fn=lambda m: torch.amin(m, dim=0),
+            sum_fn=lambda v: torch.sum(v, dim=0)))
+    (rows_r, (cmd_r, un_r)), (rows_128, (cmd_128, un_128)) = (
+        merged[R], merged[128])
+    np.testing.assert_array_equal(rows_r[:, 0].numpy(), rows_128[:, 0].numpy())
+    np.testing.assert_allclose(rows_r.numpy(), rows_128.numpy(), rtol=2e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(cmd_r.numpy(), cmd_128.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(un_r.numpy(), un_128.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("k", [1, 200])
 def test_any_k_matches_plain_solver(k):
-    """K need not be a multiple of 128: the ragged block is masked, so the
+    """K need not be a multiple of 32: the ragged block is masked, so the
     fused plain version equals the plain solver at K=1 and K=200."""
     _, cfg = _cfgs(k, 30)
     u, pose, xd, noise = _inputs(cfg, seed=k + 1, u_off=(0.3, 0.1))

@@ -67,6 +67,7 @@ SETS = {
 # first order where the softmax shares weight: (ε/λ)·Σ_k w_k·|z_k − ū|,
 # from the float64 solve. Each case bounds how many rows may be exempt.
 NEAR_TIE_ULPS = 16
+R = fm._BLOCK                  # rollouts per block of the kernel
 
 
 def _cfgs(k, n):
@@ -97,9 +98,11 @@ def _slack(cfg, u, pose, xd, noise_nkc, cost, partial=False):
     j = tm.cost_to_go(loss)                                  # (N, K)
     n = j.shape[0]
     ulps = np.maximum(NEAR_TIE_ULPS, n - np.arange(n))       # ε_t in ulps
-    two = torch.topk(j, 2, dim=1, largest=False).values.numpy()
-    tie = two[:, 1] - two[:, 0] < ulps * np.spacing(
-        two[:, 0].astype(np.float32))
+    two = torch.topk(j, min(2, j.shape[1]), dim=1, largest=False
+                     ).values.numpy()
+    # With one rollout there is no second best to tie with.
+    tie = (two[:, -1] - two[:, 0] < ulps * np.spacing(
+        two[:, 0].astype(np.float32))) & (two.shape[1] == 2)
     eps = torch.from_numpy(ulps[:, None] * np.spacing(
         j.numpy().astype(np.float32)).astype(np.float64))
     best = j.argmin(dim=1, keepdim=True)
@@ -177,6 +180,43 @@ def test_obstacle_partials_match_tpunav_row_for_row(name, k):
     # m_l, the rows' min cost-to-go, agrees everywhere.
     np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-4, atol=1e-5)
     assert _exempt_rows(got, want, slack) <= 1
+
+
+@pytest.mark.parametrize("name", sorted(SETS))
+@pytest.mark.parametrize("k", [1, R - 1, R + 1, 3 * R + 5, 128])
+def test_obstacle_block_decomposition_matches_tpunav(name, k):
+    """The plain version's 32-rollout blocks, the last one ragged and
+    masked, with obstacles, over a horizon of 70 steps (longer than one of
+    the kernel's 64-step chunks): against ``tpunav``'s Pallas kernel in
+    interpret mode at K=128, and where that kernel takes no such K, against
+    ``tpunav``'s XLA solver with ``make_segment_obstacle_cost`` on the same
+    noise. Near-tie rows as above."""
+    n = 70
+    if k % 128 == 0:
+        got, want, slack = _solve_both(name, k, n, partial=False)
+        assert _exempt_rows(got, want, slack) <= 1
+        return
+    segs, pose, xd, w = SETS[name]
+    jcfg, cfg = _cfgs(k, n)
+    u, noise = _inputs(cfg, seed=k + n)
+    ju, jnoise = jnp.asarray(u, F32), jnp.asarray(noise.transpose(1, 0, 2))
+    jcost = joc.make_segment_obstacle_cost(joc.SegmentCostParams(**w),
+                                           jnp.asarray(segs))
+    loss, _ = jm.rollout_losses(jcfg, J_MODEL, jnp.asarray(pose, F32),
+                                ju[None] + jnoise, jnp.asarray(xd, F32),
+                                jcost)
+    want = np.asarray(jm.update_controls(jcfg, ju, jnoise,
+                                         jm.cost_to_go(loss)))
+    params = oc.SegmentCostParams(**w)
+    tu, tnoise = torch.from_numpy(u), torch.from_numpy(noise)
+    tpose, txd = torch.tensor(pose), torch.tensor(xd)
+    cmd, un = fm.mppi_solve_fused(cfg, MODEL, tu, 0, tpose, txd, noise=tnoise,
+                                  obstacles=torch.from_numpy(segs),
+                                  obs_cfg=params)
+    got = torch.cat([cmd[None], un[:-1]]).numpy()
+    cost = oc.make_segment_obstacle_cost(params, segs, device="cpu")
+    assert _exempt_rows(got, want, _slack(cfg, tu, tpose, txd, tnoise,
+                                          cost)) <= 1
 
 
 def test_obstacle_mode_prices_the_wall():

@@ -427,6 +427,7 @@ def _entry_points():
         "box_segments": lambda: tlidar.box_segments(-1, -1, 1, 1),
         "pf_state_from_numpy": lambda: interop.pf_state_from_numpy(
             {n: np.zeros(()) for n in _STATE}),
+        "se2.identity": lambda: se2.identity(),
     }
 
 
@@ -438,3 +439,14 @@ def test_entry_points_default_to_the_card(name):
         pytest.skip("this process has a CUDA device: the default is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points()[name]()
+
+
+def test_se2_identity_on_the_cpu_matches_tpunav():
+    """Asked for the CPU, ``identity`` is ``tpunav``'s zero (3,) transform
+    [θ, x, y], in float32 by default and in the dtype asked for."""
+    got = se2.identity(device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jse2.identity()))
+    wide = se2.identity(torch.float64, device="cpu")
+    assert wide.dtype == torch.float64 and wide.shape == (3,)
+    assert not bool(wide.any())

@@ -143,6 +143,109 @@ def test_edt_matches_tpunav_and_brute_force():
     assert capped.max() == 2.0 and capped[0, 0, 0] == 0.0
 
 
+def _envelope_edt(cfg, grid, runs=tmu._RUNS):
+    """A plain-Python mirror of the CUDA kernels' ``edt_plane``
+    (``tpunav_torch/ops/csrc/map_update.cu``) on one (H, W) log-odds grid:
+    the integer row pass; each column's rows split into ``runs`` runs, each
+    with the lower envelope of its parabolas (y − k)² + g(k)² on a stack of
+    (k, first row) entries with Meijster's integer Sep; a cell's entry in
+    each run found by a binary search on the first rows, and the least of
+    the runs' values; then the float32 min(sqrt(d²)·res, max_occ_dist), or
+    max_occ_dist for an empty map."""
+    h, w = grid.shape
+    big = h + w + 2
+    occ = grid >= np.float32(cfg.l_occ)
+    g = [[0 if occ[y, x] else big for x in range(w)] for y in range(h)]
+    for row in g:                                  # the row pass
+        d = row[0]
+        for x in range(1, w):
+            d = min(row[x], d + 1)
+            row[x] = d
+        for x in range(w - 2, -1, -1):
+            d = min(row[x], d + 1)
+            row[x] = d
+    length = -(-h // runs)
+    d2 = np.full((h, w), np.iinfo(np.int64).max)
+    for x in range(w):
+        for r0 in range(0, h, length):             # the column envelopes
+            stack = [(r0, 0)]                      # (k, first row); top last
+            for k in range(r0 + 1, min(h, r0 + length)):
+                gk = g[k][x] ** 2
+                while stack and ((stack[-1][1] - stack[-1][0]) ** 2
+                                 + g[stack[-1][0]][x] ** 2
+                                 > (stack[-1][1] - k) ** 2 + gk):
+                    stack.pop()
+                if not stack:
+                    stack.append((k, 0))
+                    continue
+                kq = stack[-1][0]
+                num = k * k - kq * kq + gk - g[kq][x] ** 2
+                assert num >= 0                    # so / is the floor in C
+                t = 1 + num // (2 * (k - kq))
+                if t < h:
+                    stack.append((k, t))
+            assert len(stack) <= length and stack[-1][1] < 1 << 16
+            for y in range(h):                     # the evaluation
+                lo, hi = 0, len(stack) - 1
+                while lo < hi:
+                    mid = (lo + hi + 1) >> 1
+                    if stack[mid][1] <= y:
+                        lo = mid
+                    else:
+                        hi = mid - 1
+                k = stack[lo][0]
+                d2[y, x] = min(d2[y, x], (y - k) ** 2 + g[k][x] ** 2)
+    assert d2.max() < 1 << 24                      # exact in float32
+    field = np.minimum(np.sqrt(d2.astype(np.float32))
+                       * np.float32(cfg.resolution),
+                       np.float32(cfg.max_occ_dist))
+    return np.where(occ.any(), field, np.float32(cfg.max_occ_dist))
+
+
+def _occupancy(name, h, w):
+    occ = np.zeros((h, w), bool)
+    rng = np.random.default_rng(h * w)
+    if name == "corner":
+        occ[h - 1, 0] = True
+    elif name == "full":
+        occ[:] = True
+    elif name == "row":
+        occ[h // 3, :] = True
+    elif name == "column":
+        occ[:, w // 5] = True
+    elif name.startswith("random"):
+        occ = rng.random((h, w)) < 0.03
+        occ[rng.integers(h), :w // 2] = True       # a wall along a row
+    return occ
+
+
+@pytest.mark.parametrize("name,size", [
+    ("empty", {}), ("corner", {}), ("full", {}), ("row", {}),
+    ("column", {}), ("random", {}), ("random", BIG),
+    ("random", dict(ymin=-1.2, ymax=1.2)),          # 48×80
+    ("column", dict(ymin=-1.2, ymax=1.2)),
+    ("random_capped", dict(max_occ_dist=0.3))])
+def test_envelope_edt_mirror_equals_esdf_and_tpunav(name, size):
+    """The kernels' EDT algorithm, mirrored in Python, gives ``esdf``'s
+    field and ``tpunav``'s bit for bit on special and random maps, square
+    and not (a 48×80 map catches an exchange of H and W)."""
+    jcfg, tcfg = _cfgs(**size)
+    occ = _occupancy(name, tcfg.height, tcfg.width)
+    grid = np.where(occ, np.float32(tcfg.l_occ), np.float32(tcfg.l_prior))
+    got = _envelope_edt(tcfg, grid.astype(np.float32))
+    assert got.dtype == np.float32 and got.shape == occ.shape
+    # The runs only split the work: one run, or three, give the same field.
+    if name in ("random", "corner"):
+        for runs in (1, 3):
+            np.testing.assert_array_equal(
+                _envelope_edt(tcfg, grid.astype(np.float32), runs), got)
+    np.testing.assert_array_equal(got, tg.esdf(tcfg, _t(grid[None]))[0])
+    np.testing.assert_array_equal(
+        got, np.asarray(jg.esdf(jcfg, jnp.asarray(grid, F32))))
+    if name in ("empty", "full"):
+        assert np.all(got == (tcfg.max_occ_dist if name == "empty" else 0))
+
+
 def _grids(jcfg, scan, poses):
     """(P, H, W) float32 grids that already hold one scan (the particles'
     first update), and the poses they came from."""

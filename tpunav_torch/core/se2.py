@@ -12,15 +12,17 @@ from __future__ import annotations
 
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve
 from .angles import normalize_angle_pi
 
 # Small-angle guard for the sinc-like terms of the SE(2) exponential.
 _SMALL_W = 1e-6
 
 
-def identity(dtype=torch.float32, device="cpu"):
-    """Identity transform."""
-    return torch.zeros((3,), dtype=dtype, device=device)
+def identity(dtype=torch.float32, device=DEFAULT_DEVICE):
+    """Identity transform [0, 0, 0] on ``device`` (default the CUDA card;
+    raises without CUDA unless ``device="cpu"``)."""
+    return torch.zeros((3,), dtype=dtype, device=resolve(device))
 
 
 def make(theta, x, y):

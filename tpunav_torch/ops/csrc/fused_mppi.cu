@@ -3,52 +3,75 @@
 // Replaces tpunav/ops/pallas_mppi.py:_mppi_kernel (the Pallas TPU kernel
 // launched by _solve_update). One solve is two launches:
 //
-//   A. mppi_rollout_partials — one thread per rollout, 128-thread blocks,
-//      ceil(K/128) blocks. Each thread draws its perturbations (in-kernel
-//      Philox4x32-10 + Box-Muller, or an injected (N, K, 2) tensor),
-//      integrates its RK4 diff-drive rollout over N steps, writes its LQR
-//      loss column into an (N, K) scratch (terminal row overwritten), and
-//      takes the reverse cost-to-go down its own column. Then, for each
-//      step t, the block reduces its 128 rows to the six softmax partials
-//      [m_l, Σe, Σe·z0, Σe·z1, Σz0, Σz1] with e = exp((m_l − J)/λ)
-//      (the partial_out layout of the TPU kernel), into (blocks, N, 6).
-//      The Philox stream is counter-based (key (seed, 0), counter
-//      (k, t, 0, 0)), so the reduction phase regenerates z instead of
-//      storing it, as the TPU kernel re-seeds and replays its PRNG.
-//      With obstacles (BASELINE config 2), each step's loss also pays the
-//      analytic obstacle cost of the TPU kernel's obstacle mode
-//      (pallas_mppi.py:149-175), after the terminal-row overwrite: see
-//      obstacle_cost below.
+//   A. mppi_rollout_partials — one 512-thread block per R = 32 rollouts,
+//      ceil(K/32) blocks. The block works in stages over its R·N
+//      (rollout, step) pairs, T steps of the horizon at a time (a chunk),
+//      with a barrier between stages:
+//        1. noise, in parallel: one Philox4x32-10 + Box-Muller draw per
+//           pair (or a coalesced read of the injected (N, K, 2) tensor),
+//           kept for the whole horizon; and each pair's heading increment
+//           dθ, which depends on the held controls only;
+//        2. θ, serial: one lane per rollout adds dθ down the chunk;
+//        3. trigonometry, in parallel: the RK4 step's six cos/sin and the
+//           x/y increments of every pair;
+//        4. x and y, serial: one lane per rollout each (two warps);
+//        5. the loss, in parallel: the LQR loss with the terminal row
+//           overwritten and, with obstacles (BASELINE config 2), the
+//           analytic obstacle cost of the TPU kernel's obstacle mode
+//           (pallas_mppi.py:149-175), whose segment loop now runs across
+//           pairs, not down one thread's chain;
+//      then, over the whole horizon:
+//        6. the reverse cost-to-go, serial: acc = J[t] + acc per rollout;
+//        7. the softmax partials, in parallel over t: a warp takes a step
+//           and its lanes the block's 32 rollouts, with no barrier between
+//           steps, into (blocks, N, 6) rows [m_l, Σe, Σe·z0, Σe·z1, Σz0,
+//           Σz1] with e = exp((m_l − J)/λ) (the partial_out layout of the
+//           TPU kernel).
+//      The noise and the cost-to-go of the horizon stay in shared memory
+//      (3·R·N floats) for N ≤ 256 and in an L2-resident (3, N, K) global
+//      scratch beyond; θ, x and y carry across chunks in the serial lanes'
+//      registers. The Philox stream is counter-based (key (seed, 0),
+//      counter (k, t, 0, 0)) and is drawn once: stage 7 reads the kept z.
 //   B. mppi_combine — one 128-thread block per step t. It takes the global
 //      min m_g over the blocks, rescales each block by exp((m_g − m_l)/λ)
 //      and sums, then either writes the combined (N, 6) partials or
 //      applies the +1e-8 weight floor, adds du to u and clamps to
 //      ±max_wheel_vel, writing u_new (N, 2).
 //
-// What bounds it on this card: latency, not bytes. Each thread runs N
-// dependent RK4 steps with trigonometry, and the solve reads only u, pose,
-// xd and the seed. The (N, K) f32 scratch is 0.8 MB at K=4,096 and 9.8 MB
-// at K=49,152 (N=50), so it stays in the 50 MB L2. The design keeps one
-// rollout per thread so the recurrence never leaves registers, and makes
-// the cross-block softmax exact by the rescaled-exponential algebra of
-// combine_softmax_partials instead of atomics. The obstacle mode adds O
-// segment distances to each step: the block keeps the table in shared
-// memory ((6·O + 4)·4 bytes: 112 B for a 4-segment wall, 1 KB for the
-// reference world's 41 edges), and O is a runtime loop bound, so a new
-// obstacle set needs no new build (the TPU kernel unrolled it statically).
+// What bounds it on this card: latency, not bytes. The solve reads only u,
+// pose, xd, the seed and the obstacle table. Its real recurrences are θ,
+// x, y and the reverse sum, a few adds per step each; everything else (the
+// ~100 integer operations of a Philox draw, Box-Muller, six cos/sin, the
+// loss and O segment distances per pair) is independent across steps. One
+// rollout per thread would put all of it on one serial chain, in 32 blocks
+// at K=4,096, and would replay Philox in the reduction. This design takes
+// the independent work off the chains and spreads it over (rollout, step)
+// pairs: 128 blocks of 16 warps at K=4,096, 1,536 at K=49,152. What is
+// left serial is four chains of N adds, one lane per rollout. The
+// obstacle table sits in shared memory ((6·O + 4)·4 bytes) and
+// O is a runtime loop bound, so a new obstacle set needs no new build.
 //
-// Build with -O3 and without --use_fast_math: cosf/sinf/expf/logf are the
-// accurate library functions. At λ=0.01 the softmax is close to a hard
-// argmin over K, so the RK4 and loss keep the TPU kernel's expression
-// order. No allocation and no synchronisation here: the caller allocates
-// the scratch and outputs, and every entry point returns cudaGetLastError().
+// Rounding: at λ=0.01 the softmax is close to a hard argmin over K, so
+// every operation of the rollout, the loss and the obstacle term is an
+// explicit round-to-nearest intrinsic in the TPU kernel's expression order
+// (pallas_mppi.py:_mppi_kernel): nvcc contracts none of them into a fused
+// multiply-add, and the plain version (ops/fused_mppi.py) rounds each
+// operation alike. Splitting a rollout step over stages recomputes w and
+// dθ from the same inputs, which gives the same bits. Built with -O3 and
+// without --use_fast_math: cosf/sinf/expf/logf/sqrtf are the accurate
+// library functions. No allocation and no synchronisation here: the caller
+// allocates the scratch and outputs, and every entry point returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-constexpr int kThreads = 128;
+constexpr int kRollouts = 32;                 // R: rollouts per block (lanes)
+constexpr int kThreads = 512;                 // threads per block of kernel A
 constexpr int kWarps = kThreads / 32;
+constexpr int kCombineThreads = 128;
+constexpr int kCombineWarps = kCombineThreads / 32;
 
 // Mirrors tpunav_torch/ops/fused_mppi.py:_KernelParams (ctypes.Structure).
 // Products of configuration constants (dt/6, r/b, r/2, ...) are formed on
@@ -72,6 +95,8 @@ struct MppiParams {
   float inv_lambda;  // 1/λ
   float floor_k;     // 1e-8 · K
   float max_wheel_vel;
+  int chunk;         // T: steps per chunk of the horizon
+  int horizon_smem;  // 1: z and J in shared memory; 0: in the global scratch
 };
 
 namespace {
@@ -118,10 +143,10 @@ __device__ __forceinline__ void noise_at(const MppiParams& p,
   philox4x32_10(c, seed, 0u);
   const float u1 = uniform01(c[0]);
   const float u2 = uniform01(c[1]);
-  const float r = sqrtf(-2.0f * logf(u1));
-  const float ang = 6.28318530717958647692f * u2;
-  z0 = (r * cosf(ang)) * p.sig0;
-  z1 = (r * sinf(ang)) * p.sig1;
+  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+  const float ang = __fmul_rn(6.28318530717958647692f, u2);
+  z0 = __fmul_rn(__fmul_rn(r, cosf(ang)), p.sig0);
+  z1 = __fmul_rn(__fmul_rn(r, sinf(ang)), p.sig1);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -135,6 +160,29 @@ __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The held wheel speeds of a pair: u_t + z.
+struct Wheels {
+  float ul, ur;
+};
+
+__device__ __forceinline__ Wheels wheels(const float* __restrict__ u, int t,
+                                         float z0, float z1) {
+  return {__fadd_rn(u[2 * t], z0), __fadd_rn(u[2 * t + 1], z1)};
+}
+
+// θ-dot of the held controls, w = (r/b)·(ur − ul).
+__device__ __forceinline__ float omega(const MppiParams& p, Wheels c) {
+  return __fmul_rn(p.w_scale, __fsub_rn(c.ur, c.ul));
+}
+
+// The RK4 step's increment s·(k1 + 2·(k2 + k2) + k4) (k3 = k2: θ-dot
+// depends only on the held controls). For θ every stage is w.
+__device__ __forceinline__ float rk4_increment(float s, float k1, float k2,
+                                               float k4) {
+  return __fmul_rn(
+      s, __fadd_rn(__fadd_rn(k1, __fmul_rn(2.0f, __fadd_rn(k2, k2))), k4));
 }
 
 // Shared-memory layout of the obstacle table: per segment o, kSegFloats
@@ -169,11 +217,8 @@ __device__ void load_obstacles(const float* __restrict__ table, int n_obs,
 // The obstacle term of one rollout position, added to its step loss l as
 // the TPU kernel adds it: (l + w_hit·[d ≤ r_safe]) + w_field·exp(−(d −
 // r_safe)·inv_σ), where d = min over o of (‖p − proj_o(p)‖ − r_o), taken in
-// the order of pallas_mppi.py:157-168. Every product and sum is an explicit
-// round-to-nearest intrinsic, so nvcc contracts none into a fused
-// multiply-add: at λ=0.01 the softmax turns last-ulp cost differences into
-// weight ratios of e^(100Δ). sqrtf and expf are the accurate library
-// functions (no --use_fast_math).
+// the order of pallas_mppi.py:157-168. sqrtf and expf are the accurate
+// library functions.
 __device__ __forceinline__ float obstacle_cost(const float* sh, int n_obs,
                                                float x, float y, float l) {
   float d = INFINITY;
@@ -195,6 +240,31 @@ __device__ __forceinline__ float obstacle_cost(const float* sh, int n_obs,
   return __fadd_rn(__fadd_rn(l, __fmul_rn(w[1], hit)), __fmul_rn(w[2], e));
 }
 
+// c·e·e, the loss's quadratic term, as the TPU kernel's q0 * ex * ex.
+__device__ __forceinline__ float quad(float c, float e) {
+  return __fmul_rn(__fmul_rn(c, e), e);
+}
+
+// The step loss of a pair at its new position: the running LQR loss, or
+// on the last step the terminal loss that replaces it.
+__device__ __forceinline__ float step_loss(const MppiParams& p,
+                                           const float* __restrict__ xd,
+                                           bool terminal, float x, float y,
+                                           float th, Wheels c) {
+  const float ex = __fsub_rn(x, xd[0]);
+  const float ey = __fsub_rn(y, xd[1]);
+  const float et = __fsub_rn(th, xd[2]);
+  if (terminal) {
+    return __fadd_rn(__fadd_rn(quad(p.p0, ex), quad(p.p1, ey)),
+                     quad(p.p2, et));
+  }
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(__fadd_rn(quad(p.q0, ex), quad(p.q1, ey)),
+                          quad(p.q2, et)),
+                quad(p.r0, c.ul)),
+      quad(p.r1, c.ur));
+}
+
 __global__ void __launch_bounds__(kThreads)
 mppi_rollout_partials(MppiParams p, const float* __restrict__ u,
                       const float* __restrict__ pose,
@@ -202,117 +272,161 @@ mppi_rollout_partials(MppiParams p, const float* __restrict__ u,
                       const int* __restrict__ seed_ptr,
                       const float* __restrict__ noise,
                       const float* __restrict__ obstacles,
-                      float* __restrict__ J, float* __restrict__ parts) {
-  __shared__ float sh_min[kWarps];
-  __shared__ float sh_sum[kWarps][5];
-  extern __shared__ float sh_obs[];  // kSegFloats·O + 4 floats
-
-  const int K = p.rollouts;
-  const int N = p.steps;
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  const bool valid = k < K;
+                      float* __restrict__ scratch, float* __restrict__ parts) {
+  // Dynamic shared memory, in floats: the obstacle table (6·O + 4), the
+  // chunk planes TH, X, Y (T·R each), then, with horizon_smem, the
+  // horizon planes Z0, Z1, J (N·R each). A plane is [step][rollout], so a
+  // warp's 32 lanes touch 32 consecutive words.
+  extern __shared__ float smem[];
+  const int K = p.rollouts, N = p.steps, T = p.chunk, R = kRollouts;
+  const int n_obs = p.n_obs;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x * R;
   const uint32_t seed = noise == nullptr ? (uint32_t)seed_ptr[0] : 0u;
-  const float xd0 = xd[0], xd1 = xd[1], xd2 = xd[2];
-  const int n_obs = p.n_obs;
-  if (n_obs > 0) {
-    load_obstacles(obstacles, n_obs, sh_obs);
-    __syncthreads();
-  }
 
-  if (valid) {
-    // ── Rollout over the horizon; loss column in the (N, K) scratch ──
-    float x = pose[0], y = pose[1], th = pose[2];
-    const float dt = p.dt;
-    for (int t = 0; t < N; ++t) {
+  float* sh_obs = smem;
+  float* th_c = smem + (n_obs > 0 ? kSegFloats * n_obs + 4 : 0);
+  float* x_c = th_c + T * R;
+  float* y_c = x_c + T * R;
+  // Plane rows t of this block's rollouts: plane[t·hs + r].
+  float *z0h, *z1h, *jh;
+  size_t hs;
+  if (p.horizon_smem) {
+    z0h = y_c + T * R;
+    z1h = z0h + N * R;
+    jh = z1h + N * R;
+    hs = R;
+  } else {
+    const size_t nk = (size_t)N * K;
+    z0h = scratch + k0;
+    z1h = scratch + nk + k0;
+    jh = scratch + 2 * nk + k0;
+    hs = K;
+  }
+  if (n_obs > 0) load_obstacles(obstacles, n_obs, sh_obs);
+
+  // The serial lanes' state, carried across chunks (lane = rollout).
+  const bool lane_valid = k0 + lane < K;
+  float th = pose[2], x = pose[0], y = pose[1];
+
+  for (int t0 = 0; t0 < N; t0 += T) {
+    const int pairs = min(T, N - t0) * R;
+    // Pair i of the chunk is step t0 + i/R of rollout k0 + i%R.
+    // 1. Noise and dθ.
+    for (int i = threadIdx.x; i < pairs; i += kThreads) {
+      const int r = i & (kRollouts - 1), t = t0 + i / kRollouts;
+      if (k0 + r >= K) continue;
       float z0, z1;
-      noise_at(p, noise, seed, k, t, z0, z1);
-      const float ul = u[2 * t] + z0;
-      const float ur = u[2 * t + 1] + z1;
-      // Classical RK4 with zero-order-hold control. theta-dot depends
-      // only on the held controls, so the k2 and k3 stages are identical
-      // and k3 reuses k2 (same expressions as the TPU kernel).
-      const float w = p.w_scale * (ur - ul);
-      const float fwd = p.fwd_scale * (ul + ur);
-      const float k1x = fwd * cosf(th);
-      const float k1y = fwd * sinf(th);
-      const float th2 = th + p.half_dt * w;
-      const float k2x = fwd * cosf(th2);
-      const float k2y = fwd * sinf(th2);
-      const float th4 = th + dt * w;
-      const float k4x = fwd * cosf(th4);
-      const float k4y = fwd * sinf(th4);
-      const float s = p.dt6;
-      x = x + s * (k1x + 2.0f * (k2x + k2x) + k4x);
-      y = y + s * (k1y + 2.0f * (k2y + k2y) + k4y);
-      th = th + s * (w + 2.0f * (w + w) + w);
-
-      const float ex = x - xd0;
-      const float ey = y - xd1;
-      const float et = th - xd2;
-      float l;
-      if (t == N - 1) {  // the terminal loss replaces the running loss
-        l = p.p0 * ex * ex + p.p1 * ey * ey + p.p2 * et * et;
-      } else {
-        l = p.q0 * ex * ex + p.q1 * ey * ey + p.q2 * et * et +
-            p.r0 * ul * ul + p.r1 * ur * ur;
+      noise_at(p, noise, seed, k0 + r, t, z0, z1);
+      z0h[t * hs + r] = z0;
+      z1h[t * hs + r] = z1;
+      const float w = omega(p, wheels(u, t, z0, z1));
+      th_c[i] = rk4_increment(p.dt6, w, w, w);
+    }
+    __syncthreads();
+    // 2. θ at the start of each step, in place of dθ.
+    if (warp == 0 && lane_valid) {
+      const int steps = pairs / kRollouts;
+#pragma unroll 8
+      for (int s = 0; s < steps; ++s) {
+        const float d = th_c[s * R + lane];
+        th_c[s * R + lane] = th;
+        th = __fadd_rn(th, d);
       }
-      if (n_obs > 0) l = obstacle_cost(sh_obs, n_obs, x, y, l);
-      J[(size_t)t * K + k] = l;
     }
-    // ── Reverse cumulative sum → cost-to-go, down this thread's column ──
-    float acc = J[(size_t)(N - 1) * K + k];
-    for (int t = N - 2; t >= 0; --t) {
-      acc = J[(size_t)t * K + k] + acc;
-      J[(size_t)t * K + k] = acc;
+    __syncthreads();
+    // 3. Trigonometry and the x/y increments.
+    for (int i = threadIdx.x; i < pairs; i += kThreads) {
+      const int r = i & (kRollouts - 1), t = t0 + i / kRollouts;
+      if (k0 + r >= K) continue;
+      const Wheels c = wheels(u, t, z0h[t * hs + r], z1h[t * hs + r]);
+      const float w = omega(p, c);
+      const float fwd = __fmul_rn(p.fwd_scale, __fadd_rn(c.ul, c.ur));
+      const float th1 = th_c[i];
+      const float th2 = __fadd_rn(th1, __fmul_rn(p.half_dt, w));
+      const float th4 = __fadd_rn(th1, __fmul_rn(p.dt, w));
+      x_c[i] = rk4_increment(p.dt6, __fmul_rn(fwd, cosf(th1)),
+                             __fmul_rn(fwd, cosf(th2)),
+                             __fmul_rn(fwd, cosf(th4)));
+      y_c[i] = rk4_increment(p.dt6, __fmul_rn(fwd, sinf(th1)),
+                             __fmul_rn(fwd, sinf(th2)),
+                             __fmul_rn(fwd, sinf(th4)));
     }
+    __syncthreads();
+    // 4. x (warp 0) and y (warp 1) after each step, in place of the
+    // increments.
+    if (warp < 2 && lane_valid) {
+      float* plane = warp == 0 ? x_c : y_c;
+      float v = warp == 0 ? x : y;
+      const int steps = pairs / kRollouts;
+#pragma unroll 8
+      for (int s = 0; s < steps; ++s) {
+        v = __fadd_rn(v, plane[s * R + lane]);
+        plane[s * R + lane] = v;
+      }
+      if (warp == 0) {
+        x = v;
+      } else {
+        y = v;
+      }
+    }
+    __syncthreads();
+    // 5. The step loss at the new pose (θ after the step is θ + dθ again).
+    for (int i = threadIdx.x; i < pairs; i += kThreads) {
+      const int r = i & (kRollouts - 1), t = t0 + i / kRollouts;
+      if (k0 + r >= K) continue;
+      const Wheels c = wheels(u, t, z0h[t * hs + r], z1h[t * hs + r]);
+      const float w = omega(p, c);
+      const float th_new = __fadd_rn(th_c[i], rk4_increment(p.dt6, w, w, w));
+      float l = step_loss(p, xd, t == N - 1, x_c[i], y_c[i], th_new, c);
+      if (n_obs > 0) l = obstacle_cost(sh_obs, n_obs, x_c[i], y_c[i], l);
+      jh[t * hs + r] = l;
+    }
+    __syncthreads();
   }
 
-  // ── Per-step softmax partials over this block's rollouts ──
-  // Masked threads contribute +inf to the min and 0 to every sum.
-  for (int t = 0; t < N; ++t) {
-    float jt = INFINITY, z0 = 0.0f, z1 = 0.0f;
-    if (valid) {
-      jt = J[(size_t)t * K + k];
-      noise_at(p, noise, seed, k, t, z0, z1);
+  // 6. The reverse cumulative sum: cost-to-go, in place of the loss.
+  if (warp == 0 && lane_valid) {
+    float acc = jh[(N - 1) * hs + lane];
+#pragma unroll 8
+    for (int t = N - 2; t >= 0; --t) {
+      acc = __fadd_rn(jh[t * hs + lane], acc);
+      jh[t * hs + lane] = acc;
     }
-    float m = warp_min(jt);
-    if (lane == 0) sh_min[warp] = m;
-    __syncthreads();
-    m = sh_min[0];
-#pragma unroll
-    for (int i = 1; i < kWarps; ++i) m = fminf(m, sh_min[i]);
+  }
+  __syncthreads();
 
-    const float e = valid ? expf((m - jt) * p.inv_lambda) : 0.0f;
-    float v[5] = {e, e * z0, e * z1, z0, z1};
+  // 7. Per-step softmax partials over the block's rollouts: warp per step.
+  // Invalid lanes contribute +inf to the min and 0 to every sum.
+  for (int t = warp; t < N; t += kWarps) {
+    float jt = INFINITY, z0 = 0.0f, z1 = 0.0f;
+    if (lane_valid) {
+      jt = jh[t * hs + lane];
+      z0 = z0h[t * hs + lane];
+      z1 = z1h[t * hs + lane];
+    }
+    const float m = warp_min(jt);
+    const float e =
+        lane_valid ? expf(__fmul_rn(__fsub_rn(m, jt), p.inv_lambda)) : 0.0f;
+    float v[5] = {e, __fmul_rn(e, z0), __fmul_rn(e, z1), z0, z1};
 #pragma unroll
     for (int c = 0; c < 5; ++c) v[c] = warp_sum(v[c]);
-    if (lane == 0) {
+    float out = m;
 #pragma unroll
-      for (int c = 0; c < 5; ++c) sh_sum[warp][c] = v[c];
+    for (int c = 0; c < 5; ++c) {
+      if (lane == c + 1) out = v[c];
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float* out = parts + ((size_t)blockIdx.x * N + t) * 6;
-      out[0] = m;
-#pragma unroll
-      for (int c = 0; c < 5; ++c) {
-        float acc = sh_sum[0][c];
-#pragma unroll
-        for (int i = 1; i < kWarps; ++i) acc += sh_sum[i][c];
-        out[1 + c] = acc;
-      }
-    }
+    if (lane < 6) parts[((size_t)blockIdx.x * N + t) * 6 + lane] = out;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCombineThreads)
 mppi_combine(MppiParams p, const float* __restrict__ u,
              const float* __restrict__ parts, int blocks,
              float* __restrict__ out) {
-  __shared__ float sh_min[kWarps];
-  __shared__ float sh_sum[kWarps][5];
+  __shared__ float sh_min[kCombineWarps];
+  __shared__ float sh_sum[kCombineWarps][5];
 
   const int N = p.steps;
   const int t = blockIdx.x;
@@ -320,17 +434,17 @@ mppi_combine(MppiParams p, const float* __restrict__ u,
   const int warp = threadIdx.x >> 5;
 
   float m = INFINITY;
-  for (int b = threadIdx.x; b < blocks; b += kThreads)
+  for (int b = threadIdx.x; b < blocks; b += kCombineThreads)
     m = fminf(m, parts[((size_t)b * N + t) * 6]);
   m = warp_min(m);
   if (lane == 0) sh_min[warp] = m;
   __syncthreads();
   m = sh_min[0];
 #pragma unroll
-  for (int i = 1; i < kWarps; ++i) m = fminf(m, sh_min[i]);
+  for (int i = 1; i < kCombineWarps; ++i) m = fminf(m, sh_min[i]);
 
   float v[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int b = threadIdx.x; b < blocks; b += kThreads) {
+  for (int b = threadIdx.x; b < blocks; b += kCombineThreads) {
     const float* row = parts + ((size_t)b * N + t) * 6;
     const float s = expf((m - row[0]) * p.inv_lambda);
     v[0] += s * row[1];
@@ -353,7 +467,7 @@ mppi_combine(MppiParams p, const float* __restrict__ u,
   for (int c = 0; c < 5; ++c) {
     red[c] = sh_sum[0][c];
 #pragma unroll
-    for (int i = 1; i < kWarps; ++i) red[c] += sh_sum[i][c];
+    for (int i = 1; i < kCombineWarps; ++i) red[c] += sh_sum[i][c];
   }
   if (p.partial_out) {
     float* row = out + (size_t)t * 6;
@@ -378,8 +492,9 @@ extern "C" {
 
 // One fused MPPI solve on `stream`. Pointers are device pointers; `noise`
 // may be null (in-kernel Philox); `obstacles` is the packed (O+1, 5) table
-// with O = params->n_obs, or null when n_obs is 0. `scratch` holds N·K
-// floats, `parts` ceil(K/128)·N·6 floats, `out` N·2 floats (N·6 with
+// with O = params->n_obs, or null when n_obs is 0. `scratch` holds the
+// (3, N, K) horizon planes when params->horizon_smem is 0, else it may be
+// null; `parts` holds ceil(K/32)·N·6 floats, `out` N·2 floats (N·6 with
 // partial_out). Returns cudaGetLastError() after both launches.
 int tpunav_mppi_solve(const MppiParams* params, const float* u,
                       const float* pose, const float* xd, const int* seed,
@@ -387,12 +502,13 @@ int tpunav_mppi_solve(const MppiParams* params, const float* u,
                       float* scratch, float* parts, float* out,
                       void* stream) {
   const MppiParams p = *params;
-  const int blocks = (p.rollouts + kThreads - 1) / kThreads;
+  const int blocks = (p.rollouts + kRollouts - 1) / kRollouts;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem =
-      p.n_obs > 0 ? (static_cast<size_t>(kSegFloats) * p.n_obs + 4) *
-                        sizeof(float)
-                  : 0;
+  // Keep in step with fused_mppi.py:_shared_bytes.
+  size_t floats = 3 * static_cast<size_t>(kRollouts) * p.chunk;
+  if (p.horizon_smem) floats += 3 * static_cast<size_t>(kRollouts) * p.steps;
+  if (p.n_obs > 0) floats += static_cast<size_t>(kSegFloats) * p.n_obs + 4;
+  const size_t smem = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       mppi_rollout_partials, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -401,7 +517,7 @@ int tpunav_mppi_solve(const MppiParams* params, const float* u,
       p, u, pose, xd, seed, noise, obstacles, scratch, parts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mppi_combine<<<p.steps, kThreads, 0, s>>>(p, u, parts, blocks, out);
+  mppi_combine<<<p.steps, kCombineThreads, 0, s>>>(p, u, parts, blocks, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,25 +24,48 @@
 //      The cell's EDT seed (0 if occupied, else a large value) goes into
 //      the shared working plane;
 //   4. edt_plane.
-// edt_plane: each row is swept forward and back (1D distance along the
-// row, exact small integers), squared in place, and each cell then takes
-// the lower envelope min_k g²[k][x] + (y−k)² down its column and writes
-// min(sqrt·res, max_occ_dist) — or max_occ_dist everywhere for a map with
-// no occupied cell — straight to device memory.
+// edt_plane, the exact EDT in O(HW) integer operations per particle:
+//   - the row pass: one thread per row sweeps it forward and back, leaving
+//     g = min(big, |x − nearest occupied x'|) in the working plane (int);
+//   - the column envelopes: the lower envelope of the parabolas
+//     (y − k)² + g(k)² down each column (Meijster, Roerdink and
+//     Hesselink's separable EDT, the integer form of
+//     Felzenszwalb–Huttenlocher), on a stack of (k, first row) pairs with
+//     Meijster's integer Sep (no float division). Each column's rows are
+//     split into two runs with an envelope each, built by one thread per
+//     (run, column), which halves the serial chain;
+//   - the evaluation: one thread per (column, chunk of rows) finds each
+//     run's covering entry at the chunk's first row by a binary search and
+//     follows it down, takes the lesser of the runs' values, and writes
+//     min(sqrt(d²)·res, max_occ_dist) — or max_occ_dist everywhere for a
+//     map with no occupied cell — straight to device memory, coalesced.
+// Every value before the sqrt is an exact integer (d² < 2^24), so the field
+// is the brute-force minimum's, and esdf's, bit for bit.
 //
-// Shared memory: the count image and the working plane, one (H, W) plane
-// each (25.6 KB at 80×80, 102 KB at 160×160), plus the beam table. Two
-// planes fit up to about 168×168 cells; the wrapper checks the card's
-// opt-in limit. K4 holds the working plane only.
+// Shared memory, per block: the working plane as (H, S) ints with an odd
+// row stride S = W | 1, so that thread-per-row accesses hit 32 distinct
+// banks; the column stacks as (H, W) ints, one packed int16 pair
+// (k, first row) per entry, interleaved by column (stack[j·W + x]) so that
+// neighbouring threads touch neighbouring banks; and the runs' stack tops
+// (2·W ints). In K3 the stacks reuse the endpoint count image, dead after
+// phase 3; K4 allocates one more (H, W) plane. K3 also holds the beam
+// table: 53 KB at 80×80, 207 KB at 160×160; two planes fit up to about
+// 168×168 cells, and the wrapper checks the card's opt-in limit.
 //
 // What bounds them on this card: bytes. At P=500, 80×80, K3 reads 12.8 MB
 // and writes 25.6 MB (≈11.5 µs at 3.35 TB/s) and K4 moves 25.6 MB
-// (≈7.6 µs); an exact EDT needs O(1) operations per cell, far below
-// that. The design touches device memory once per input and output cell
-// and keeps every intermediate in shared memory, but its column pass
-// tries all H rows per cell (O(H²W) per particle, ≈0.5 G min/add over
-// the batch), which is what keeps it from the bound; a linear-time
-// envelope is later work.
+// (≈7.6 µs). The design touches device memory once per input and output
+// cell and keeps every intermediate in shared memory. A column pass that
+// tries all H rows per cell is O(H²W), and a row stride of W = 80 puts a
+// warp's rows on two banks (a 16-way conflict); this EDT is linear in the
+// cells, its rows sit at an odd stride, its stack's top two
+// entries stay in registers (a pop waits on no shared-memory load), and
+// four blocks fit an SM at 80×80, so P=500 runs in one wave. What is left
+// is K3's per-cell pass (phase 3: per cell three IEEE divisions, a sqrt,
+// the atan2 polynomial, two integer divisions and the 3×3 endpoint test),
+// which this design leaves as it was, and the
+// envelope's serial pushes: tools/map_update_phases.py splits a block's
+// clock by phase.
 //
 // The bearing path rounds exactly as tpunav_torch/ops/map_update.py's plain
 // version: every multiply, add and divide is a round-to-nearest intrinsic,
@@ -56,6 +79,10 @@
 namespace {
 
 constexpr int kThreads = 512;
+// Four blocks of an 80×80 map fit an SM's shared memory; asking for them
+// caps registers at 32 a thread (a few bytes spill), so that P=500
+// particles run in one wave on 132 SMs.
+constexpr int kBlocksPerSm = 4;
 
 }  // namespace
 
@@ -89,34 +116,170 @@ struct MapParams {
 
 namespace {
 
-// The exact two-phase EDT of one plane. On entry `plane` (shared, H·W)
-// holds 0 at occupied cells and p.big elsewhere, and a barrier has passed.
-// Writes the capped distance field to `dout` (device memory).
-__device__ void edt_plane(const MapParams& p, float* plane, bool any_occ,
-                          float* __restrict__ dout) {
-  const int h = p.height, w = p.width;
-  // Phase 1: 1D distance along each row, forward then backward.
-  for (int y = threadIdx.x; y < h; y += blockDim.x) {
-    float* row = plane + y * w;
-    for (int x = 1; x < w; ++x) row[x] = fminf(row[x], row[x - 1] + 1.0f);
-    for (int x = w - 2; x >= 0; --x) row[x] = fminf(row[x], row[x + 1] + 1.0f);
-    for (int x = 0; x < w; ++x) row[x] = row[x] * row[x];
-  }
-  __syncthreads();
-  // Phase 2: the squared-distance lower envelope down each column.
-  for (int c = threadIdx.x; c < h * w; c += blockDim.x) {
-    const int y = c / w, x = c - (c / w) * w;
-    float d2 = plane[c];
-    for (int k = 0; k < h; ++k) {
-      const float dy = static_cast<float>((y - k) * (y - k));
-      d2 = fminf(d2, plane[k * w + x] + dy);
+// The working plane's odd row stride.
+__device__ __forceinline__ int plane_stride(int w) { return w | 1; }
+
+__device__ __forceinline__ int sq(int v) { return v * v; }
+
+// The column envelopes: each column's rows are split into S = kSegments
+// runs of L = ceil(H/S) rows (fewer runs when the block has fewer than
+// S·W threads), and one thread per (run, column) builds the lower envelope
+// of its run's parabolas f_k(y) = (y − k)² + g(k)², k in the run, over all
+// rows y of the column: Meijster's stack of (k, first row t) entries with
+// his integer Sep. A run's entry j sits at stack[(r0 + j)·W + x], r0 its
+// first row, packed (k << 16) | t; its top index goes to tops[run·W + x].
+// The top entry and the one below it stay in registers, so a pop waits on
+// no load; the entry below that is fetched behind it.
+constexpr int kSegments = 2;
+
+__device__ __forceinline__ int runs_of(int w) {
+  return max(1, min(kSegments, static_cast<int>(blockDim.x) / w));
+}
+
+__device__ void column_envelopes(int h, int w, const int* plane, int* stack,
+                                 int* tops) {
+  const int s = plane_stride(w), runs = runs_of(w);
+  const int len = (h + runs - 1) / runs;
+  for (int i = threadIdx.x; i < runs * w; i += blockDim.x) {
+    const int run = i / w, x = i - run * w;
+    const int r0 = run * len, r1 = min(h, r0 + len);
+    if (r0 >= r1) {
+      tops[i] = -1;                               // an empty run
+      continue;
     }
-    dout[c] = any_occ ? fminf(__fmul_rn(__fsqrt_rn(d2), p.res), p.max_occ)
-                      : p.max_occ;
+    int* st = stack + r0 * w + x;                 // entry j at st[j·W]
+    int q = 0, kq = r0, tq = 0, gq = sq(plane[r0 * s + x]);
+    int kb = 0, tb = 0, gb = 0;
+    st[0] = r0 << 16;
+    for (int k = r0 + 1; k < r1; ++k) {
+      const int gk = sq(plane[k * s + x]);
+      // Pop every parabola that k's lies below at the top's first row.
+      while (q >= 0 && sq(tq - kq) + gq > sq(tq - k) + gk) {
+        --q;
+        kq = kb;
+        tq = tb;
+        gq = gb;
+        if (q >= 1) {
+          const int e = st[(q - 1) * w];
+          kb = e >> 16;
+          tb = e & 0xffff;
+          gb = sq(plane[kb * s + x]);
+        }
+      }
+      if (q < 0) {
+        q = 0;
+        kq = k;
+        tq = 0;
+        gq = gk;
+        st[0] = k << 16;
+        continue;
+      }
+      // Sep(k_q, k): the last row where k_q's parabola is not above k's.
+      // The numerator is ≥ 0 here (k_q's lies below k's at t_q ≥ 0), so
+      // the integer division is the floor.
+      const int t = 1 + static_cast<int>(
+                            static_cast<unsigned>(sq(k) - sq(kq) + gk - gq) /
+                            static_cast<unsigned>(2 * (k - kq)));
+      if (t < h) {
+        kb = kq;
+        tb = tq;
+        gb = gq;
+        ++q;
+        kq = k;
+        tq = t;
+        gq = gk;
+        st[q * w] = (k << 16) | t;
+      }
+    }
+    tops[i] = q;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The exact EDT of one plane. On entry `plane` (shared, (H, S) ints, S =
+// plane_stride(W)) holds 0 at occupied cells and big = H + W + 2
+// elsewhere, and a barrier has passed; `stack` (shared, H·W ints) and
+// `tops` (shared, kSegments·W ints) are free. Writes the capped distance
+// field to `dout` (device memory).
+__device__ void edt_plane(const MapParams& p, int* plane, int* stack,
+                          int* tops, bool any_occ, float* __restrict__ dout) {
+  const int h = p.height, w = p.width, s = plane_stride(w);
+  // Row pass: 1D distance along each row, forward then backward.
+  for (int y = threadIdx.x; y < h; y += blockDim.x) {
+    int* row = plane + y * s;
+    int d = row[0];
+    for (int x = 1; x < w; ++x) {
+      d = min(row[x], d + 1);
+      row[x] = d;
+    }
+    for (int x = w - 2; x >= 0; --x) {
+      d = min(row[x], d + 1);
+      row[x] = d;
+    }
+  }
+  __syncthreads();
+  column_envelopes(h, w, plane, stack, tops);
+  __syncthreads();
+  // Evaluation: one thread per (column, chunk of rows). At the chunk's
+  // first row each run's covering entry is found by a binary search on the
+  // first rows (they increase up the stack), then followed down the chunk;
+  // a cell takes the least d² = (y − k)² + g(k)² over the runs, exact in
+  // float32, and the rows of a warp's columns are written coalesced.
+  const int runs = runs_of(w), len = (h + runs - 1) / runs;
+  const int chunks = max(1, static_cast<int>(blockDim.x) / w);
+  const int rows = (h + chunks - 1) / chunks;
+  for (int i = threadIdx.x; i < chunks * w; i += blockDim.x) {
+    const int chunk = i / w, x = i - chunk * w;
+    const int y0 = chunk * rows, y1 = min(h, y0 + rows);
+    int k[kSegments], g2[kSegments], j[kSegments], next_t[kSegments];
+#pragma unroll
+    for (int r = 0; r < kSegments; ++r) {
+      next_t[r] = h;
+      k[r] = 0;
+      g2[r] = 0;
+      j[r] = -1;                                  // no envelope
+      if (r >= runs) continue;
+      const int top = tops[r * w + x];
+      if (top < 0) continue;
+      const int* st = stack + r * len * w + x;
+      int lo = 0, hi = top;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if ((st[mid * w] & 0xffff) <= y0) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      j[r] = lo;
+      k[r] = st[lo * w] >> 16;
+      g2[r] = sq(plane[k[r] * s + x]);
+      if (lo < top) next_t[r] = st[(lo + 1) * w] & 0xffff;
+    }
+    for (int y = y0; y < y1; ++y) {
+      int d2 = 0x7fffffff;
+#pragma unroll
+      for (int r = 0; r < kSegments; ++r) {
+        if (j[r] < 0) continue;
+        if (next_t[r] <= y) {                     // the next entry takes over
+          const int* st = stack + r * len * w + x;
+          const int top = tops[r * w + x];
+          ++j[r];
+          const int e = st[j[r] * w];
+          k[r] = e >> 16;
+          g2[r] = sq(plane[k[r] * s + x]);
+          next_t[r] = j[r] < top ? st[(j[r] + 1) * w] & 0xffff : h;
+        }
+        d2 = min(d2, sq(y - k[r]) + g2[r]);
+      }
+      dout[y * w + x] =
+          any_occ ? fminf(__fmul_rn(__fsqrt_rn(static_cast<float>(d2)), p.res),
+                          p.max_occ)
+                  : p.max_occ;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 map_update_kernel(MapParams p, const float* __restrict__ grids,
                   const float* __restrict__ poses,
                   const float* __restrict__ pose_trig,
@@ -124,10 +287,12 @@ map_update_kernel(MapParams p, const float* __restrict__ grids,
                   float* __restrict__ gout, float* __restrict__ dout,
                   int* __restrict__ beam_out) {
   extern __shared__ float smem[];
-  const int h = p.height, w = p.width, hw = h * w;
+  const int h = p.height, w = p.width, hw = h * w, s = plane_stride(w);
+  const int big = static_cast<int>(p.big);   // H + W + 2
   int* count = reinterpret_cast<int*>(smem);  // (H, W) endpoint counts
-  float* plane = smem + hw;                   // (H, W) EDT working plane
-  float* r_beam = plane + hw;                 // (B,) range or -1
+  int* plane = count + hw;                    // (H, S) EDT working plane
+  int* tops = plane + h * s;                  // (kSegments, W) stack tops
+  float* r_beam = smem + hw + h * s + kSegments * w;  // (B,) range or -1
 
   const int particle = blockIdx.x;
   const size_t base = static_cast<size_t>(particle) * hw;
@@ -196,29 +361,34 @@ map_update_kernel(MapParams p, const float* __restrict__ grids,
         __fmul_rn(p.d_occ, static_cast<float>(count[c])));
     gout[base + c] = g;
     const bool occ = g >= p.l_occ;
-    plane[c] = occ ? 0.0f : p.big;
+    plane[row * s + col] = occ ? 0 : big;
     occ_any |= occ;
   }
   const bool any_occ = __syncthreads_or(occ_any) != 0;
 
-  // Phase 4: the distance field of the new grid.
-  edt_plane(p, plane, any_occ, dout + base);
+  // Phase 4: the distance field of the new grid; the count image is dead.
+  edt_plane(p, plane, count, tops, any_occ, dout + base);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 edt_kernel(MapParams p, const float* __restrict__ grids,
            float* __restrict__ dout) {
-  extern __shared__ float plane[];
-  const int hw = p.height * p.width;
+  extern __shared__ int smem_i[];
+  const int h = p.height, w = p.width, hw = h * w, s = plane_stride(w);
+  const int big = static_cast<int>(p.big);   // H + W + 2
+  int* plane = smem_i;                        // (H, S) EDT working plane
+  int* stack = plane + h * s;                 // (H, W) column stacks
+  int* tops = stack + hw;                     // (kSegments, W) stack tops
   const size_t base = static_cast<size_t>(blockIdx.x) * hw;
   int occ_any = 0;
   for (int c = threadIdx.x; c < hw; c += blockDim.x) {
     const bool occ = grids[base + c] >= p.l_occ;
-    plane[c] = occ ? 0.0f : p.big;
+    const int row = c / w;
+    plane[row * s + (c - row * w)] = occ ? 0 : big;
     occ_any |= occ;
   }
   const bool any_occ = __syncthreads_or(occ_any) != 0;
-  edt_plane(p, plane, any_occ, dout + base);
+  edt_plane(p, plane, stack, tops, any_occ, dout + base);
 }
 
 }  // namespace
@@ -236,8 +406,10 @@ int tpunav_map_update(const MapParams* params, const float* grids,
                       const float* beam_table, float* gout, float* dout,
                       int* beam_out, void* stream) {
   const MapParams p = *params;
-  const size_t smem =
-      (2 * static_cast<size_t>(p.height) * p.width + p.beams) * sizeof(float);
+  // Keep in step with map_update.py:_map_shared_bytes.
+  const size_t smem = (static_cast<size_t>(p.height) * p.width +
+                       static_cast<size_t>(p.height) * (p.width | 1) +
+                       kSegments * p.width + p.beams) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       map_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -252,7 +424,10 @@ int tpunav_map_update(const MapParams* params, const float* grids,
 int tpunav_edt(const MapParams* params, const float* grids, float* dout,
                void* stream) {
   const MapParams p = *params;
-  const size_t smem = static_cast<size_t>(p.height) * p.width * sizeof(float);
+  // Keep in step with map_update.py:_edt_shared_bytes.
+  const size_t smem = (static_cast<size_t>(p.height) * p.width +
+                       static_cast<size_t>(p.height) * (p.width | 1) +
+                       kSegments * p.width) * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       edt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -50,5 +50,10 @@ def euclidean_distance_field(occ, resolution: float, max_dist: float,
     for k in range(w):
         cand = (j - k) ** 2 + g2[..., k:k + 1]
         d2 = cand if d2 is None else torch.minimum(d2, cand)
-    d = torch.sqrt(d2) * resolution
+    # A correctly rounded sqrt on every device, as the kernels' __fsqrt_rn
+    # and XLA's: torch's float32 sqrt on the CPU can miss by an ulp
+    # (sqrt(9225) gives 96.04685974, not 96.04686737). The float64 sqrt of
+    # an exact integer, rounded once to float32, is correctly rounded
+    # (53 ≥ 2·24 + 2 bits).
+    d = torch.sqrt(d2.double()).to(dtype) * resolution
     return torch.clamp(d, max=max_dist)

@@ -5,12 +5,15 @@ Port of ``tpunav/ops/pallas_mppi.py`` (``_solve_update``,
 ``mppi_solve_fused``, ``pack_obstacles``). The kernel is hand-written CUDA
 for Hopper, ``csrc/fused_mppi.cu``; it replaces the Pallas kernel
 ``_mppi_kernel``, its obstacle mode included.
-One solve is two launches: per-128-rollout blocks emit softmax partials
+One solve is two launches: blocks of 32 rollouts emit softmax partials
 [m_l, Σe, Σe·z0, Σe·z1, Σz0, Σz1], and a combine kernel merges the blocks
 with the rescaled-exponential algebra of :func:`combine_softmax_partials`
-and applies the update. The kernel is bound by latency (N dependent RK4
-steps per thread), not by bytes: its (N, K) f32 scratch is 0.8 MB at
-K=4,096 and 9.8 MB at K=49,152 (N=50), inside the 50 MB L2.
+and applies the update. The kernel is bound by latency, not by bytes: a
+block spreads the independent work of its (rollout, step) pairs (noise,
+trigonometry, loss, obstacle distances) over its threads and leaves only
+the θ, x, y and cost-to-go recurrences serial. The horizon's noise and
+cost-to-go stay in shared memory up to N = 256 steps, and beyond that in a
+(3, N, K) f32 scratch that the wrapper allocates.
 
 A CPU tensor takes the plain version (``_solve_partials_reference`` then
 ``_combine_reference``, in the kernel's own decomposition); a CUDA tensor
@@ -45,7 +48,9 @@ from ..models.cart import CartParams
 from . import philox
 from ._build import check_launch, check_shared_memory, check_tensors, load
 
-_BLOCK = 128                # rollouts per block of kernel A
+_BLOCK = 32                 # rollouts per block of kernel A (a warp's lanes)
+_CHUNK = 64                 # steps per chunk of the horizon in kernel A
+_SMEM_HORIZON = 256         # longest horizon kept in shared memory
 KERNEL_LAUNCHES = 0         # kernel solves launched (one per solve)
 
 
@@ -66,6 +71,7 @@ class _KernelParams(ctypes.Structure):
         ("p2", ctypes.c_float),
         ("inv_lambda", ctypes.c_float), ("floor_k", ctypes.c_float),
         ("max_wheel_vel", ctypes.c_float),
+        ("chunk", ctypes.c_int), ("horizon_smem", ctypes.c_int),
     ]
 
 
@@ -77,7 +83,20 @@ def _kernel_params(cfg: MPPIConfig, model: CartParams, partial_out: bool,
         model.wheel_radius / model.wheel_base, 0.5 * model.wheel_radius,
         float(cfg.ul_var) ** 0.5, float(cfg.ur_var) ** 0.5,
         *cfg.q_diag, *cfg.r_diag, *cfg.p1_diag,
-        1.0 / cfg.lambda_, 1e-8 * cfg.rollouts, cfg.max_wheel_vel)
+        1.0 / cfg.lambda_, 1e-8 * cfg.rollouts, cfg.max_wheel_vel,
+        min(cfg.steps, _CHUNK), int(cfg.steps <= _SMEM_HORIZON))
+
+
+def _shared_bytes(n: int, n_obs: int) -> int:
+    """Kernel A's dynamic shared memory per block (as tpunav_mppi_solve
+    sizes it): the chunk planes, the horizon planes up to _SMEM_HORIZON
+    steps, and the obstacle table."""
+    floats = 3 * _BLOCK * min(n, _CHUNK)
+    if n <= _SMEM_HORIZON:
+        floats += 3 * _BLOCK * n
+    if n_obs:
+        floats += 6 * n_obs + 4
+    return 4 * floats
 
 
 def _check_inputs(cfg: MPPIConfig, u, seed, pose_xyt, xd, noise, table):
@@ -131,8 +150,9 @@ def _add_obstacle_cost(loss, x, y, consts):
 def _solve_partials_reference(cfg: MPPIConfig, model: CartParams, u, seed,
                               pose_xyt, xd, noise=None, table=None):
     """Kernel A in plain torch: (blocks, N, 6) softmax partials
-    [m_l, Σe, Σe·z0, Σe·z1, Σz0, Σz1] over each block of 128 rollouts, with
-    the same RK4, loss and obstacle expressions as the kernel."""
+    [m_l, Σe, Σe·z0, Σe·z1, Σz0, Σz1] over each block of 32 rollouts, with
+    the same RK4, loss and obstacle expressions as the kernel, each
+    operation rounded on its own."""
     n, k = cfg.steps, cfg.rollouts
     consts = (None if table is None or table.shape[0] == 1
               else _segment_constants(table))
@@ -181,12 +201,13 @@ def _solve_partials_reference(cfg: MPPIConfig, model: CartParams, u, seed,
 
     # Per-block reductions; the ragged last block is masked (+inf for the
     # min, 0 for every sum).
-    blocks = -(-k // _BLOCK)
-    pad = blocks * _BLOCK - k
+    block = _BLOCK
+    blocks = -(-k // block)
+    pad = blocks * block - k
     j = torch.nn.functional.pad(j, (0, pad), value=float("inf"))
-    z0 = torch.nn.functional.pad(z0, (0, pad)).reshape(n, blocks, _BLOCK)
-    z1 = torch.nn.functional.pad(z1, (0, pad)).reshape(n, blocks, _BLOCK)
-    j = j.reshape(n, blocks, _BLOCK)
+    z0 = torch.nn.functional.pad(z0, (0, pad)).reshape(n, blocks, block)
+    z1 = torch.nn.functional.pad(z1, (0, pad)).reshape(n, blocks, block)
+    j = j.reshape(n, blocks, block)
     m = torch.amin(j, dim=-1, keepdim=True)
     e = torch.exp((m - j) * (1.0 / cfg.lambda_))             # 0 where masked
     part = torch.stack([m[..., 0], e.sum(-1), (e * z0).sum(-1),
@@ -232,10 +253,11 @@ def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
     lib = load()
     n, k = cfg.steps, cfg.rollouts
     n_obs = 0 if table is None else table.shape[0] - 1
-    if n_obs:
-        check_shared_memory(lib, 4 * (6 * n_obs + 4), "the obstacle table")
+    check_shared_memory(lib, _shared_bytes(n, n_obs),
+                        f"the fused MPPI solve (N={n}, O={n_obs})")
     blocks = -(-k // _BLOCK)
-    scratch = torch.empty((n, k), dtype=torch.float32, device=u.device)
+    scratch = (None if n <= _SMEM_HORIZON else
+               torch.empty((3, n, k), dtype=torch.float32, device=u.device))
     parts = torch.empty((blocks, n, 6), dtype=torch.float32, device=u.device)
     out = torch.empty((n, 6 if partial_out else 2), dtype=torch.float32,
                       device=u.device)
@@ -247,7 +269,8 @@ def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
             xd.data_ptr(), seed.data_ptr(),
             None if noise is None else noise.data_ptr(),
             table.data_ptr() if n_obs else None,
-            scratch.data_ptr(), parts.data_ptr(), out.data_ptr(), stream)
+            None if scratch is None else scratch.data_ptr(),
+            parts.data_ptr(), out.data_ptr(), stream)
     check_launch(lib, err, "fused MPPI")
     KERNEL_LAUNCHES += 1
     return out

@@ -7,8 +7,9 @@ source, ``csrc/map_update.cu``, which replaces the Pallas kernels
 ``_map_kernel`` and ``_edt_kernel``. K3 folds one scan into each of P
 particles' (H, W) log-odds grids, each from its own pose, and rebuilds
 each particle's distance field; K4 rebuilds distance fields from grids.
-Both run one device function for the EDT, so K4 on K3's grids gives K3's
-fields bit for bit.
+Both run one device function for the EDT, an exact linear-time lower
+envelope in integers (Meijster's), so K4 on K3's grids gives K3's fields
+bit for bit, and both give ``esdf``'s.
 
 A CPU tensor takes the plain versions (:func:`_map_update_reference`, the
 TPU kernel's arithmetic in plain torch, and :func:`_edt_reference`); a
@@ -31,6 +32,7 @@ from ._build import (check_launch, check_shared_memory, check_tensors,
 if TYPE_CHECKING:
     from ..estimation.rbpf.grid import GridConfig
 
+_RUNS = 2                   # csrc/map_update.cu's kSegments
 MAP_LAUNCHES = 0            # K3 launches (one per call on the card)
 EDT_LAUNCHES = 0            # K4 launches (one per call on the card)
 
@@ -64,6 +66,22 @@ def _map_params(cfg: GridConfig, p: int) -> _MapParams:
         1.0 / cfg.beam_delta, cfg.beam_delta, 0.5 * res,
         cfg.l_free - cfg.l_prior, cfg.l_occ - cfg.l_prior, cfg.l_occ,
         h + w + 2.0, cfg.max_occ_dist)
+
+
+def _map_shared_bytes(cfg: GridConfig) -> int:
+    """K3's dynamic shared memory per block (as tpunav_map_update sizes
+    it): the endpoint count image (H, W), the EDT's working plane at the odd
+    row stride W | 1, the column envelopes' stack tops (_RUNS per
+    column), and the beam table."""
+    h, w = cfg.height, cfg.width
+    return 4 * (h * w + h * (w | 1) + _RUNS * w + cfg.num_beams)
+
+
+def _edt_shared_bytes(cfg: GridConfig) -> int:
+    """K4's: the working plane at the odd row stride, the column stacks
+    (H, W) and their tops."""
+    h, w = cfg.height, cfg.width
+    return 4 * (h * w + h * (w | 1) + _RUNS * w)
 
 
 def _pose_trig(poses):
@@ -126,7 +144,7 @@ def _map_update_reference(cfg: GridConfig, grids, ranges, poses,
 def _edt_reference(cfg: GridConfig, grids):
     """K4 in plain torch: the batched ESDF of ``estimation/rbpf/grid.py``.
     The EDT is exact small-integer arithmetic until the final sqrt·res,
-    so this equals the kernels' row-first sweep bit for bit."""
+    so this equals the kernels' row pass and column envelope bit for bit."""
     from ..estimation.rbpf.grid import esdf
 
     return esdf(cfg, grids)
@@ -155,7 +173,7 @@ def _launch_map(cfg: GridConfig, grids, ranges, poses, table, beam_out):
     dout = torch.empty_like(grids)
     if grids.shape[0] == 0:
         return gout, dout
-    check_shared_memory(lib, 4 * (2 * grids[0].numel() + cfg.num_beams),
+    check_shared_memory(lib, _map_shared_bytes(cfg),
                         f"the map update of a {cfg.height}x{cfg.width} map")
     if table is None:
         table = beams.beam_table(cfg, ranges)
@@ -211,7 +229,7 @@ def edt_batch(cfg: GridConfig, grids):
     dout = torch.empty_like(grids)
     if grids.shape[0] == 0:
         return dout
-    check_shared_memory(lib, 4 * grids[0].numel(),
+    check_shared_memory(lib, _edt_shared_bytes(cfg),
                         f"the EDT of a {cfg.height}x{cfg.width} map")
     params = _map_params(cfg, grids.shape[0])
     with torch.cuda.device(grids.device):
