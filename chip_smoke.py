@@ -25,9 +25,9 @@ and times every kernel beside its plain version. Each phase prints one
 JSON line; any failure raises and the script exits non-zero. It needs
 CUDA and has no CPU path. The last line is {"ok": true, "device": {...}}.
 
-Phase ``kernel_times`` (:func:`kernel_times`) times K1, K3 and K4 through
-their public entry points only, at the shapes their designs are judged
-at, and prints digests of K3's and K4's outputs. It takes the
+Phase ``kernel_times`` (:func:`kernel_times`) times K1, K2, K3 and K4
+through their public entry points only, at the shapes their designs are
+judged at, and prints digests of K2's, K3's and K4's outputs. It takes the
 ``tpunav_torch`` that ``sys.path`` finds first, so the same code can time
 another checkout's package: run ``Smoke``, ``Rbpf``, ``Obstacle`` and
 ``kernel_times`` from this file (``runpy.run_path``) with that checkout's
@@ -392,6 +392,13 @@ class Rbpf:
         # kernel shows here.
         self.g48x80 = grid.GridConfig(resolution=0.05, ymin=-1.2, ymax=1.2,
                                       **beams)
+        # A 10 × 10 m room (200×200) and the largest plane tpunav's map
+        # kernels take, 16 × 16 m (320×320): beyond a block's shared
+        # memory, where the kernels keep their planes in device memory.
+        self.g200 = grid.GridConfig(resolution=0.05, xmin=-5.0, xmax=5.0,
+                                    ymin=-5.0, ymax=5.0, **beams)
+        self.g320 = grid.GridConfig(resolution=0.05, xmin=-8.0, xmax=8.0,
+                                    ymin=-8.0, ymax=8.0, **beams)
         self.cfg = particle_filter.PFConfig(
             num_particles=self.P, k_samples=self.K,
             sample_range=(1e-6, 1e-5, 1e-5), motion_noise=(1e-6, 1e-5, 1e-5),
@@ -418,23 +425,37 @@ class Rbpf:
 
     def lik_kernel(self):
         """K2 against its plain version at the gate's bar
-        (tests_tpu/test_tpu_gate.py:257-259), at the gate's shapes and at
-        the course's (k+1 = 51 samples per particle)."""
+        (tests_tpu/test_tpu_gate.py:257-259), at the gate's shapes, at the
+        course's (k+1 = 51 samples per particle), and where K2 takes its
+        two-pass path: fewer particles than SMs, a 320×320 field. An empty
+        map on each path scores exactly 0."""
         t0 = time.perf_counter()
         cases = []
         for gcfg, p, k in [(self.g80, 8, 12), (self.g80, 500, 50),
-                           (self.g80, 500, 51), (self.g160, 40, 50)]:
+                           (self.g80, 500, 51), (self.g160, 40, 50),
+                           (self.g80, 40, 51), (self.g320, 16, 51)]:
             scan, poses, grids, gen = self.world(gcfg, p)
             dists = self.grid.esdf(gcfg, grids)
-            if p == 8:
+            empty = (p, k) in ((8, 12), (500, 50))
+            if empty:
                 dists[-1] = gcfg.max_occ_dist          # an empty map
             samples = (poses[:, None, :] + 0.01 * torch.randn(
                 (p, k, 3), generator=gen, device=self.dev)).contiguous()
+            before = self.lik.LIK_LAUNCHES
             got = self.lik.likelihood_field_batch(gcfg, dists, scan, samples)
+            launches = self.lik.LIK_LAUNCHES - before
+            us = device_us(lambda: self.lik.likelihood_field_batch(
+                gcfg, dists, scan, samples), ("likelihood_",), 10)
             want = self.lik._lik_reference(gcfg, dists, scan, samples)
             torch.cuda.synchronize()
             err = (got - want).abs()
-            row = {"P": p, "k": k, "map": gcfg.height,
+            row = {"P": p, "k": k, "map": gcfg.height, "launches": launches,
+                   "path": self.lik._plan(p, k, gcfg.height, gcfg.width,
+                                          gcfg.num_beams,
+                                          torch.cuda.get_device_properties(
+                                              self.dev).multi_processor_count,
+                                          smem_limit())[0],
+                   "device_us": us["likelihood_"],
                    "max_abs_err": float(err.max()),
                    "p99_abs_err": float(torch.quantile(err.flatten(), 0.99)),
                    "share_above_1e-4": float((err > 1e-4).float().mean())}
@@ -442,7 +463,7 @@ class Rbpf:
                     and row["share_above_1e-4"] <= 0.01
                     and bool(torch.isfinite(got).all())):
                 raise AssertionError(f"K2 vs plain out of bounds: {row}")
-            if p == 8 and not bool((got[-1] == 0.0).all()):
+            if empty and not bool((got[-1] == 0.0).all()):
                 raise AssertionError("K2: an empty map must score exactly 0")
             self.max_err["K2"] = max(self.max_err["K2"], row["max_abs_err"])
             cases.append(row)
@@ -454,11 +475,12 @@ class Rbpf:
         """K3 against its plain version (grids atol 1e-3/rtol 1e-4, dist
         atol 1e-4: tests_tpu/test_tpu_gate.py:218-220), its beam index
         against the plain quantizer (0 mismatches), and K4 on K3's grids
-        bit for bit against K3's fields, on square maps and a 48×80 one."""
+        bit for bit against K3's fields, on square maps, a 48×80 one, and
+        the 200×200 and 320×320 maps whose planes sit in device memory."""
         t0 = time.perf_counter()
         cases = []
         for gcfg, p in [(self.g80, 8), (self.g80, 500), (self.g160, 40),
-                        (self.g48x80, 40)]:
+                        (self.g48x80, 40), (self.g200, 16), (self.g320, 8)]:
             scan, poses, grids, _ = self.world(gcfg, p)
             beam = torch.empty(grids.shape, dtype=torch.int32, device=self.dev)
             g_k, d_k = self.mu.map_update_batch(gcfg, grids, scan, poses,
@@ -466,14 +488,22 @@ class Rbpf:
             g_p, d_p = self.mu._map_update_reference(gcfg, grids, scan, poses)
             _, beam_p = self.mu._beam_index_reference(gcfg, poses)
             d_alone = self.mu.edt_batch(gcfg, g_k)
+            k3_us = device_us(lambda: self.mu.map_update_batch(
+                gcfg, grids, scan, poses), ("map_update_kernel",), 10)
+            k4_us = device_us(lambda: self.mu.edt_batch(gcfg, g_k),
+                              ("edt_kernel",), 10)
             torch.cuda.synchronize()
             torch.testing.assert_close(g_k, g_p, rtol=1e-4, atol=1e-3)
             torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-4)
             row = {"P": p, "map": [gcfg.height, gcfg.width],
+                   "planes": "shared" if self.mu._map_layout(
+                       gcfg, smem_limit())[1] == 0 else "device memory",
                    "grid_max_abs_err": float((g_k - g_p).abs().max()),
                    "dist_max_abs_err": float((d_k - d_p).abs().max()),
                    "beam_index_mismatches": int((beam.long() != beam_p).sum()),
                    "k4_bit_identical": bool(torch.equal(d_alone, d_k)),
+                   "K3_device_us": k3_us["map_update_kernel"],
+                   "K4_device_us": k4_us["edt_kernel"],
                    "occupied_cells": int((g_k >= gcfg.l_occ).sum())}
             if row["beam_index_mismatches"] or not row["k4_bit_identical"]:
                 raise AssertionError(f"K3/K4 checks failed: {row}")
@@ -586,8 +616,10 @@ class Rbpf:
         hw, b = g.height * g.width, g.num_beams
         valid = int(((scan >= g.range_min) & (scan < g.range_max)).sum())
         # K2: per valid (sample, beam) the endpoint (8), its cell (10) and
-        # the mixture with its sum (7); cos and sin per sample.
-        k2 = (4 * (p * hw + p * k * 3 + b + p * k), p * k * (25 * valid + 2))
+        # the sum (1); the mixture (6) once per cell or per lookup,
+        # whichever is fewer; cos and sin per sample.
+        k2 = (4 * (p * hw + p * k * 3 + b + p * k),
+              p * (k * (19 * valid + 2) + 6 * min(hw, k * valid)))
         # An exact EDT needs O(1) work per cell: the two row sweeps and the
         # square (5); a linear-time lower envelope down each column, where
         # each cell enters and leaves the envelope once, at most two
@@ -625,7 +657,7 @@ class Rbpf:
             "K4": (lambda: self.mu.edt_batch(g, st.grids),
                    lambda: self.mu._edt_reference(g, st.grids)),
         }
-        tags = {"K2": "likelihood_field_kernel", "K3": "map_update_kernel",
+        tags = {"K2": "likelihood_", "K3": "map_update_kernel",
                 "K4": "edt_kernel"}
         work = self.work(scan, k)
         rows = {}
@@ -664,7 +696,7 @@ class Rbpf:
         kern = profile_device(update, n)
         busy = sum(us for us, _ in kern.values()) / n
         ours = {name: sum(us for key, (us, _) in kern.items() if tag in key)
-                / n for name, tag in [("K2", "likelihood_field_kernel"),
+                / n for name, tag in [("K2", "likelihood_"),
                                       ("K3", "map_update_kernel"),
                                       ("K4", "edt_kernel")]}
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
@@ -972,27 +1004,16 @@ class Obstacle:
 def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
     """Device µs per call (torch.profiler over 50 calls, after 5) of K1 with
     in-kernel Philox at K=4,096 and 49,152, N=50, without obstacles, with
-    the demo's wall (O=4) and with the reference world's 41 edges; and of
-    K3 and K4 at P=500 on 80×80 and P=40 on 160×160 on the gate's world,
-    with a sha256 of K3's grids and fields and of K4's fields."""
+    the demo's wall (O=4) and with the reference world's 41 edges; of K2
+    (all its launches) at P=500 and 2,000 with k=51 and P=40 with k=51 on
+    80×80, and P=40 with k=50 on 160×160; and of K3 and K4 at P=500 on
+    80×80 and P=40 on 160×160; on the gate's world, with a sha256 of K2's
+    scores, of K3's grids and fields and of K4's fields."""
     import tpunav_torch
 
     t0, reps = time.perf_counter(), 50
     fm, mu, dev = smoke.fm, rbpf.mu, smoke.dev
     seed = torch.tensor(5, dtype=torch.int32, device=dev)
-
-    def device_us(fn, tags):
-        for _ in range(5):
-            fn()
-        kern = profile_device(fn, reps)
-        return {tag: sum(us for key, (us, _) in kern.items() if tag in key)
-                / reps for tag in tags}
-
-    def digest(*ts):
-        h = hashlib.sha256()
-        for t in ts:
-            h.update(t.cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
 
     k1 = []
     for k in (4096, 49152):
@@ -1009,23 +1030,56 @@ def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
                 fn = (lambda: fm.mppi_solve_fused_packed(
                     cfg, smoke.model, u, seed, pose, xd, table=table))
                 n_obs = int(segs.shape[0])
-            us = device_us(fn, ("mppi_rollout_partials", "mppi_combine"))
+            us = device_us(fn, ("mppi_rollout_partials", "mppi_combine"),
+                           reps)
             k1.append({"K": k, "N": cfg.steps, "O": n_obs, "device_us": us,
                        "total_us": sum(us.values())})
+    lik = []
+    for gcfg, p, k in [(rbpf.g80, 500, 51), (rbpf.g80, 2000, 51),
+                       (rbpf.g160, 40, 50), (rbpf.g80, 40, 51)]:
+        scan, poses, grids, gen = rbpf.world(gcfg, p)
+        dists = rbpf.grid.esdf(gcfg, grids)
+        samples = (poses[:, None, :] + 0.01 * torch.randn(
+            (p, k, 3), generator=gen, device=dev)).contiguous()
+        us = device_us(lambda: rbpf.lik.likelihood_field_batch(
+            gcfg, dists, scan, samples), ("likelihood_",),
+            reps)["likelihood_"]
+        lik.append({"P": p, "k": k, "map": [gcfg.height, gcfg.width],
+                    "K2_device_us": us, "K2_sha256": digest(
+                        rbpf.lik.likelihood_field_batch(gcfg, dists, scan,
+                                                        samples))})
     maps = []
     for gcfg, p in [(rbpf.g80, 500), (rbpf.g160, 40)]:
         scan, poses, grids, _ = rbpf.world(gcfg, p)
         k3 = device_us(lambda: mu.map_update_batch(gcfg, grids, scan, poses),
-                       ("map_update_kernel",))["map_update_kernel"]
+                       ("map_update_kernel",), reps)["map_update_kernel"]
         g, d = mu.map_update_batch(gcfg, grids, scan, poses)
-        k4 = device_us(lambda: mu.edt_batch(gcfg, g), ("edt_kernel",))
+        k4 = device_us(lambda: mu.edt_batch(gcfg, g), ("edt_kernel",), reps)
         maps.append({"P": p, "map": [gcfg.height, gcfg.width],
                      "K3_device_us": k3, "K4_device_us": k4["edt_kernel"],
                      "K3_sha256": digest(g, d),
                      "K4_sha256": digest(mu.edt_batch(gcfg, g))})
     emit("kernel_times", seconds=time.perf_counter() - t0, card=smoke.card,
          package=os.path.dirname(tpunav_torch.__file__), reps=reps, k1=k1,
-         maps=maps)
+         k2=lik, maps=maps)
+
+
+def device_us(fn, tags, reps: int) -> dict:
+    """{tag: device µs per call of the kernels whose names hold tag}, from
+    torch.profiler over ``reps`` calls after 5."""
+    for _ in range(5):
+        fn()
+    kern = profile_device(fn, reps)
+    return {tag: sum(us for key, (us, _) in kern.items() if tag in key)
+            / reps for tag in tags}
+
+
+def digest(*ts) -> str:
+    """A sha256 of the tensors' bytes: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def wall_clearance(poses) -> float:
@@ -1118,11 +1172,20 @@ def ptxas_summary(report: str) -> dict:
         if m:
             name = next((k for k in ("mppi_combine", "mppi_rollout_partials",
                                      "likelihood_field_kernel",
+                                     "likelihood_table_kernel",
+                                     "likelihood_lookup_kernel",
                                      "map_update_kernel", "edt_kernel")
                          if k in m.group(1)), m.group(1))
         elif name and ("spill" in line or "Used" in line):
             out[name] = (out.get(name, "") + " " + line.strip()).strip()
     return out
+
+
+def smem_limit() -> int:
+    """The dynamic shared memory a block may opt in to on this card."""
+    from tpunav_torch.ops import _build
+
+    return _build.load().tpunav_max_dynamic_smem()
 
 
 def reset_counts() -> None:

@@ -397,6 +397,67 @@ def test_map_update_plain_equals_integrate_scan():
     torch.testing.assert_close(d_k, tg.esdf(tcfg, g_x), rtol=0, atol=1e-4)
 
 
+SMS, LIMIT = 132, 232448     # an H100 SXM: SMs, opt-in shared memory/block
+
+
+@pytest.mark.parametrize("size,shared", [
+    ({}, True), (BIG, True), (dict(ymin=-1.2, ymax=1.2), True),
+    (dict(xmin=-4.2, xmax=4.2, ymin=-4.2, ymax=4.2), True),      # 168×168
+    (dict(xmin=-4.25, xmax=4.25, ymin=-4.25, ymax=4.25), False),  # 170×170
+    (dict(xmin=-5.0, xmax=5.0, ymin=-5.0, ymax=5.0), False),      # 200×200
+    (dict(xmin=-8.0, xmax=8.0, ymin=-8.0, ymax=8.0), False),      # 320×320
+])
+def test_map_layouts(size, shared):
+    """K3's and K4's planes stay in shared memory where they fit the card's
+    limit, with the byte counts of the shared-only layout, and move to a
+    per-particle global scratch beyond, where only the stack tops and the
+    beam table stay shared: a function of the map and the limit alone.
+    tpunav's map kernels take planes up to h·w·4 ≤ 420 KiB (320×320), and
+    so do K3/K4."""
+    _, cfg = _cfgs(**size)
+    h, w, b = cfg.height, cfg.width, cfg.num_beams
+    planes = h * w + h * (w | 1)
+    k3, k4 = tmu._map_layout(cfg, LIMIT), tmu._edt_layout(cfg, LIMIT)
+    if shared:
+        assert k3 == (4 * (planes + 2 * w + b), 0)
+        assert k4 == (4 * (planes + 2 * w), 0)
+    else:
+        assert k3 == (4 * (2 * w + b), planes)
+        assert k4 == (4 * 2 * w, planes)
+    assert k3[0] <= LIMIT and k4[0] <= LIMIT
+    assert 4 * h * w <= 420 << 10
+    # On a card that allows a block only 48 KB, the 48×80 map's planes
+    # still fit and the 80×80 map's no longer do.
+    full = 4 * (planes + 2 * w + b)
+    assert tmu._map_layout(cfg, 48 << 10) == (
+        (full, 0) if full <= 48 << 10 else (4 * (2 * w + b), planes))
+    assert (full <= 48 << 10) == (h == 48)
+
+
+def test_map_update_plain_matches_tpunav_beyond_shared_memory():
+    """K3's plain version against tpunav's map_update_batch in interpret
+    mode on a 176×176 map, past the 168×168 that a block's shared memory
+    holds (where the card's K3 keeps its planes in device memory); K4's
+    plain version equals K3's field."""
+    size = dict(xmin=-4.4, xmax=4.4, ymin=-4.4, ymax=4.4)
+    jcfg, tcfg = _cfgs(**size)
+    assert (tcfg.height, tcfg.width) == (176, 176)
+    assert tmu._map_layout(tcfg, LIMIT)[1] > 0
+    scan = _world(jcfg, POSES[1], seed=4)
+    grids = _grids(jcfg, scan, POSES[1:3])
+    g_j, d_j = j_map_update(jcfg, jnp.asarray(grids), jnp.asarray(scan),
+                            jnp.asarray(POSES[1:3]), interpret=True)
+    g_t, d_t = tmu.map_update_batch(tcfg, _t(grids), _t(scan),
+                                    _t(POSES[1:3]))
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_array_equal(tmu.edt_batch(tcfg, g_t).numpy(),
+                                  d_t.numpy())
+    assert int((g_t >= tcfg.l_occ).sum()) > 100
+
+
 # ------------------------------------------------------------ wrappers ---
 
 def test_cpu_calls_leave_kernel_counts_unchanged():

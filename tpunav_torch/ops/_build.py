@@ -130,6 +130,11 @@ def check_shared_memory(lib: ctypes.CDLL, need: int, what: str) -> None:
                          f"block; this card allows {limit}")
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if an entry point returned a CUDA error."""
     if err != 0:
@@ -148,8 +153,8 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     vp = ctypes.c_void_p
     for name, nargs in [("tpunav_mppi_solve", 11),
-                        ("tpunav_likelihood_field", 6),
-                        ("tpunav_map_update", 9), ("tpunav_edt", 4)]:
+                        ("tpunav_likelihood_field", 7),
+                        ("tpunav_map_update", 10), ("tpunav_edt", 5)]:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [vp] * nargs

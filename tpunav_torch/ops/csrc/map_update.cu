@@ -49,8 +49,14 @@
 // neighbouring threads touch neighbouring banks; and the runs' stack tops
 // (2·W ints). In K3 the stacks reuse the endpoint count image, dead after
 // phase 3; K4 allocates one more (H, W) plane. K3 also holds the beam
-// table: 53 KB at 80×80, 207 KB at 160×160; two planes fit up to about
-// 168×168 cells, and the wrapper checks the card's opt-in limit.
+// table: 53 KB at 80×80, 207 KB at 160×160; two planes fit a block's
+// shared memory up to about 168×168 cells. Beyond that (the wrapper
+// decides from the card's opt-in limit) the two planes of each block move
+// to its slice of a global scratch, and only the stack tops and the beam
+// table stay in shared memory: one code path, whose body is inlined once
+// with shared and once with global planes, so the compiler keeps
+// shared-memory loads where the planes are shared. tpunav's kernels take
+// planes up to h·w·4 ≤ 420 KiB (about 320×320); so do these.
 //
 // What bounds them on this card: bytes. At P=500, 80×80, K3 reads 12.8 MB
 // and writes 25.6 MB (≈11.5 µs at 3.35 TB/s) and K4 moves 25.6 MB
@@ -136,8 +142,9 @@ __device__ __forceinline__ int runs_of(int w) {
   return max(1, min(kSegments, static_cast<int>(blockDim.x) / w));
 }
 
-__device__ void column_envelopes(int h, int w, const int* plane, int* stack,
-                                 int* tops) {
+__device__ __forceinline__ void column_envelopes(int h, int w,
+                                                 const int* plane, int* stack,
+                                                 int* tops) {
   const int s = plane_stride(w), runs = runs_of(w);
   const int len = (h + runs - 1) / runs;
   for (int i = threadIdx.x; i < runs * w; i += blockDim.x) {
@@ -195,13 +202,15 @@ __device__ void column_envelopes(int h, int w, const int* plane, int* stack,
   }
 }
 
-// The exact EDT of one plane. On entry `plane` (shared, (H, S) ints, S =
-// plane_stride(W)) holds 0 at occupied cells and big = H + W + 2
-// elsewhere, and a barrier has passed; `stack` (shared, H·W ints) and
-// `tops` (shared, kSegments·W ints) are free. Writes the capped distance
-// field to `dout` (device memory).
-__device__ void edt_plane(const MapParams& p, int* plane, int* stack,
-                          int* tops, bool any_occ, float* __restrict__ dout) {
+// The exact EDT of one plane. On entry `plane` ((H, S) ints, S =
+// plane_stride(W), shared or the block's global scratch) holds 0 at
+// occupied cells and big = H + W + 2 elsewhere, and a barrier has passed;
+// `stack` (H·W ints, in the plane's memory) and `tops` (shared,
+// kSegments·W ints) are free. Writes the capped distance field to `dout`
+// (device memory).
+__device__ __forceinline__ void edt_plane(const MapParams& p, int* plane,
+                                          int* stack, int* tops, bool any_occ,
+                                          float* __restrict__ dout) {
   const int h = p.height, w = p.width, s = plane_stride(w);
   // Row pass: 1D distance along each row, forward then backward.
   for (int y = threadIdx.x; y < h; y += blockDim.x) {
@@ -279,21 +288,18 @@ __device__ void edt_plane(const MapParams& p, int* plane, int* stack,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-map_update_kernel(MapParams p, const float* __restrict__ grids,
-                  const float* __restrict__ poses,
-                  const float* __restrict__ pose_trig,
-                  const float* __restrict__ beam_table,
-                  float* __restrict__ gout, float* __restrict__ dout,
-                  int* __restrict__ beam_out) {
-  extern __shared__ float smem[];
+// K3's block: one particle. `count` ((H, W) endpoint counts, later the
+// column stacks) and `plane` ((H, S) EDT working plane) are shared or the
+// block's global scratch; `tops` ((kSegments, W) stack tops) and `r_beam`
+// ((B,) range or -1) are shared.
+__device__ __forceinline__ void update_particle(
+    const MapParams& p, const float* __restrict__ grids,
+    const float* __restrict__ poses, const float* __restrict__ pose_trig,
+    const float* __restrict__ beam_table, float* __restrict__ gout,
+    float* __restrict__ dout, int* __restrict__ beam_out, int* count,
+    int* plane, int* tops, float* r_beam) {
   const int h = p.height, w = p.width, hw = h * w, s = plane_stride(w);
   const int big = static_cast<int>(p.big);   // H + W + 2
-  int* count = reinterpret_cast<int*>(smem);  // (H, W) endpoint counts
-  int* plane = count + hw;                    // (H, S) EDT working plane
-  int* tops = plane + h * s;                  // (kSegments, W) stack tops
-  float* r_beam = smem + hw + h * s + kSegments * w;  // (B,) range or -1
-
   const int particle = blockIdx.x;
   const size_t base = static_cast<size_t>(particle) * hw;
   const float th = poses[particle * 3 + 0];
@@ -370,15 +376,41 @@ map_update_kernel(MapParams p, const float* __restrict__ grids,
   edt_plane(p, plane, count, tops, any_occ, dout + base);
 }
 
+// With `scratch` null the planes are shared (as map_update.py:_map_layout
+// sizes it); otherwise each block's are its (H·W + H·S)-int slice of it.
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-edt_kernel(MapParams p, const float* __restrict__ grids,
-           float* __restrict__ dout) {
-  extern __shared__ int smem_i[];
+map_update_kernel(MapParams p, const float* __restrict__ grids,
+                  const float* __restrict__ poses,
+                  const float* __restrict__ pose_trig,
+                  const float* __restrict__ beam_table,
+                  float* __restrict__ gout, float* __restrict__ dout,
+                  int* __restrict__ beam_out, int* scratch) {
+  extern __shared__ float smem[];
+  const int h = p.height, w = p.width, hw = h * w, s = plane_stride(w);
+  if (scratch == nullptr) {
+    int* count = reinterpret_cast<int*>(smem);
+    int* tops = count + hw + h * s;
+    update_particle(p, grids, poses, pose_trig, beam_table, gout, dout,
+                    beam_out, count, count + hw, tops,
+                    reinterpret_cast<float*>(tops + kSegments * w));
+  } else {
+    int* count = scratch + blockIdx.x * static_cast<size_t>(hw + h * s);
+    int* tops = reinterpret_cast<int*>(smem);
+    update_particle(p, grids, poses, pose_trig, beam_table, gout, dout,
+                    beam_out, count, count + hw, tops,
+                    reinterpret_cast<float*>(tops + kSegments * w));
+  }
+}
+
+// K4's block: `plane` ((H, S)) and `stack` ((H, W)) are shared or the
+// block's global scratch; `tops` is shared.
+__device__ __forceinline__ void edt_particle(const MapParams& p,
+                                             const float* __restrict__ grids,
+                                             float* __restrict__ dout,
+                                             int* plane, int* stack,
+                                             int* tops) {
   const int h = p.height, w = p.width, hw = h * w, s = plane_stride(w);
   const int big = static_cast<int>(p.big);   // H + W + 2
-  int* plane = smem_i;                        // (H, S) EDT working plane
-  int* stack = plane + h * s;                 // (H, W) column stacks
-  int* tops = stack + hw;                     // (kSegments, W) stack tops
   const size_t base = static_cast<size_t>(blockIdx.x) * hw;
   int occ_any = 0;
   for (int c = threadIdx.x; c < hw; c += blockDim.x) {
@@ -391,6 +423,22 @@ edt_kernel(MapParams p, const float* __restrict__ grids,
   edt_plane(p, plane, stack, tops, any_occ, dout + base);
 }
 
+// With `scratch` null the planes are shared (map_update.py:_edt_layout);
+// otherwise each block's are its (H·S + H·W)-int slice of it.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+edt_kernel(MapParams p, const float* __restrict__ grids,
+           float* __restrict__ dout, int* scratch) {
+  extern __shared__ int smem_i[];
+  const int h = p.height, w = p.width, hw = h * w, s = plane_stride(w);
+  if (scratch == nullptr) {
+    edt_particle(p, grids, dout, smem_i, smem_i + h * s,
+                 smem_i + h * s + hw);
+  } else {
+    int* plane = scratch + blockIdx.x * static_cast<size_t>(h * s + hw);
+    edt_particle(p, grids, dout, plane, plane + h * s, smem_i);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -400,40 +448,47 @@ extern "C" {
 // invalid); cos(beam); sin(beam); range (-1 where invalid)] are device
 // float32 arrays; gout and dout (P, H, W). beam_out (P, H, W) int32 may be
 // null; if not, it receives each cell's beam index (mod beams per
-// revolution). Returns cudaGetLastError() after the launch.
+// revolution). scratch is null, or P·(H·W + H·(W|1)) ints for the planes
+// of maps beyond shared memory. Returns cudaGetLastError() after the
+// launch.
 int tpunav_map_update(const MapParams* params, const float* grids,
                       const float* poses, const float* pose_trig,
                       const float* beam_table, float* gout, float* dout,
-                      int* beam_out, void* stream) {
+                      int* beam_out, int* scratch, void* stream) {
   const MapParams p = *params;
-  // Keep in step with map_update.py:_map_shared_bytes.
-  const size_t smem = (static_cast<size_t>(p.height) * p.width +
-                       static_cast<size_t>(p.height) * (p.width | 1) +
-                       kSegments * p.width + p.beams) * sizeof(float);
+  // Keep in step with map_update.py:_map_layout.
+  size_t words = kSegments * p.width + p.beams;
+  if (scratch == nullptr)
+    words += static_cast<size_t>(p.height) * p.width +
+             static_cast<size_t>(p.height) * (p.width | 1);
+  const size_t smem = words * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       map_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   map_update_kernel<<<p.particles, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      p, grids, poses, pose_trig, beam_table, gout, dout, beam_out);
+      p, grids, poses, pose_trig, beam_table, gout, dout, beam_out, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K4 on `stream`: dout (P, H, W) = the distance fields of grids (P, H, W).
+// scratch as for K3, P·(H·(W|1) + H·W) ints.
 int tpunav_edt(const MapParams* params, const float* grids, float* dout,
-               void* stream) {
+               int* scratch, void* stream) {
   const MapParams p = *params;
-  // Keep in step with map_update.py:_edt_shared_bytes.
-  const size_t smem = (static_cast<size_t>(p.height) * p.width +
-                       static_cast<size_t>(p.height) * (p.width | 1) +
-                       kSegments * p.width) * sizeof(int);
+  // Keep in step with map_update.py:_edt_layout.
+  size_t words = kSegments * p.width;
+  if (scratch == nullptr)
+    words += static_cast<size_t>(p.height) * p.width +
+             static_cast<size_t>(p.height) * (p.width | 1);
+  const size_t smem = words * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       edt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   edt_kernel<<<p.particles, kThreads, smem,
-               static_cast<cudaStream_t>(stream)>>>(p, grids, dout);
+               static_cast<cudaStream_t>(stream)>>>(p, grids, dout, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,6 +8,12 @@ Port of ``tpunav/ops/pallas_likelihood.py`` (``likelihood_field_batch``,
 returns log P(z | m, x) of shape (P, k) under the likelihood-field mixture
 (ref: bmapping/src/bmapping/grid_mapper.cpp:69-133).
 
+The kernel turns each field into a table of the mixture's log per cell and
+sums table lookups. :func:`_plan` picks its path from the shapes and the
+card alone: fused (one launch, the table in shared memory) or two-pass (a
+table launch into a global scratch, then a lookup launch), with the same
+bits.
+
 A CPU tensor takes the plain version (:func:`_lik_reference`, the TPU
 kernel's arithmetic in plain torch); a CUDA tensor launches the kernel, or
 raises. ``LIK_LAUNCHES`` counts kernel launches.
@@ -23,12 +29,14 @@ import torch
 
 from . import beams
 from ._build import (check_launch, check_shared_memory, check_tensors,
-                     load)
+                     load, sm_count)
 
 if TYPE_CHECKING:
     from ..estimation.rbpf.grid import GridConfig
 
-LIK_LAUNCHES = 0            # kernel launches (one per call on the card)
+LIK_LAUNCHES = 0            # kernel launches (one or two per call on the card)
+_TABLE_CELLS = 2048         # csrc/likelihood.cu's kTableCells
+_LOOKUP_WARPS = 8           # csrc/likelihood.cu's kLookupWarps
 
 
 class _LikParams(ctypes.Structure):
@@ -91,6 +99,37 @@ def _check_inputs(cfg: GridConfig, dist_fields, ranges, samples, table):
     check_tensors(named, dist_fields.device)
 
 
+def _beam_bytes(b: int) -> int:
+    """Shared memory of the compacted beam table and its chunk counts."""
+    return 8 * b + 4 * -(-b // 32)
+
+
+def _fused_bytes(h: int, w: int, b: int, k: int) -> int:
+    """The fused path's dynamic shared memory per block (as
+    tpunav_likelihood_field sizes it): the lp table at the odd row stride
+    W | 1, rounded up to 16 bytes, each sample's (cos θ, sin θ, x, y), the
+    beams."""
+    return 4 * ((h * (w | 1) + 3) // 4 * 4) + 16 * k + _beam_bytes(b)
+
+
+def _lookup_bytes(b: int) -> int:
+    """The two-pass lookup launch's dynamic shared memory per block."""
+    return 16 * _LOOKUP_WARPS + _beam_bytes(b)
+
+
+def _plan(p: int, k: int, h: int, w: int, b: int, sms: int,
+          smem_limit: int):
+    """K2's path for P particles, k samples, an H×W field and B beams on a
+    card with ``sms`` SMs that lets a block opt in to ``smem_limit`` bytes
+    of shared memory: ("fused", launches 1, scratch floats 0) where one
+    particle's block fits and there are at least as many particles as SMs;
+    else ("two_pass", 2, the scratch floats of the lp table (P, H, W) and
+    its per-chunk occupancy flags)."""
+    if _fused_bytes(h, w, b, k) <= smem_limit and p >= sms:
+        return "fused", 1, 0
+    return "two_pass", 2, p * h * w + p * (-(-h * w // _TABLE_CELLS))
+
+
 def _launch(cfg: GridConfig, dist_fields, ranges, samples, table):
     global LIK_LAUNCHES
     lib = load()
@@ -99,21 +138,30 @@ def _launch(cfg: GridConfig, dist_fields, ranges, samples, table):
     out = torch.empty((p, k), dtype=torch.float32, device=dist_fields.device)
     if p == 0 or k == 0:
         return out
-    check_shared_memory(lib, 4 * (h * w + 3 * cfg.num_beams),
-                        f"the likelihood field of a {h}x{w} map")
+    b = cfg.num_beams
+    path, launches, scratch_floats = _plan(
+        p, k, h, w, b, sm_count(dist_fields.device),
+        lib.tpunav_max_dynamic_smem())
+    scratch = None
+    if path == "two_pass":
+        check_shared_memory(lib, _lookup_bytes(b),
+                            f"the likelihood lookups of {b} beams")
+        scratch = torch.empty(scratch_floats, dtype=torch.float32,
+                              device=dist_fields.device)
     if table is None:
         table = beams.beam_table(cfg, ranges)
     inv_res, nhiv, zh_norm, floor_p = _constants(cfg)
-    params = _LikParams(p, k, h, w, cfg.num_beams, cfg.xmin, cfg.ymin,
+    params = _LikParams(p, k, h, w, b, cfg.xmin, cfg.ymin,
                         inv_res, nhiv, zh_norm, floor_p, cfg.max_occ_dist)
     with torch.cuda.device(dist_fields.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpunav_likelihood_field(
             ctypes.addressof(params), dist_fields.data_ptr(),
             samples.data_ptr(), table[beams.R_MARK:].data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             out.data_ptr(), stream)
     check_launch(lib, err, "likelihood-field")
-    LIK_LAUNCHES += 1
+    LIK_LAUNCHES += launches
     return out
 
 

@@ -9,7 +9,9 @@ particles' (H, W) log-odds grids, each from its own pose, and rebuilds
 each particle's distance field; K4 rebuilds distance fields from grids.
 Both run one device function for the EDT, an exact linear-time lower
 envelope in integers (Meijster's), so K4 on K3's grids gives K3's fields
-bit for bit, and both give ``esdf``'s.
+bit for bit, and both give ``esdf``'s. Each block keeps its planes in
+shared memory where they fit (about 168×168 cells) and in its slice of a
+global scratch beyond (:func:`_map_layout`, :func:`_edt_layout`).
 
 A CPU tensor takes the plain versions (:func:`_map_update_reference`, the
 TPU kernel's arithmetic in plain torch, and :func:`_edt_reference`); a
@@ -68,20 +70,41 @@ def _map_params(cfg: GridConfig, p: int) -> _MapParams:
         h + w + 2.0, cfg.max_occ_dist)
 
 
-def _map_shared_bytes(cfg: GridConfig) -> int:
-    """K3's dynamic shared memory per block (as tpunav_map_update sizes
-    it): the endpoint count image (H, W), the EDT's working plane at the odd
-    row stride W | 1, the column envelopes' stack tops (_RUNS per
-    column), and the beam table."""
-    h, w = cfg.height, cfg.width
-    return 4 * (h * w + h * (w | 1) + _RUNS * w + cfg.num_beams)
+def _layout(planes: int, rest: int, smem_limit: int):
+    """(shared bytes per block, scratch ints per particle): the ``planes``
+    ints in shared memory beside the ``rest`` if all fit ``smem_limit``
+    bytes, else in a global scratch."""
+    if 4 * (planes + rest) <= smem_limit:
+        return 4 * (planes + rest), 0
+    return 4 * rest, planes
 
 
-def _edt_shared_bytes(cfg: GridConfig) -> int:
-    """K4's: the working plane at the odd row stride, the column stacks
-    (H, W) and their tops."""
+def _map_layout(cfg: GridConfig, smem_limit: int):
+    """K3's layout (as tpunav_map_update sizes it) on a card that lets a
+    block opt in to ``smem_limit`` bytes: the endpoint count image (H, W)
+    and the EDT's working plane at the odd row stride W | 1, shared or in
+    the scratch; the column envelopes' stack tops (_RUNS per column) and
+    the beam table, shared."""
     h, w = cfg.height, cfg.width
-    return 4 * (h * w + h * (w | 1) + _RUNS * w)
+    return _layout(h * w + h * (w | 1), _RUNS * w + cfg.num_beams,
+                   smem_limit)
+
+
+def _edt_layout(cfg: GridConfig, smem_limit: int):
+    """K4's: the working plane at the odd row stride and the column stacks
+    (H, W), shared or in the scratch; their tops, shared."""
+    h, w = cfg.height, cfg.width
+    return _layout(h * w + h * (w | 1), _RUNS * w, smem_limit)
+
+
+def _scratch(lib, layout, p: int, device, what: str):
+    """The (P, ints) int32 plane scratch of a layout, or None; raises if
+    what stays shared exceeds the card's limit."""
+    smem, ints = layout
+    check_shared_memory(lib, smem, what)
+    if ints == 0:
+        return None
+    return torch.empty((p, ints), dtype=torch.int32, device=device)
 
 
 def _pose_trig(poses):
@@ -173,8 +196,9 @@ def _launch_map(cfg: GridConfig, grids, ranges, poses, table, beam_out):
     dout = torch.empty_like(grids)
     if grids.shape[0] == 0:
         return gout, dout
-    check_shared_memory(lib, _map_shared_bytes(cfg),
-                        f"the map update of a {cfg.height}x{cfg.width} map")
+    scratch = _scratch(lib, _map_layout(cfg, lib.tpunav_max_dynamic_smem()),
+                       grids.shape[0], grids.device,
+                       f"the map update of a {cfg.height}x{cfg.width} map")
     if table is None:
         table = beams.beam_table(cfg, ranges)
     trig = _pose_trig(poses)
@@ -185,7 +209,7 @@ def _launch_map(cfg: GridConfig, grids, ranges, poses, table, beam_out):
             ctypes.addressof(params), grids.data_ptr(), poses.data_ptr(),
             trig.data_ptr(), table.data_ptr(), gout.data_ptr(),
             dout.data_ptr(), None if beam_out is None else beam_out.data_ptr(),
-            stream)
+            None if scratch is None else scratch.data_ptr(), stream)
     check_launch(lib, err, "map-update")
     MAP_LAUNCHES += 1
     return gout, dout
@@ -229,13 +253,16 @@ def edt_batch(cfg: GridConfig, grids):
     dout = torch.empty_like(grids)
     if grids.shape[0] == 0:
         return dout
-    check_shared_memory(lib, _edt_shared_bytes(cfg),
-                        f"the EDT of a {cfg.height}x{cfg.width} map")
+    scratch = _scratch(lib, _edt_layout(cfg, lib.tpunav_max_dynamic_smem()),
+                       grids.shape[0], grids.device,
+                       f"the EDT of a {cfg.height}x{cfg.width} map")
     params = _map_params(cfg, grids.shape[0])
     with torch.cuda.device(grids.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpunav_edt(ctypes.addressof(params), grids.data_ptr(),
-                             dout.data_ptr(), stream)
+                             dout.data_ptr(),
+                             None if scratch is None else scratch.data_ptr(),
+                             stream)
     check_launch(lib, err, "EDT")
     EDT_LAUNCHES += 1
     return dout
