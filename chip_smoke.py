@@ -20,6 +20,13 @@ drives the port's three paths:
   K=4,096, N=50, the wall's 4 segments priced in-kernel) through K1's
   obstacle mode, with the planning package's grid, roadmap and potential
   field on the card;
+- EKF SLAM closing the MPPI loop through K1: BASELINE config 3
+  (examples/slam_mppi_closed_loop_demo.py: the 12-cylinder block world of
+  configs/block_world_landmarks.yaml, known data association, K=1,024) and
+  config 4 at its stated scale (examples/dense_world_slam_demo.py: 44
+  cylinders, the lidar → circle detector → unknown data association chain
+  at capacity 50, K=2,048, 5,000 ticks), with the filter held against its
+  CPU run and the detector against its CPU run and itself;
 
 and times every kernel beside its plain version. Each phase prints one
 JSON line; any failure raises and the script exits non-zero. It needs
@@ -149,8 +156,10 @@ class Smoke:
     def injected(self):
         t0 = time.perf_counter()
         cases = []
+        # K=196,608: the K that tpunav serves only through its blocked
+        # path (pallas_mppi.py:373-419), one launch here.
         for k, u_off in [(4096, (0.0, 0.0)), (49152, (0.0, 0.0)),
-                         (4096, (1.5, -0.5))]:
+                         (4096, (1.5, -0.5)), (196608, (0.0, 0.0))]:
             cfg = self.cfg(k)
             u, pose, xd, noise = self.tensors(cfg, u_off=u_off,
                                               noise_seed=k)
@@ -1001,10 +1010,642 @@ class Obstacle:
                                       for name, (us, _) in top})
 
 
+# examples/slam_mppi_closed_loop_demo.py:35-37: the square course through
+# the block world.
+SLAM_WAYPOINTS = [[0.5, 0.0, 0.0], [0.4, 0.5, 1.57], [-0.3, 0.45, 3.0],
+                  [-0.5, -0.2, -1.8], [0.2, -0.5, -0.4]]
+# bench.py:292-294: bench_slam_loop's course.
+BENCH_WAYPOINTS = [[0.4, 0.0, 0.0], [0.3, 0.4, 1.57], [-0.3, 0.3, 3.0],
+                   [-0.4, -0.3, -2.0], [0.2, -0.4, -0.5]]
+
+
+def dense_world():
+    """examples/dense_world_slam_demo.py:42-61: 44 cylinders in two rings
+    and the 12-waypoint ring that weaves between them."""
+    ao = np.linspace(0.0, 2 * np.pi, 24, endpoint=False)
+    ai = np.linspace(0.0, 2 * np.pi, 20, endpoint=False) + 0.13
+    world = np.concatenate([
+        np.stack([1.55 * np.cos(ao), 1.55 * np.sin(ao)], -1),
+        np.stack([0.95 * np.cos(ai), 0.95 * np.sin(ai)], -1)])
+    a = np.linspace(0.0, 2 * np.pi, 12, endpoint=False)
+    r = np.where(np.arange(12) % 2 == 0, 1.42, 1.12)
+    ring = np.stack([r * np.cos(a), r * np.sin(a), a + np.pi / 2], -1)
+    return world.astype(np.float32), ring.astype(np.float32)
+
+
+def bench_ekf_course(n=50, n_visible=12, updates=200, seed=11):
+    """bench.py:bench_ekf's course: a ring of 12 landmarks 2 m out seen
+    from an arcing pose at u = (0.02, 0.01), robot-frame measurements with
+    1 mm noise from a numpy seed, NaN-padded to the capacity n."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0.0, 2 * np.pi, n_visible, endpoint=False)
+    lms = np.stack([2.0 * np.cos(ang), 2.0 * np.sin(ang)], -1)
+    pose, out = np.zeros(3), []
+    for _ in range(updates):
+        th = pose[0] + 0.02
+        pose = np.array([th, pose[1] + 0.01 * np.cos(th),
+                         pose[2] + 0.01 * np.sin(th)])
+        c, s = np.cos(pose[0]), np.sin(pose[0])
+        rel = lms - pose[1:3]
+        rf = np.stack([c * rel[:, 0] + s * rel[:, 1],
+                       -s * rel[:, 0] + c * rel[:, 1]], -1)
+        rf = rf + 1e-3 * rng.standard_normal(rf.shape)
+        out.append(np.concatenate([rf, np.full((n - n_visible, 2), np.nan)]))
+    return out
+
+
+def count_syncs(fn, reps: int) -> float:
+    """Host syncs per call of ``fn``: the synchronizing CUDA calls that
+    torch's sync debug mode reports, over ``reps`` calls."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(reps):
+                fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message).lower()
+               for w in caught) / reps
+
+
+def wall_us(fn, reps: int, warmup: int = 3) -> float:
+    """Host µs per call of ``fn`` over ``reps`` calls ending in a sync (the
+    EKF update is a chain of small launches: its time is the host's)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / reps
+
+
+def launches(fn, reps: int = 3) -> float:
+    """Device launches per call of ``fn`` (torch.profiler)."""
+    fn()
+    return sum(c for _, c in profile_device(fn, reps).values()) / reps
+
+
+def masked_slam(ekff, cfg, st, meas, u, known: bool):
+    """The graph-safe alternative to the filter's dynamic trip count: a
+    fixed trip over all M rows, each invalid row an exact no-op through
+    ``torch.where``, and no host read. Timed beside the filter in
+    ``Ekf.times``; the package keeps the faster one."""
+    from tpunav_torch.device import full_precision_matmul
+
+    with full_precision_matmul():
+        like = st.state
+        w, v = ekff._noise_draws(cfg, None, meas.shape[0], like)
+        state = ekff.motion_update(cfg, st.state, u, w)
+        cov = ekff.uncertainty_update(cfg, st.state,
+                                      ekff._repair(cfg, st.cov), u)
+        valid = torch.isfinite(meas).all(dim=-1)
+        r, b = ekff._polar(torch.where(valid[:, None],
+                                       torch.nan_to_num(meas), 0.0))
+        b_norm = ekff.normalize_angle_pi(b)
+        k = ekff._update_consts(cfg, like)
+        rows = torch.arange(meas.shape[0], device=like.device)
+        carry = ((state, cov, st.active) if known else
+                 (state, cov, st.active, st.count))
+        for i in range(meas.shape[0]):
+            row = (r[i], b[i], b_norm[i], v[i])
+            new = (ekff._known_row(cfg, k, carry, rows[i:i + 1], row)
+                   if known else ekff._unknown_row(cfg, k, carry, row))
+            carry = tuple(torch.where(valid[i], a, c)
+                          for a, c in zip(new, carry))
+    if known:
+        state, cov, active = carry
+        return ekff.EKFState(state, cov, active,
+                             active.sum(dtype=torch.int32))
+    return ekff.EKFState(*carry)
+
+
+class Ekf:
+    """EKF SLAM in the MPPI loop (BASELINE configs 3 and 4): the filter on
+    the card against the same functions on the CPU, K1 at the loop's
+    shapes, the circle detector, both courses through K1, their rates and
+    their profile."""
+
+    def __init__(self, smoke: Smoke):
+        from tpunav_torch.control import slam_loop
+        from tpunav_torch.estimation import landmarks
+        from tpunav_torch.estimation.ekf import filter as ekff
+        from tpunav_torch.estimation.ekf import spd
+        from tpunav_torch.sim import landmark_sensor, lidar
+
+        self.s, self.dev, self.card = smoke, smoke.dev, smoke.card
+        self.sl, self.lmk, self.ekff, self.spd = (slam_loop, landmarks, ekff,
+                                                  spd)
+        self.sensor, self.lidar = landmark_sensor, lidar
+        self.world, self.ring = dense_world()
+        self.radii = np.full(len(self.world), 0.04, np.float32)
+
+    # ── configurations ──
+
+    def bench_cfg(self):
+        """bench.py:bench_ekf: capacity 50, the default SPD repair."""
+        return self.ekff.EKFConfig(num_landmarks=50, dmin=5e1, dmax=1e4,
+                                   measurement_noise=(1e-4, 1e-4))
+
+    def config3(self):
+        """examples/slam_mppi_closed_loop_demo.py:40-50 (known DA, 12
+        slots), on the fused kernel."""
+        mppi = self.s.mppi.MPPIConfig(horizon=0.4, dt=0.05, rollouts=1024,
+                                      ul_var=4.0, ur_var=4.0)
+        ekf = self.ekff.EKFConfig(num_landmarks=12, dmin=5e1, dmax=1e4,
+                                  spd_repair=False,
+                                  motion_noise=(1e-6, 1e-6, 1e-6),
+                                  measurement_noise=(1e-6, 1e-6))
+        loop = self.sl.SlamLoopConfig(goal_thresh=0.12, known_da=True,
+                                      sensor_every=6, visibility=1.2,
+                                      use_fused=True)
+        centers, _ = self.s.config.load_landmarks(
+            os.path.join(CONFIGS, "block_world_landmarks.yaml"))
+        return mppi, ekf, loop, self.t(SLAM_WAYPOINTS), self.t(centers)
+
+    def config4(self, rollouts=2048):
+        """examples/dense_world_slam_demo.py:64-107: unknown DA at
+        capacity 50 fed by lidar → detector (max_clusters 32), 20 Hz
+        ticks, sensing every 4th, on the fused kernel. Returns the configs,
+        the waypoint ring, the world and the measurement chain."""
+        mppi = self.s.mppi.MPPIConfig(horizon=0.4, dt=0.05,
+                                      rollouts=rollouts, ul_var=4.0,
+                                      ur_var=4.0)
+        ekf = self.ekff.EKFConfig(num_landmarks=50, dmin=5e1, dmax=3e3,
+                                  spd_repair=False,
+                                  motion_noise=(1e-5, 1e-5, 1e-5),
+                                  measurement_noise=(1e-5, 1e-5))
+        loop = self.sl.SlamLoopConfig(goal_thresh=0.15, cycles=2,
+                                      sensor_every=4, tick_dt=0.05,
+                                      odom_bias=(1e-4, 1e-4), known_da=False,
+                                      use_fused=True)
+        world, radii = self.t(self.world), self.t(self.radii)
+        lm_cfg = self.lmk.LandmarkConfig(max_clusters=32)
+
+        def meas_fn(true_txy, generator):
+            ranges = self.lidar.scan_cylinders(true_txy, world, radii,
+                                               generator=generator,
+                                               noise_std=1e-3)
+            return self.lmk.circles_to_measurements(
+                self.lmk.feature_detection(lm_cfg, ranges))
+
+        return mppi, ekf, loop, self.t(self.ring), world, meas_fn
+
+    def t(self, a, dtype=torch.float32, device=None):
+        return torch.as_tensor(np.asarray(a)).to(device or self.dev, dtype)
+
+    # ── phases ──
+
+    def chain(self, cfg, known, meas_seq, dtype, device):
+        """The bench course's updates on ``device``; every update's state
+        on the CPU."""
+        step = (self.ekff.known_correspondence_slam if known
+                else self.ekff.slam_unknown_da)
+        u = self.t([0.02, 0.01], dtype, device)
+        st = self.ekff.ekf_init(cfg, dtype=dtype, device=device)
+        out = []
+        for m in meas_seq:
+            st = step(cfg, st, self.t(m, dtype, device), u)
+            out.append(tuple(x.cpu() for x in st))
+        return out
+
+    def parity(self):
+        """The known- and unknown-DA updates over bench_ekf's course
+        (n=50, 12 visible, 200 updates) on the card against the same
+        functions on the CPU: float64 to 1e-9; float32 pose 1e-5,
+        landmarks 1e-4, covariance rtol 1e-3 + 1e-7·max|Σ|; count and
+        active equal on every update. The float32 card run again under
+        the caller's "high" matmul precision (TF32) must give the same
+        bits. K1 against its plain version at the loop's shapes."""
+        t0 = time.perf_counter()
+        cfg, meas = self.bench_cfg(), bench_ekf_course()
+        rows = []
+        for known in (True, False):
+            for dtype in (torch.float64, torch.float32):
+                card = self.chain(cfg, known, meas, dtype, self.dev)
+                cpu = self.chain(cfg, known, meas, dtype, "cpu")
+                f64 = dtype == torch.float64
+                bars = ({"pose": 1e-9, "landmarks": 1e-9, "cov": 1e-9}
+                        if f64 else {"pose": 1e-5, "landmarks": 1e-4,
+                                     "cov": 1e-7})
+                # cov: the excess over rtol (float32: 1e-3), in units of
+                # max|Σ| for float32.
+                rtol = 0.0 if f64 else 1e-3
+                worst = {"pose": 0.0, "landmarks": 0.0, "cov": 0.0}
+                for i, (a, b) in enumerate(zip(card, cpu)):
+                    if not (torch.equal(a[2], b[2]) and torch.equal(a[3],
+                                                                    b[3])):
+                        raise AssertionError(
+                            f"EKF card vs CPU: gate decisions differ at "
+                            f"update {i} (known={known}, {dtype})")
+                    worst["pose"] = max(worst["pose"], float(
+                        (a[0][:3] - b[0][:3]).abs().max()))
+                    worst["landmarks"] = max(worst["landmarks"], float(
+                        (a[0][3:] - b[0][3:]).abs().max()))
+                    excess = ((a[1] - b[1]).abs() - rtol * b[1].abs()).max()
+                    scale = 1.0 if f64 else float(b[1].abs().max())
+                    worst["cov"] = max(worst["cov"], float(excess) / scale)
+                if any(worst[k] > bars[k] for k in bars):
+                    raise AssertionError(f"EKF card vs CPU (known={known}, "
+                                         f"{dtype}): {worst} over {bars}")
+                row = {"known_da": known, "dtype": str(dtype)[6:],
+                       "updates": len(meas), "final_count": int(card[-1][3]),
+                       "max_abs_err": worst, "bar": bars}
+                if not f64:
+                    prev = torch.get_float32_matmul_precision()
+                    torch.set_float32_matmul_precision("high")
+                    try:
+                        high = self.chain(cfg, known, meas[:60], dtype,
+                                          self.dev)
+                        restored = torch.get_float32_matmul_precision()
+                    finally:
+                        torch.set_float32_matmul_precision(prev)
+                    same = all(all(torch.equal(x, y) for x, y in zip(h, c))
+                               for h, c in zip(high, card))
+                    if not same or restored != "high":
+                        raise AssertionError("the EKF update under 'high' "
+                                             "matmul precision differs")
+                    row["tf32_high_precision_bit_identical"] = same
+                rows.append(row)
+        k1 = []
+        for k, horizon, dt in [(1024, 0.4, 0.05), (2048, 0.4, 0.05),
+                               (4096, 0.5, 0.02)]:
+            cfg = self.s.mppi.MPPIConfig(horizon=horizon, dt=dt, rollouts=k,
+                                         ul_var=4.0, ur_var=4.0)
+            for noise_seed, seed in [(k, 0), (None, 12345)]:
+                u, pose, xd, noise = self.s.tensors(cfg, u_off=(1.0, 0.5),
+                                                    noise_seed=noise_seed)
+                cmd, un = self.s.fm.mppi_solve_fused(cfg, self.s.model, u,
+                                                     seed, pose, xd,
+                                                     noise=noise)
+                cmd_p, un_p = self.s.plain(cfg, u, seed, pose, xd, noise)
+                if noise is None:
+                    noise = self.s.philox.mppi_noise(
+                        torch.tensor(seed, dtype=torch.int32,
+                                     device=self.dev), k, cfg.steps,
+                        2.0, 2.0)
+                err, exempt, err_all = gate_rows(
+                    self.s.mppi, cfg, self.s.model,
+                    torch.cat([cmd[None], un[:-1]]),
+                    torch.cat([cmd_p[None], un_p[:-1]]), u, pose, xd, noise,
+                    None, f"K1 at K={k}, N={cfg.steps}")
+                self.s.max_err = max(self.s.max_err, err)
+                k1.append({"K": k, "N": cfg.steps,
+                           "noise": "injected" if noise_seed else "philox",
+                           "max_abs_err": err, "exempt_rows": exempt,
+                           "max_abs_err_all_rows": err_all})
+        emit("ekf_parity", seconds=time.perf_counter() - t0, ekf=rows,
+             k1_bar=BAR, k1=k1)
+
+    def scans(self, device, dtype=torch.float32):
+        """Scans of the dense world from 8 poses on a 1.2 m circle, with
+        1 mm noise from a numpy seed (the same draws on every device)."""
+        rng = np.random.default_rng(5)
+        out = []
+        for i in range(8):
+            a = 2 * np.pi * i / 8
+            pose = self.t([a + np.pi / 2, 1.2 * np.cos(a), 1.2 * np.sin(a)],
+                          dtype, device)
+            noise = self.t(rng.standard_normal(360), dtype, device)
+            out.append(self.lidar.scan_cylinders(
+                pose, self.t(self.world, dtype, device),
+                self.t(self.radii, dtype, device), noise_std=1e-3,
+                noise=noise))
+        return out
+
+    def detector(self):
+        """feature_detection (max_clusters 32) on the dense world's scans,
+        card against CPU: cluster ids and valid masks equal, centers and
+        radii within 1e-5 m; two card runs bit-identical."""
+        t0 = time.perf_counter()
+        cfg = self.lmk.LandmarkConfig(max_clusters=32)
+        lmk = self.lmk
+        worst, found, digests = 0.0, 0, []
+        for card_r, cpu_r in zip(self.scans(self.dev), self.scans("cpu")):
+            ids = [lmk.cluster_scan(cfg, *lmk.laser_end_points(cfg.props, r))
+                   for r in (card_r, cpu_r)]
+            if not torch.equal(ids[0].cpu(), ids[1]):
+                raise AssertionError("detector: cluster ids differ card/CPU")
+            a = lmk.feature_detection(cfg, card_r)
+            again = lmk.feature_detection(cfg, card_r)
+            b = lmk.feature_detection(cfg, cpu_r)
+            digests.append((digest(*a), digest(*again)))
+            if digests[-1][0] != digests[-1][1]:
+                raise AssertionError("detector: two card runs differ")
+            v = b.valid
+            if not torch.equal(a.valid.cpu(), v):
+                raise AssertionError("detector: valid masks differ card/CPU")
+            err = max([0.0] + [float(x.abs().max()) for x in (
+                a.centers.cpu()[v] - b.centers[v],
+                a.radii.cpu()[v] - b.radii[v]) if x.numel()])
+            worst, found = max(worst, err), found + int(v.sum())
+        if not worst <= 1e-5:
+            raise AssertionError(f"detector card vs CPU: {worst} m > 1e-5")
+        scan = self.scans(self.dev)[0]
+        self.detector_ms = time_ms(lambda: lmk.feature_detection(cfg, scan))
+        # The fit's two batched 4x4 eigh, alone: (32, 4, 4) float64.
+        a = torch.randn((32, 4, 4), generator=torch.Generator(
+            device=self.dev).manual_seed(0), dtype=torch.float64,
+            device=self.dev)
+        spd4 = a @ a.transpose(1, 2)
+        eigh_ms = time_ms(lambda: torch.linalg.eigh(spd4))
+        emit("detector", seconds=time.perf_counter() - t0, scans=8,
+             beams=360, max_clusters=32, circles=found,
+             max_abs_err_m=worst, bar_m=1e-5, card_runs_bit_identical=True,
+             digests=[d for d, _ in digests], ms_per_call=self.detector_ms,
+             launches_per_call=launches(lambda: lmk.feature_detection(
+                 cfg, scan)),
+             syncs_per_call=count_syncs(lambda: lmk.feature_detection(
+                 cfg, scan), 3),
+             eigh_32x4x4_f64_ms=eigh_ms)
+
+    def course(self):
+        """BASELINE config 3 as the demo runs it: run_slam_loop to done or
+        6,000 ticks from seed 1; the demo's gates (done, EKF error <
+        odometry error) and one K1 launch per tick."""
+        mppi, ekf, loop, wpts, lms = self.config3()
+        st = self.sl.slam_loop_init(mppi, ekf, seed=1, device=self.dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        st = self.sl.run_slam_loop(mppi, ekf, loop, self.s.model, wpts, lms,
+                                   st, max_ticks=6000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        ticks = int(st.ticks)
+        est, tru, odo = (st.ekf.state[:3].cpu(), st.true_pose.cpu(),
+                         st.odom.cpu())
+        ekf_err = float(torch.hypot(est[1] - tru[0], est[2] - tru[1]))
+        odo_err = float(torch.hypot(odo[1] - tru[0], odo[2] - tru[1]))
+        if not bool(st.done):
+            raise AssertionError(f"config 3 incomplete after {ticks} ticks")
+        if not ekf_err < odo_err:
+            raise AssertionError(f"config 3: EKF error {ekf_err} m not below "
+                                 f"odometry's {odo_err} m")
+        if counts != {"K1": ticks, "K2": 0, "K3": 0, "K4": 0}:
+            raise AssertionError(f"launches {counts} for {ticks} ticks: the "
+                                 "loop did not solve on K1 once per tick")
+        self.k1_course, self.c3_tick_us = counts["K1"], 1e6 * wall / ticks
+        emit("ekf_course", seconds=wall, K=mppi.rollouts, N=mppi.steps,
+             landmarks=len(lms), slots=ekf.num_landmarks, known_da=True,
+             sensor_every=loop.sensor_every, ticks=ticks,
+             visits=int(st.visits), done=True, ekf_error_m=ekf_err,
+             odometry_error_m=odo_err,
+             landmarks_tracked=int(st.ekf.count), kernel_launches=counts,
+             ticks_per_s=ticks / wall, card=self.card)
+
+    def dense(self, ticks=5000):
+        """BASELINE config 4 at its stated scale (the demo's 5,000 ticks of
+        the 44-cylinder world, K=2,048, lidar → detector → unknown DA at
+        capacity 50). Gates: final SLAM |xy| error < 0.5 × odometry's
+        (tests/test_perception_loop.py:143-145), 36-50 landmarks tracked,
+        a finite filter, one K1 launch per tick."""
+        mppi, ekf, loop, ring, world, meas_fn = self.config4()
+        st = self.sl.slam_loop_init(mppi, ekf, pose_xyt=[1.42, 0.0,
+                                                         math.pi / 2],
+                                    seed=0, device=self.dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            st = self.sl.slam_loop_tick(mppi, ekf, loop, self.s.model, ring,
+                                        world, st, meas_fn=meas_fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        est, tru, odo = (st.ekf.state[:3].cpu(), st.true_pose.cpu(),
+                         st.odom.cpu())
+        slam_xy = float(torch.hypot(est[1] - tru[0], est[2] - tru[1]))
+        odo_xy = float(torch.hypot(odo[1] - tru[0], odo[2] - tru[1]))
+        n_lm = int(st.ekf.count)
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (st.ekf.state, st.ekf.cov, st.true_pose))
+        if not (finite and slam_xy < 0.5 * odo_xy and 36 <= n_lm <= 50):
+            raise AssertionError(f"config 4: SLAM |xy| {slam_xy} m, odometry "
+                                 f"{odo_xy} m, {n_lm} landmarks, finite "
+                                 f"{finite}")
+        if counts != {"K1": ticks, "K2": 0, "K3": 0, "K4": 0}:
+            raise AssertionError(f"launches {counts} for {ticks} ticks: the "
+                                 "loop did not solve on K1 once per tick")
+        self.dense_state, self.k1_dense = st, counts["K1"]
+        self.c4_tick_us = 1e6 * wall / ticks
+        heading = float((est[0] - tru[2] + math.pi) % (2 * math.pi) - math.pi)
+        emit("dense_world", seconds=wall, K=mppi.rollouts, N=mppi.steps,
+             cylinders=len(self.world), capacity=ekf.num_landmarks,
+             beams=360, max_clusters=32, sensor_every=loop.sensor_every,
+             ticks=ticks, visits=int(st.visits), slam_xy_error_m=slam_xy,
+             slam_heading_error_rad=heading, odometry_xy_error_m=odo_xy,
+             landmarks_tracked=n_lm, kernel_launches=counts,
+             ticks_per_s=ticks / wall, card=self.card)
+
+    def loop_rate(self, known, trials=2, ticks=240):
+        """bench.py:bench_slam_loop: K=4,096, N=25, capacity 50, the sensor
+        every tick, 240 ticks through K1; ticks/s per trial, after a
+        20-tick warm-up."""
+        mppi = self.s.mppi.MPPIConfig(horizon=0.5, dt=0.02, rollouts=4096,
+                                      ul_var=4.0, ur_var=4.0)
+        ekf = self.ekff.EKFConfig(num_landmarks=50, dmin=5e1, dmax=1e4,
+                                  spd_repair=False,
+                                  motion_noise=(1e-6, 1e-6, 1e-6),
+                                  measurement_noise=(1e-5, 1e-5))
+        loop = self.sl.SlamLoopConfig(known_da=known, sensor_every=1,
+                                      visibility=1.2, cycles=1000,
+                                      use_fused=True)
+        n = 12 if known else 48
+        ang = np.linspace(0.0, 2 * np.pi, n, endpoint=False)
+        rad = np.where(np.arange(n) % 2 == 0, 0.9, 1.4)
+        lms = self.t(np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1))
+        wpts = self.t(BENCH_WAYPOINTS)
+        rates = []
+        for trial in range(trials + 1):
+            st = self.sl.slam_loop_init(mppi, ekf, seed=0, device=self.dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ticks if trial else 20):
+                st = self.sl.slam_loop_tick(mppi, ekf, loop, self.s.model,
+                                            wpts, lms, st)
+            torch.cuda.synchronize()
+            if trial:
+                rates.append(ticks / (time.perf_counter() - t0))
+        da = "known" if known else "unknown"
+        return {"metric": f"ekf_mppi_closed_loop_ticks_per_sec (config "
+                          f"{3 if known else 4}: {da} DA, n=50 capacity, "
+                          f"{n} landmarks, K=4096 MPPI solve every tick)",
+                "unit": "ticks/s", "value": statistics.median(rates),
+                "trials": rates}
+
+    def times(self):
+        """bench.py's EKF lines (µs per update and updates/s at n=50, 12
+        visible, 200 updates, float32, ≥ 5 trials) for both DAs; the two
+        trip-count candidates at config 4's shape; the two forms of the
+        SPD repair at n=50; the closed-loop rates of configs 3 and 4 at
+        bench_slam_loop's shape; ms per detector call."""
+        t0 = time.perf_counter()
+        ekff, cfg = self.ekff, self.bench_cfg()
+        meas = [self.t(m) for m in bench_ekf_course()]
+        u = self.t([0.02, 0.01])
+        lines = {}
+        for name, fn in (("known", ekff.known_correspondence_slam),
+                         ("unknown", ekff.slam_unknown_da)):
+            rates = []
+            for trial in range(6):             # the first 20 updates warm up
+                st = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for m in meas[:20] if trial == 0 else meas:
+                    st = fn(cfg, st, m, u)
+                torch.cuda.synchronize()
+                if trial:
+                    rates.append(len(meas) / (time.perf_counter() - t1))
+            self.final_bench = st
+            lines[name] = {
+                "metric": f"ekf_slam{'' if name == 'known' else '_unknown_da'}"
+                          f"_updates_per_sec (n=50 capacity, 12 meas/update, "
+                          f"f32, {name} DA)",
+                "unit": "updates/s", "value": statistics.median(rates),
+                "trials": rates, "min": min(rates), "max": max(rates),
+                "us_per_update": 1e6 / statistics.median(rates),
+                "launches_per_update": launches(
+                    lambda: fn(cfg, st, meas[-1], u))}
+        if not lines["known"]["value"] >= lines["unknown"]["value"]:
+            raise AssertionError("known DA slower than unknown DA: "
+                                 f"{lines}")
+        # The update's two trip counts at config 4's shape (capacity 50, 32
+        # detector rows of the dense world, unknown DA) and at bench_ekf's.
+        _, c4, _, _, _, meas_fn = self.config4()
+        st4 = self.dense_state
+        tru = st4.true_pose
+        m4 = meas_fn(torch.stack([tru[2], tru[0], tru[1]]),
+                     torch.Generator(device=self.dev).manual_seed(1))
+        u4 = self.t([0.01, 0.02])
+        trips = []
+        for shape, c, st_, m, known in [
+                ("config 4: 32 rows, unknown DA", c4, st4.ekf, m4, False),
+                ("bench_ekf: 50 rows, known DA", cfg, self.final_bench,
+                 meas[-1], True)]:
+            step = (ekff.known_correspondence_slam if known
+                    else ekff.slam_unknown_da)
+            a = step(c, st_, m, u4)
+            b = masked_slam(ekff, c, st_, m, u4, known)
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            if not same:
+                raise AssertionError(f"masked trip count differs ({shape})")
+            trips.append({
+                "shape": shape, "valid_rows": int(torch.isfinite(m).all(
+                    -1).sum()), "rows": int(m.shape[0]),
+                "dynamic_us": wall_us(lambda: step(c, st_, m, u4), 10),
+                "masked_us": wall_us(lambda: masked_slam(ekff, c, st_, m, u4,
+                                                         known), 10),
+                "dynamic_launches": launches(lambda: step(c, st_, m, u4)),
+                "masked_launches": launches(lambda: masked_slam(
+                    ekff, c, st_, m, u4, known)),
+                "dynamic_syncs": count_syncs(lambda: step(c, st_, m, u4), 5),
+                "masked_syncs": count_syncs(lambda: masked_slam(
+                    ekff, c, st_, m, u4, known), 5),
+                "bit_identical": same})
+        # The SPD repair of an (S, S) = (103, 103) float32 covariance, as
+        # a host branch (the package's) or a torch.where over both.
+        spd, cov = self.spd, self.final_bench.cov
+        repair = {
+            "host_branch_us": wall_us(lambda: spd.repair_if_needed(cov), 20),
+            "where_us": wall_us(lambda: torch.where(
+                spd.is_spd(cov), cov, spd.nearest_spd(cov)), 20),
+            "host_branch_launches": launches(
+                lambda: spd.repair_if_needed(cov)),
+            "where_launches": launches(lambda: torch.where(
+                spd.is_spd(cov), cov, spd.nearest_spd(cov))),
+            "host_branch_syncs": count_syncs(
+                lambda: spd.repair_if_needed(cov), 5),
+            "where_syncs": count_syncs(lambda: torch.where(
+                spd.is_spd(cov), cov, spd.nearest_spd(cov)), 5),
+            "is_spd": bool(spd.is_spd(cov))}
+        loops = [self.loop_rate(True), self.loop_rate(False, trials=1)]
+        self.timing = {"lines": lines, "trip_count": trips,
+                       "spd_repair": repair, "loops": loops}
+        emit("ekf_times", seconds=time.perf_counter() - t0, card=self.card,
+             ekf=lines, known_ge_unknown=True, trip_count=trips,
+             spd_repair=repair, closed_loop=loops,
+             detector_ms_per_call=self.detector_ms)
+
+    def profile_window(self, tick, ticks, sense_fn, tick_us):
+        """Launches and device µs per tick over ``ticks`` ticks, host syncs
+        per tick, and the launches of one sensing update alone."""
+        kern = profile_device(tick, ticks)
+        busy = sum(us for us, _ in kern.values()) / ticks
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+        return {"ticks": ticks, "device_us_per_tick": busy,
+                "launches_per_tick": sum(c for _, c in kern.values()) / ticks,
+                "launches_per_sensing_update": launches(sense_fn),
+                "host_syncs_per_tick": count_syncs(tick, ticks),
+                "unprofiled_tick_us": tick_us,
+                "device_idle_share": 1 - busy / tick_us,
+                "top_device_us_per_tick": {name[:60]: us / ticks
+                                           for name, (us, _) in top}}
+
+    def profile(self):
+        """torch.profiler over config 3's and config 4's ticks (a window
+        holding a whole number of sensing periods, after warm-up): launches
+        per tick and per sensing update, device busy µs and idle share
+        against the course's unprofiled tick time, host syncs per tick, the
+        top device operations."""
+        t0 = time.perf_counter()
+        out = {}
+        mppi, ekf, loop, wpts, lms = self.config3()
+        box = [self.sl.slam_loop_init(mppi, ekf, seed=2, device=self.dev)]
+
+        def tick3():
+            box[0] = self.sl.slam_loop_tick(mppi, ekf, loop, self.s.model,
+                                            wpts, lms, box[0])
+
+        for _ in range(60):
+            tick3()
+
+        def sense3():
+            st = box[0]
+            tru = st.true_pose
+            m = self.sensor.landmark_measurements(
+                lms, torch.stack([tru[2], tru[0], tru[1]]), loop.visibility)
+            self.ekff.known_correspondence_slam(ekf, st.ekf, m,
+                                                self.t([0.01, 0.02]))
+
+        out["config3"] = self.profile_window(tick3, 60, sense3,
+                                             self.c3_tick_us)
+        mppi, ekf, loop, ring, world, meas_fn = self.config4()
+        box4 = [self.sl.slam_loop_init(mppi, ekf, pose_xyt=[1.42, 0.0,
+                                                            math.pi / 2],
+                                       seed=2, device=self.dev)]
+
+        def tick4():
+            box4[0] = self.sl.slam_loop_tick(mppi, ekf, loop, self.s.model,
+                                             ring, world, box4[0],
+                                             meas_fn=meas_fn)
+
+        for _ in range(100):
+            tick4()
+
+        def sense4():
+            st = box4[0]
+            tru = st.true_pose
+            m = meas_fn(torch.stack([tru[2], tru[0], tru[1]]), st.generator)
+            self.ekff.slam_unknown_da(ekf, st.ekf, m, self.t([0.01, 0.02]))
+
+        out["config4"] = self.profile_window(tick4, 40, sense4,
+                                             self.c4_tick_us)
+        emit("ekf_profile", seconds=time.perf_counter() - t0,
+             card=self.card, **out)
+
+
 def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
     """Device µs per call (torch.profiler over 50 calls, after 5) of K1 with
     in-kernel Philox at K=4,096 and 49,152, N=50, without obstacles, with
-    the demo's wall (O=4) and with the reference world's 41 edges; of K2
+    the demo's wall (O=4) and with the reference world's 41 edges, and at
+    K=196,608 without obstacles; of K2
     (all its launches) at P=500 and 2,000 with k=51 and P=40 with k=51 on
     80×80, and P=40 with k=50 on 160×160; and of K3 and K4 at P=500 on
     80×80 and P=40 on 160×160; on the gate's world, with a sha256 of K2's
@@ -1016,9 +1657,11 @@ def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
     seed = torch.tensor(5, dtype=torch.int32, device=dev)
 
     k1 = []
-    for k in (4096, 49152):
+    for k, names in [(4096, (None, "demo_wall", "reference_world")),
+                     (49152, (None, "demo_wall", "reference_world")),
+                     (196608, (None,))]:
         cfg = smoke.cfg(k)
-        for name in (None, "demo_wall", "reference_world"):
+        for name in names:
             if name is None:
                 u, pose, xd, _ = smoke.tensors(cfg)
                 fn = (lambda: fm.mppi_solve_fused(cfg, smoke.model, u, seed,
@@ -1288,6 +1931,13 @@ def main() -> int:
     obst.planning()
     obst.times()
     obst.profile()
+    ekf = Ekf(smoke)
+    ekf.parity()
+    ekf.detector()
+    ekf.course()
+    ekf.dense()
+    ekf.times()
+    ekf.profile()
     kernel_times(smoke, rbpf, obst)
 
     main_row = smoke.timing[0]
@@ -1302,6 +1952,8 @@ def main() -> int:
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": k1_ms, "bound_by": k1_by, "library_ms": None,
+        "launches_ekf_course": ekf.k1_course,
+        "launches_dense_world": ekf.k1_dense,
     }]
     for key, name, source, replaces in [
             ("K2", "likelihood_field (K2)", "likelihood.cu",

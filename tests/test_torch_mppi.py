@@ -267,7 +267,15 @@ def test_port_imports_no_jax():
         "        'tpunav_torch.estimation.rbpf.icp', 'tpunav_torch.core.se2',\n"
         "        'tpunav_torch.sim.lidar', 'tpunav_torch.ops.beams',\n"
         "        'tpunav_torch.control.obstacle_cost',\n"
-        "        'tpunav_torch.planning.prm', 'tpunav_torch.planning.dstar'}\n"
+        "        'tpunav_torch.planning.prm', 'tpunav_torch.planning.dstar',\n"
+        "        'tpunav_torch.core.diff_drive', 'tpunav_torch.core.waypoints',\n"
+        "        'tpunav_torch.core.randoms',\n"
+        "        'tpunav_torch.estimation.ekf.filter',\n"
+        "        'tpunav_torch.estimation.ekf.spd',\n"
+        "        'tpunav_torch.estimation.landmarks',\n"
+        "        'tpunav_torch.sim.landmark_sensor',\n"
+        "        'tpunav_torch.control.slam_loop',\n"
+        "        'tpunav_torch.runtime.config'}\n"
         "assert need <= set(names), need - set(names)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpunav'))\n"

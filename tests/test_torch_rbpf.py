@@ -305,6 +305,43 @@ def test_filter_pieces_match_tpunav():
                                atol=0)
 
 
+def test_failed_proposal_factor_gives_nan_as_tpunav():
+    """A degenerate σ whose Cholesky factor fails: tpunav's
+    ``jnp.linalg.cholesky`` gives NaN, so that particle's new pose is NaN;
+    the port's proposal gives NaN in exactly the same rows and the same
+    finite rows elsewhere (float32, as the filter runs)."""
+    jcfg, tcfg = _cfgs(p=4, k=6)
+    rng = np.random.default_rng(8)
+    poses = rng.normal(scale=0.3, size=(4, 3)).astype(np.float32)
+    samples = (poses[:, None, :] + rng.normal(scale=0.01, size=(4, 6, 3))
+               ).astype(np.float32)
+    # Particles 1 and 3: heading fixed, x and y moving together by ±0.5 —
+    # σ = [[0, 0, 0], [0, ¼, ¼], [0, ¼, ¼]] exactly, so the factor's last
+    # pivot is 0 and the factor fails. Every weight clamps alike (the scan
+    # term at its max, the odometry term far off at its min).
+    for i in (1, 3):
+        samples[i] = 0.0
+        samples[i, :, 1] = np.tile([0.5, -0.5], 3)
+        samples[i, :, 2] = samples[i, :, 1]
+    logp = np.full((4, 6), 10.0, np.float32)
+    cur = np.array([0.0, 50.0, 50.0], np.float32)
+    prev = np.array([0.0, 50.0, 49.0], np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(3), 4)
+    want = np.stack([np.asarray(jpf._gaussian_from_samples(
+        jcfg, jnp.asarray(samples[i]), jnp.asarray(logp[i]),
+        jnp.asarray(poses[i]), jnp.asarray(cur), jnp.asarray(prev),
+        keys[i])[0]) for i in range(4)])
+    z = np.stack([np.asarray(jax.random.normal(k, (3,), F32)) for k in keys])
+    got, _ = tpf._gaussian_from_samples(
+        tcfg, _t(samples), _t(logp), _t(poses), _t(cur), _t(prev), _t(z))
+    got = got.numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(np.isnan(got).all(1), [False, True,
+                                                         False, True])
+    np.testing.assert_array_equal(np.isnan(want).all(1), np.isnan(got).all(1))
+    np.testing.assert_allclose(got[[0, 2]], want[[0, 2]], rtol=0, atol=1e-5)
+
+
 def _j_gaussian(jcfg, samples, logp, pose, cur, prev, z):
     """tpunav's _gaussian_from_samples with the final normal ``z`` in place
     of its key's draw."""

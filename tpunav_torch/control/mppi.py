@@ -47,6 +47,12 @@ class MPPIConfig:
         return int(self.horizon / self.dt)
 
 
+def _const(values, dtype, device):
+    """A small constant on ``device``, copied without waiting for the
+    device's queue (``torch.tensor(..., device=cuda)`` would block)."""
+    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
+
+
 def init_controls(cfg: MPPIConfig, dtype=torch.float32,
                   device=DEFAULT_DEVICE) -> torch.Tensor:
     """Nominal control sequence u ∈ (N, 2), initialized to u_init."""
@@ -68,9 +74,9 @@ def rollout_losses(cfg: MPPIConfig, model: CartParams, x0, u_pert, xd,
     f = lambda x, u: kinematic_cart(model, x, u)
     traj = rk4_solve(f, x0.expand(k, 3), us, cfg.dt)  # (N, K, 3)
 
-    q = torch.tensor(cfg.q_diag, dtype=traj.dtype, device=traj.device)
-    r = torch.tensor(cfg.r_diag, dtype=traj.dtype, device=traj.device)
-    p1 = torch.tensor(cfg.p1_diag, dtype=traj.dtype, device=traj.device)
+    q = _const(cfg.q_diag, traj.dtype, traj.device)
+    r = _const(cfg.r_diag, traj.dtype, traj.device)
+    p1 = _const(cfg.p1_diag, traj.dtype, traj.device)
 
     err = traj - xd
     running = torch.sum(err * err * q, dim=-1) + torch.sum(us * us * r, dim=-1)
@@ -92,8 +98,7 @@ def sample_perturbations(cfg: MPPIConfig, generator: torch.Generator,
                          dtype=torch.float32, device=DEFAULT_DEVICE):
     """(K, N, 2) Gaussian control perturbations with per-wheel std."""
     device = resolve(device)
-    sig = torch.tensor([cfg.ul_var, cfg.ur_var], dtype=dtype,
-                       device=device).sqrt()
+    sig = _const([cfg.ul_var, cfg.ur_var], dtype, device).sqrt()
     return torch.randn((cfg.rollouts, cfg.steps, 2), generator=generator,
                        dtype=dtype, device=device) * sig
 
@@ -113,7 +118,7 @@ def update_controls(cfg: MPPIConfig, u, noise, j):
 def shift_controls(cfg: MPPIConfig, u):
     """Receding-horizon shift: drop the executed first column, refill the
     tail with u_init."""
-    u_init = torch.tensor(cfg.u_init, dtype=u.dtype, device=u.device)
+    u_init = _const(cfg.u_init, u.dtype, u.device)
     return torch.cat([u[1:], u_init[None]], dim=0)
 
 

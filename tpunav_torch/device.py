@@ -1,4 +1,5 @@
-"""Where the port's entry points put new tensors.
+"""Where the port's entry points put new tensors, and at what precision
+the filters multiply.
 
 No counterpart in ``tpunav`` (JAX places arrays on its default backend).
 Every entry point that creates state (``init_controls``, ``course_init``,
@@ -9,6 +10,8 @@ as the CPU tests do.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -24,3 +27,18 @@ def resolve(device) -> torch.device:
             "tpunav_torch defaults to the CUDA card, but CUDA is not "
             "available here; pass device='cpu' to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def full_precision_matmul():
+    """float32 matmuls at full precision (no TF32) for the duration, then
+    the caller's setting back. The EKF's covariance algebra spans about
+    1e-10 .. 1e3, and reduced-precision products (TF32, the card's "high"
+    setting) destroy its innovation and Mahalanobis scales; the circle
+    detector's moment sums feed an ill-conditioned 4x4 fit."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

@@ -1,2 +1,2 @@
-"""State estimation: RBPF grid SLAM (bmapping)
+"""State estimation: EKF SLAM (nuslam) and RBPF grid SLAM (bmapping)
 (counterpart: ``tpunav/estimation/__init__.py``)."""

@@ -1,0 +1,524 @@
+"""EKF SLAM with known and unknown (Mahalanobis-gated) data association.
+
+Port of ``tpunav/estimation/ekf/filter.py`` (the reference's ``nuslam::EKF``,
+nuslam/include/nuslam/ekf_filter.hpp:62-155, nuslam/src/nuslam/ekf_filter.cpp).
+``tpunav`` leaves this filter to XLA, so it is plain torch here; it has no
+kernel of its own.
+
+- The state is a fixed-capacity dense vector (3 + 2n,) as in the reference
+  (ekf_filter.cpp:103); an ``active`` bool mask replaces the C++ ``lm_j``
+  seen-ID list.
+- Measurements are compacted (valid rows to the front, in their order),
+  and the sequential update runs once per valid row: the number of valid
+  rows is the one host read of an update. An update with no measurement
+  rows (the slam loop's off-schedule ticks) makes none. A fixed trip over
+  all rows, the invalid ones exact no-ops through ``torch.where``, would
+  need no host read, but each row costs ~190 launches: at config 4's
+  shape (32 rows, ~13 valid) it took 2.4–3.6× as long on the card
+  (``chip_smoke.py``'s ``ekf_times``, two runs).
+- Every read and write of landmark slot j goes through a one-element
+  device index (``index_select``, ``index_copy``), so no slot access reads
+  j on the host. The sparse measurement Jacobian H, whose only nonzero
+  columns are [0, 1, 2, jx, jy], enters as its (2, 5) block: Hσ̄, Ψ = Hσ̄Hᵀ
+  and KH are products with that block.
+- The covariance update is the factored Joseph sandwich (I−KH)σ̄(I−KH)ᵀ +
+  KRKᵀ: the rank-2 expansion loses the 1e3 → 1e-5 collapse of a fresh
+  landmark in float32.
+- Each update runs with float32 matmuls at full precision (no TF32), and
+  the caller's setting is restored afterwards: reduced-precision products
+  break the Mahalanobis gates.
+- Noise injection is optional: a ``torch.Generator`` draws the reference's
+  motion and measurement noise (ekf_filter.cpp:505, :615); without one
+  the update is deterministic (the parity mode).
+
+State convention as the reference: state[0]=theta, state[1]=x,
+state[2]=y, then (lm_x, lm_y) pairs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ...core.angles import normalize_angle_pi
+from ...device import DEFAULT_DEVICE, full_precision_matmul, resolve
+from .spd import repair_if_needed
+
+_W_EPS = 1e-12  # almost_equal epsilon (ref: rigid2d.hpp:24-27)
+
+
+@dataclasses.dataclass(frozen=True)
+class EKFConfig:
+    """Filter configuration (ref: EKF ctor + initFilter,
+    ekf_filter.cpp:95-106, :442-497); ``tpunav``'s fields and defaults."""
+
+    num_landmarks: int = 25          # n — capacity
+    dmax: float = 1e7                # Mahalanobis "new landmark" gate
+    dmin: float = 2e4                # Mahalanobis "update" gate
+    pose_cov_init: float = 1e-10
+    lm_cov_init: float = 1e3
+    motion_noise: Tuple[float, float, float] = (1e-10, 1e-10, 1e-10)
+    measurement_noise: Tuple[float, float] = (1e-8, 1e-8)
+    # One conditional nearest-SPD repair per update (the reference's
+    # pre-pass, ekf_filter.cpp:298-305) and symmetrization per
+    # measurement; False = symmetrization only.
+    spd_repair: bool = True
+    # Also repair before every measurement (ref: ekf_filter.cpp:330-335).
+    spd_repair_per_meas: bool = False
+
+    @property
+    def state_size(self) -> int:
+        return 3 + 2 * self.num_landmarks
+
+
+class EKFState(NamedTuple):
+    state: torch.Tensor   # (S,) [theta, x, y, m1x, m1y, ...]
+    cov: torch.Tensor     # (S, S)
+    active: torch.Tensor  # (n,) bool — replaces the C++ lm_j seen list
+    count: torch.Tensor   # int32 — N, the number of tracked landmarks
+
+
+def _const(values, like):
+    """A small constant on ``like``'s device and dtype, copied without
+    waiting for the device's queue."""
+    return torch.tensor(values, dtype=like.dtype).to(like.device,
+                                                    non_blocking=True)
+
+
+def ekf_init(cfg: EKFConfig, dtype=torch.float64,
+             device=DEFAULT_DEVICE) -> EKFState:
+    """(ref: EKF::initFilter ekf_filter.cpp:442-497). float64 by default,
+    as ``tpunav``; on ``device`` (default the CUDA card; raises without
+    CUDA unless ``device="cpu"``)."""
+    device = resolve(device)
+    s, n = cfg.state_size, cfg.num_landmarks
+    diag = torch.cat([
+        torch.full((3,), cfg.pose_cov_init, dtype=dtype, device=device),
+        torch.full((2 * n,), cfg.lm_cov_init, dtype=dtype, device=device)])
+    return EKFState(
+        state=torch.zeros((s,), dtype=dtype, device=device),
+        cov=torch.diag(diag),
+        active=torch.zeros((n,), dtype=torch.bool, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def motion_update(cfg: EKFConfig, state, u, w):
+    """Unicycle odometry propagation with exact integration and an ω≈0
+    branch (ref: EKF::motionUpdate ekf_filter.cpp:500-533). ``w`` is the
+    sampled (or zero) motion noise triple. As the reference: theta is
+    updated first and the position increment is evaluated at the updated
+    heading. Only state[:3] is read and changed."""
+    om, vx = u[0], u[1]
+    theta = state[0]
+    small = torch.abs(om) < _W_EPS
+    om_safe = torch.where(small, torch.ones_like(om), om)
+
+    theta_new = normalize_angle_pi(
+        theta + torch.where(small, torch.zeros_like(om), om) + w[0])
+    s_new, c_new = torch.sin(theta_new), torch.cos(theta_new)
+    k = vx / om_safe
+    dx_gen = (-vx / om_safe) * s_new + k * torch.sin(theta_new + om)
+    dy_gen = k * c_new - k * torch.cos(theta_new + om)
+    x = state[1] + (torch.where(small, vx * c_new, dx_gen) + w[1])
+    y = state[2] + (torch.where(small, vx * s_new, dy_gen) + w[2])
+    return torch.cat([torch.stack([theta_new, x, y]), state[3:]])
+
+
+def uncertainty_update(cfg: EKFConfig, state, cov, u):
+    """σ̄ = G Σ Gᵀ + Q with the sparse motion Jacobian G
+    (ref: EKF::uncertaintyUpdate ekf_filter.cpp:536-565; G uses the PRIOR
+    heading)."""
+    om, vx = u[0], u[1]
+    theta = state[0]
+    small = torch.abs(om) < _W_EPS
+    om_safe = torch.where(small, torch.ones_like(om), om)
+    k = vx / om_safe
+    g10 = torch.where(small, -vx * torch.sin(theta),
+                      (-vx / om_safe) * torch.cos(theta) +
+                      k * torch.cos(theta + om))
+    g20 = torch.where(small, vx * torch.cos(theta),
+                      (-vx / om_safe) * torch.sin(theta) +
+                      k * torch.sin(theta + om))
+    s = cfg.state_size
+    G = torch.eye(s, dtype=cov.dtype, device=cov.device)
+    G[1:3, 0] = torch.stack([g10, g20])
+    q = torch.zeros((s,), dtype=cov.dtype, device=cov.device)
+    q[:3] = _const(cfg.motion_noise, cov)
+    return G @ cov @ G.T + torch.diag(q)
+
+
+# ── Measurement model at slot j. ``idx`` is the (5,) long device index
+# [0, 1, 2, jx, jy] (jx = 2j + 3, jy = 2j + 4) of H's nonzero columns, so
+# idx[3:] addresses the slot's coordinates in the state. H's nonzero
+# (2, 5) block is [[0, -ex, -ey, ex, ey], [-1, fy, -fx, -fy, fx]] with
+# (ex, ey) = (dx, dy)/√q and (fx, fy) = (dx, dy)/q: a gather of
+# [ex, ey, fx, fy] times signs plus the constant -1, all exact, so each
+# entry carries the one rounding of its quotient. Every operation is a
+# launch on the card, where the update is launch-bound, so the algebra is
+# kept in few, whole-vector operations. ──
+
+# Per block entry: the index into [ex, ey, fx, fy], its sign, its offset.
+_BLOCK_INDEX = (0, 0, 1, 0, 1, 0, 3, 2, 3, 2)
+_BLOCK_SIGN = (0.0, -1.0, -1.0, 1.0, 1.0, 0.0, 1.0, -1.0, -1.0, 1.0)
+_BLOCK_OFFSET = (0.0, 0.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0, 0.0, 0.0)
+
+
+class _Update(NamedTuple):
+    """Constants of one update, made once and shared by its rows."""
+
+    eye: torch.Tensor          # (S, S)
+    r_diag: torch.Tensor       # (2,) measurement noise
+    R: torch.Tensor            # (2, 2) diag(r_diag)
+    h_table: torch.Tensor      # (n, 5): row j is [0, 1, 2, 2j + 3, 2j + 4]
+    block_index: torch.Tensor  # (10,) long, _BLOCK_INDEX
+    block_sign: torch.Tensor   # (10,) _BLOCK_SIGN
+    block_offset: torch.Tensor  # (10,) _BLOCK_OFFSET
+
+
+def _update_consts(cfg: EKFConfig, like) -> _Update:
+    n, dev = cfg.num_landmarks, like.device
+    j = torch.arange(n, device=dev)[:, None]
+    h_table = torch.cat([torch.arange(3, device=dev).expand(n, 3),
+                         2 * j + 3, 2 * j + 4], dim=1)
+    r_diag = _const(cfg.measurement_noise, like)
+    return _Update(
+        eye=torch.eye(cfg.state_size, dtype=like.dtype, device=dev),
+        r_diag=r_diag, R=torch.diag(r_diag), h_table=h_table,
+        block_index=torch.tensor(_BLOCK_INDEX).to(dev, non_blocking=True),
+        block_sign=_const(_BLOCK_SIGN, like),
+        block_offset=_const(_BLOCK_OFFSET, like))
+
+
+def _h_terms(state, idx):
+    """(d, q, √q): d = (dx, dy) of the slot at ``idx`` relative to the
+    pose and q = dx² + dy² — the only data H depends on
+    (ref: ekf_filter.cpp:569-597)."""
+    d = state.index_select(0, idx[3:]) - state[1:3]
+    q = (d * d).sum(-1)
+    return d, q, torch.sqrt(q)
+
+
+def _h_block(k: _Update, terms):
+    """H's nonzero (2, 5) block over columns [0, 1, 2, jx, jy] (batched
+    over leading dims of the terms)."""
+    d, q, sq = terms
+    e = torch.cat([d / sq[..., None], d / q[..., None]], dim=-1)
+    block = e[..., k.block_index] * k.block_sign + k.block_offset
+    return block.view(*block.shape[:-1], 2, 5)
+
+
+def _measurement_jacobian(cfg: EKFConfig, k: _Update, state, idx):
+    """Dense (2, S) range-bearing Jacobian for the slot at ``idx``
+    (ref: EKF::measurementJacobian ekf_filter.cpp:569-597). The readable
+    reference form: the update itself never builds it (:func:`_hc`)."""
+    H = torch.zeros((2, cfg.state_size), dtype=state.dtype,
+                    device=state.device)
+    return H.index_copy_(1, idx, _h_block(k, _h_terms(state, idx)))
+
+
+def _hc(cov, block, idx):
+    """H @ σ̄ as a (2, S) tensor without building H: H's (2, 5) block
+    times the five rows [0, 1, 2, jx, jy] of σ̄."""
+    return block @ cov.index_select(0, idx)
+
+
+def _psi_hh(hc, block, idx):
+    """Ψ_hh = H σ̄ Hᵀ = (Hσ̄) Hᵀ (2, 2): H's block applied to the five
+    columns of Hσ̄."""
+    return hc.index_select(1, idx) @ block.T
+
+
+def _heading(state, v):
+    """The heading the predicted bearing is taken from, with the sampled
+    bearing noise folded in (ref: ekf_filter.cpp:615)."""
+    return normalize_angle_pi(state[0] + v[1])
+
+
+def _z_hat(terms, heading, v):
+    """ẑ = (range, bearing) of the slot with additive sampled noise
+    (ref: EKF::predictedMeasurement ekf_filter.cpp:600-624: v_r adds to
+    the range, v_b folds into the heading), for one slot's terms or a
+    batch of them."""
+    d, _, sq = terms
+    b_hat = normalize_angle_pi(torch.atan2(d[..., 1], d[..., 0]) - heading)
+    return sq + v[0], b_hat
+
+
+def _predicted_measurement(state, idx, v):
+    return torch.stack(_z_hat(_h_terms(state, idx), _heading(state, v), v))
+
+
+def _innovation(r, b_norm, z_hat):
+    """δz with the reference's double-normalized bearing difference
+    (ref: ekf_filter.cpp:387-394); ``b_norm`` is the measured bearing
+    already normalized (once per update, for all rows)."""
+    r_hat, b_hat = z_hat
+    return (r - r_hat,
+            normalize_angle_pi(b_norm - normalize_angle_pi(b_hat)))
+
+
+def _inv2(m):
+    """Closed-form 2x2 inverse (Ψ is always 2x2), with a true division."""
+    det = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    adj = torch.stack([m[1, 1], -m[0, 1], -m[1, 0], m[0, 0]]).view(2, 2)
+    return adj / det
+
+
+def _kalman_update(cfg: EKFConfig, k: _Update, state, cov, idx, r, b_norm,
+                   v, heading):
+    """Gain, state and covariance update at the slot at ``idx``
+    (ref: ekf_filter.cpp:363-398), in the factored Joseph form
+    (I−KH)σ̄(I−KH)ᵀ + KRKᵀ, PSD at any precision. K = σ̄HᵀΨ⁻¹ = (Hσ̄)ᵀΨ⁻¹
+    (σ̄ symmetric, as both DA chains keep it); KH is K times H's block,
+    placed in H's five columns. ``heading``: :func:`_heading` of the
+    state."""
+    terms = _h_terms(state, idx)
+    block = _h_block(k, terms)
+    hc = _hc(cov, block, idx)
+    psi = _psi_hh(hc, block, idx) + k.R
+    K = hc.T @ _inv2(psi)                                   # (S, 2)
+    dz = torch.stack(_innovation(r, b_norm, _z_hat(terms, heading, v)))
+    new_state = state + K @ dz
+    KH = torch.zeros_like(cov).index_copy_(1, idx, K @ block)
+    IKH = k.eye - KH
+    new_cov = IKH @ cov @ IKH.T + (K * k.r_diag[None, :]) @ K.T
+    return new_state, new_cov
+
+
+def _new_landmark(state, idx, r, b):
+    """Initialize the slot at ``idx`` from (r, b) at the current
+    estimated pose (ref: EKF::newLandmark ekf_filter.cpp:651-660)."""
+    a = b + state[0]
+    xy = state[1:3] + r * torch.stack([torch.cos(a), torch.sin(a)])
+    return state.index_copy(0, idx[3:], xy)
+
+
+def _maha_all(cfg: EKFConfig, k: _Update, state, cov, r, b_norm, v_i,
+              heading, active):
+    """Mahalanobis distance of measurement (r, b) to every landmark slot
+    at once (ref: the per-landmark loop ekf_filter.cpp:163-208), with the
+    sparse-H algebra batched over slots: each slot's Ψ = B σ̄₅ Bᵀ + R from
+    its (2, 5) block B and the (5, 5) block σ̄₅ of σ̄ at its columns
+    [0, 1, 2, jx, jy], gathered for all slots at once. A tiny negative d²
+    (rounding of a PSD Ψ) clamps to 0; a non-finite or clearly negative one
+    reads +inf — "no match" — where the reference throws
+    (ekf_filter.cpp:189-192). Inactive slots read +inf."""
+    n = cfg.num_landmarks
+    d = state[3:].view(n, 2) - state[1:3]
+    q = (d * d).sum(-1)
+    terms = (d, q, torch.sqrt(q))
+    B = _h_block(k, terms)                                  # (n, 2, 5)
+    h = k.h_table
+    psi = B @ cov[h[:, :, None], h[:, None, :]] @ B.transpose(1, 2) + k.R
+    # ẑ per slot with the measurement's sampled noise pair
+    # (ref: predictedMeasurement ekf_filter.cpp:600-624).
+    dz0, dz1 = _innovation(r, b_norm, _z_hat(terms, heading, v_i))
+    p00, p01, p11 = psi[:, 0, 0], psi[:, 0, 1], psi[:, 1, 1]
+    det = p00 * p11 - p01 * p01
+    d2 = (p11 * dz0 * dz0 - 2.0 * p01 * dz0 * dz1 +
+          p00 * dz1 * dz1) / det
+    bad = torch.logical_or(~torch.isfinite(d2), d2 < -1e-6)
+    d2 = torch.where(torch.logical_or(bad, ~active), float("inf"),
+                     torch.clamp(d2, min=0.0))
+    return d2
+
+
+def _polar(meas_xy):
+    """Robot-frame (x, y) landmark measurements → (r, b)
+    (ref: EKF::measRobotToMap ekf_filter.cpp:627-648)."""
+    r = torch.hypot(meas_xy[..., 0], meas_xy[..., 1])
+    b = torch.atan2(meas_xy[..., 1], meas_xy[..., 0])
+    return r, b
+
+
+def _noise_draws(cfg: EKFConfig, generator: Optional[torch.Generator],
+                 n_meas: int, like):
+    """Motion-noise triple + per-measurement noise pairs.
+    ``generator=None`` → zeros (the deterministic parity mode)."""
+    f = dict(dtype=like.dtype, device=like.device)
+    if generator is None:
+        return torch.zeros((3,), **f), torch.zeros((n_meas, 2), **f)
+    w = torch.randn((3,), generator=generator, **f) * torch.sqrt(
+        _const(cfg.motion_noise, like))
+    v = torch.randn((n_meas, 2), generator=generator, **f) * torch.sqrt(
+        _const(cfg.measurement_noise, like))
+    return w, v
+
+
+def _full_precision(fn):
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with full_precision_matmul():
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+class _Prepared(NamedTuple):
+    """An update's prediction and its compacted measurement rows."""
+
+    state: torch.Tensor   # x̄ after the motion update
+    cov: torch.Tensor     # σ̄
+    r: torch.Tensor       # (M,) ranges, valid rows first
+    b: torch.Tensor       # (M,) bearings
+    b_norm: torch.Tensor  # (M,) bearings normalized to [-π, π)
+    v: torch.Tensor       # (M, 2) measurement noise
+    j: torch.Tensor       # (M,) long: each row's index before compaction
+    n_valid: int          # valid rows (the update's one host read)
+
+    def row(self, i):
+        """(r, b, normalized b, v) of compacted row ``i``."""
+        return self.r[i], self.b[i], self.b_norm[i], self.v[i]
+
+
+def _repair(cfg: EKFConfig, c):
+    return repair_if_needed(c) if cfg.spd_repair else 0.5 * (c + c.T)
+
+
+def _prepare(cfg: EKFConfig, st: EKFState, meas_xy, u, generator):
+    """The motion and uncertainty update (on the repaired covariance) and
+    the valid measurement rows compacted to the front in their order.
+    Measurements take the filter's dtype: a float64 measurement would
+    otherwise promote the state through K @ δz."""
+    like = st.state
+    meas_xy = torch.as_tensor(meas_xy).to(like.device, like.dtype)
+    u = torch.as_tensor(u).to(like.device, like.dtype)
+    n_meas = meas_xy.shape[0]
+    w, v = _noise_draws(cfg, generator, n_meas, like)
+    state_bar = motion_update(cfg, st.state, u, w)
+    # The motion Jacobian is evaluated at the PRIOR state (ref: :536-565).
+    sigma_bar = uncertainty_update(cfg, st.state, _repair(cfg, st.cov), u)
+    if n_meas == 0:
+        empty = meas_xy[:, 0]
+        return _Prepared(state_bar, sigma_bar, empty, empty, empty, v,
+                         empty.long(), 0)
+    valid = torch.isfinite(meas_xy).all(dim=-1)
+    meas_safe = torch.where(valid[:, None], torch.nan_to_num(meas_xy), 0.0)
+    r_all, b_all = _polar(meas_safe)
+    order = torch.argsort((~valid).to(torch.uint8), stable=True)
+    n_valid = int(valid.sum())
+    b = b_all[order]
+    return _Prepared(state_bar, sigma_bar, r_all[order], b,
+                     normalize_angle_pi(b), v[order], order, n_valid)
+
+
+def _known_row(cfg: EKFConfig, k: _Update, carry, j, row):
+    """One measurement ``row`` = (r, b, normalized b, v) of the known-DA
+    chain (ref: :341-398) at landmark slot ``j`` (a one-element long
+    device index)."""
+    r, b, b_norm, v_i = row
+    state, cov, active = carry
+    if cfg.spd_repair and cfg.spd_repair_per_meas:
+        cov = repair_if_needed(cov)
+    else:
+        cov = 0.5 * (cov + cov.T)
+    idx = k.h_table.index_select(0, j).view(5)
+    # Unseen id → initialize the landmark slot (ref: :349-360).
+    is_new = ~active.index_select(0, j)[0]
+    state = torch.where(is_new, _new_landmark(state, idx, r, b), state)
+    active = active.index_fill(0, j, True)
+    state, cov = _kalman_update(cfg, k, state, cov, idx, r, b_norm, v_i,
+                                _heading(state, v_i))
+    return state, cov, active
+
+
+def _unknown_row(cfg: EKFConfig, k: _Update, carry, row):
+    """One measurement ``row`` = (r, b, normalized b, v) of the unknown-DA
+    chain (ref: :163-244): distances to every slot; d* ≤ dmin updates the
+    nearest, d* ≥ dmax adds a landmark (with capacity left), anything
+    between is ignored."""
+    r, b, b_norm, v_i = row
+    state, cov, active, count = carry
+    if cfg.spd_repair and cfg.spd_repair_per_meas:
+        cov = _repair(cfg, cov)
+    else:
+        cov = 0.5 * (cov + cov.T)
+    # A new landmark leaves the heading as it is: one heading serves both.
+    heading = _heading(state, v_i)
+    d = _maha_all(cfg, k, state, cov, r, b_norm, v_i, heading, active)
+    # N == 0 → a huge sentinel so the first landmark is added (:146-157).
+    dstar = torch.where(count == 0, 1e12, torch.amin(d))
+    jstar = torch.argmin(d)
+    do_update = dstar <= cfg.dmin
+    do_add = torch.logical_and(dstar >= cfg.dmax,
+                               count < cfg.num_landmarks)
+    j = torch.where(do_add, count.long(), jstar).view(1)
+    idx = k.h_table.index_select(0, j).view(5)
+    state = torch.where(do_add, _new_landmark(state, idx, r, b), state)
+    active_j = torch.logical_or(active.index_select(0, j), do_add)
+    active = active.index_copy(0, j, active_j)
+    count = count + do_add.to(count.dtype)
+    apply = torch.logical_and(torch.logical_or(do_update, do_add),
+                              active_j[0])
+    new_state, new_cov = _kalman_update(cfg, k, state, cov, idx, r, b_norm,
+                                        v_i, heading)
+    return (torch.where(apply, new_state, state),
+            torch.where(apply, new_cov, cov), active, count)
+
+
+def _check_meas(meas_xy):
+    if meas_xy.dim() != 2 or meas_xy.shape[-1] != 2:
+        raise ValueError(f"measurements must be (M, 2), got "
+                         f"{tuple(meas_xy.shape)}")
+
+
+@_full_precision
+def known_correspondence_slam(cfg: EKFConfig, st: EKFState, meas_xy, u,
+                              generator: Optional[torch.Generator] = None
+                              ) -> EKFState:
+    """One SLAM step with known data association: measurement row i IS
+    landmark id i (ref: EKF::knownCorrespondenceSLAM ekf_filter.cpp:298-411).
+
+    meas_xy: (M ≤ n, 2) landmark positions in the ROBOT frame; NaN rows are
+    out of visibility and skipped (ref: :341-345); with M = 0 the step is
+    the prediction alone. u: (≥2,) body twist [w, vx, ...].
+    ``generator``: draws the motion and measurement noise; None = none.
+    """
+    meas_xy = torch.as_tensor(meas_xy)
+    _check_meas(meas_xy)
+    if meas_xy.shape[0] > cfg.num_landmarks:
+        raise ValueError(f"known DA takes at most one row per landmark "
+                         f"slot ({cfg.num_landmarks}), got "
+                         f"{meas_xy.shape[0]}")
+    p = _prepare(cfg, st, meas_xy, u, generator)
+    k = _update_consts(cfg, p.state) if p.n_valid else None
+    carry = (p.state, p.cov, st.active)
+    for i in range(p.n_valid):
+        carry = _known_row(cfg, k, carry, p.j[i:i + 1], p.row(i))
+    state, cov, active = carry
+    return EKFState(state=state, cov=cov, active=active,
+                    count=active.sum(dtype=torch.int32))
+
+
+@_full_precision
+def slam_unknown_da(cfg: EKFConfig, st: EKFState, meas_xy, u,
+                    generator: Optional[torch.Generator] = None) -> EKFState:
+    """One SLAM step with unknown data association via Mahalanobis gating
+    (ref: EKF::SLAM ekf_filter.cpp:112-294). Per valid measurement in row
+    order: distances to every tracked landmark; d* ≤ dmin → update that
+    landmark; d* ≥ dmax → add a new one (if capacity); in between →
+    ignore (ref: :210-244). meas_xy (M, 2), u and ``generator`` as in
+    :func:`known_correspondence_slam`."""
+    meas_xy = torch.as_tensor(meas_xy)
+    _check_meas(meas_xy)
+    p = _prepare(cfg, st, meas_xy, u, generator)
+    k = _update_consts(cfg, p.state) if p.n_valid else None
+    carry = (p.state, p.cov, st.active, st.count)
+    for i in range(p.n_valid):
+        carry = _unknown_row(cfg, k, carry, p.row(i))
+    state, cov, active, count = carry
+    return EKFState(state=state, cov=cov, active=active, count=count)
+
+
+def robot_pose(st: EKFState):
+    """Map→robot transform [theta, x, y]
+    (ref: EKF::getRobotState ekf_filter.cpp:414-419)."""
+    return st.state[:3]
+
+
+def landmark_map(cfg: EKFConfig, st: EKFState):
+    """(n, 2) landmark estimates + active mask
+    (ref: EKF::getMap ekf_filter.cpp:423-439)."""
+    return st.state[3:].view(cfg.num_landmarks, 2), st.active

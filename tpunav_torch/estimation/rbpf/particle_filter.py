@@ -228,7 +228,10 @@ def _gaussian_from_samples(cfg: PFConfig, samples, logp_scan, poses,
     sigma = torch.einsum("pki,pkj,pk->pij", diff, diff, p) / eta[:, None,
                                                                  None]
     eye = torch.eye(3, dtype=sigma.dtype, device=sigma.device)
-    chol = torch.linalg.cholesky_ex(sigma + 1e-12 * eye).L
+    # A particle whose factor fails draws NaN, as jnp.linalg.cholesky's
+    # NaN factor does in tpunav (cholesky_ex's L is a finite partial one).
+    fac = torch.linalg.cholesky_ex(sigma + 1e-12 * eye)
+    chol = torch.where((fac.info == 0)[:, None, None], fac.L, float("nan"))
     new = mu + (chol @ normals[..., None])[..., 0]
     new = torch.cat([normalize_angle_pi(new[:, :1]), new[:, 1:]], dim=-1)
     return new, torch.log(eta)

@@ -3,9 +3,11 @@
 No counterpart in ``tpunav``. No path has weights: their parameters are
 the configurations (``MPPIConfig``, ``CartParams``, ``MotorParams``,
 ``CourseConfig``; ``SegmentCostParams`` and ``ObstacleCostConfig``;
-``PFConfig`` with its ``GridConfig`` and ``ICPConfig``) and their state is
-``CourseState``, ``PFState`` or a planner's ``RoadMap``. Nothing here
-imports jax: the caller hands over plain dicts and numpy arrays.
+``PFConfig`` with its ``GridConfig`` and ``ICPConfig``; ``EKFConfig``,
+``SlamLoopConfig`` and ``LandmarkConfig`` with its ``LaserProps``) and
+their state is ``CourseState``, ``PFState``, ``EKFState``,
+``SlamLoopState`` or a planner's ``RoadMap``. Nothing here imports jax:
+the caller hands over plain dicts and numpy arrays.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .control.slam_loop import SlamLoopState
 from .control.waypoint_loop import CourseState
 from .device import DEFAULT_DEVICE, resolve
+from .estimation.ekf.filter import EKFState
 from .estimation.rbpf.particle_filter import PFState
 from .planning.prm import RoadMap
 from .planning.world import ObstacleMap
@@ -31,14 +35,18 @@ _PF_DTYPES = {"poses": torch.float32, "prev_poses": torch.float32,
               "log_weights": torch.float32, "grids": torch.float32,
               "dists": torch.float32, "prev_scan": torch.float32,
               "has_prev": torch.bool}
+_SLAM_DTYPES = {"true_pose": torch.float32, "odom": torch.float32,
+                "u": torch.float32, "wpt_idx": torch.int32,
+                "visits": torch.int32, "ticks": torch.int32,
+                "done": torch.bool}
 
 
 def config_from_fields(cls, fields: Dict[str, Any]):
     """Build one of the port's configurations from the fields of its
     ``tpunav`` twin: ``dataclasses.asdict(cfg)`` for a dataclass, or
     ``params._asdict()`` for a NamedTuple. Nested dataclass fields given
-    as dicts (``CourseConfig.motor``, ``PFConfig.grid`` and
-    ``PFConfig.icp``) are built recursively."""
+    as dicts (``CourseConfig.motor``, ``PFConfig.grid``, ``PFConfig.icp``
+    and ``LandmarkConfig.props``) are built recursively."""
     if not dataclasses.is_dataclass(cls):
         return cls(**fields)
     hints = typing.get_type_hints(cls)
@@ -105,3 +113,52 @@ def roadmap_from_numpy(obs_map: ObstacleMap, nodes, k_neighbors: int = 10,
     rm._setup(obs_map, k_neighbors, clearance)
     rm._build(np.asarray(nodes, np.float64))
     return rm
+
+
+def _tensor(value, dtype, device):
+    return torch.as_tensor(np.array(value)).to(device=device, dtype=dtype)
+
+
+def ekf_state_from_numpy(d: Dict[str, Any], dtype: torch.dtype,
+                         device=DEFAULT_DEVICE) -> EKFState:
+    """An ``EKFState`` from numpy arrays {state, cov, active, count}: state
+    and covariance as ``dtype`` (float64 is ``ekf_init``'s default,
+    float32 the slam loop's filter), active as bool, count as int32."""
+    device = resolve(device)
+    return EKFState(state=_tensor(d["state"], dtype, device),
+                    cov=_tensor(d["cov"], dtype, device),
+                    active=_tensor(d["active"], torch.bool, device),
+                    count=_tensor(d["count"], torch.int32, device))
+
+
+def ekf_state_to_numpy(st: EKFState) -> Dict[str, np.ndarray]:
+    """The tensors of an ``EKFState`` as numpy arrays, dtypes kept."""
+    return {name: getattr(st, name).detach().cpu().numpy()
+            for name in EKFState._fields}
+
+
+def slam_loop_state_from_numpy(d: Dict[str, Any], device=DEFAULT_DEVICE,
+                               seed: int = 0) -> SlamLoopState:
+    """A ``SlamLoopState`` from numpy arrays {true_pose, odom, u, wpt_idx,
+    visits, ticks, done} and ``ekf``, a dict for
+    :func:`ekf_state_from_numpy` (float32, the loop's filter). The jax PRNG
+    key has no counterpart: the port's state gets a fresh
+    ``torch.Generator`` seeded with ``seed``."""
+    device = resolve(device)
+    t = {name: _tensor(d[name], dtype, device)
+         for name, dtype in _SLAM_DTYPES.items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return SlamLoopState(
+        ekf=ekf_state_from_numpy(d["ekf"], torch.float32, device),
+        generator=gen, host_ticks=int(np.array(d["ticks"])), **t)
+
+
+def slam_loop_state_to_numpy(st: SlamLoopState) -> Dict[str, Any]:
+    """The tensors of a ``SlamLoopState`` as numpy arrays, with ``ekf`` a
+    dict of its own (the generator and the host tick count stay
+    behind)."""
+    out = {name: getattr(st, name).detach().cpu().numpy()
+           for name in _SLAM_DTYPES}
+    out["ekf"] = ekf_state_to_numpy(st.ekf)
+    return out

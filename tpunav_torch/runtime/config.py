@@ -1,9 +1,12 @@
 """Typed config dataclasses + YAML loading.
 
 A copy of the loaders in ``tpunav/runtime/config.py`` (that package's
-``runtime/__init__`` imports jax, so it cannot be imported here). YAML maps
-directly onto the frozen config dataclasses, with the same key names, so
-``configs/*.yaml`` load into both packages.
+``runtime/__init__`` imports jax, so it cannot be imported here), all of
+them: ``from_dict``, ``load_yaml_config``, ``save_yaml_config``,
+``RobotConfig`` (with ``diff_drive``), ``LidarConfig`` and the loaders of
+robots, lidars, MPPI parameters, waypoints, landmarks and planning worlds.
+YAML maps directly onto the frozen config dataclasses, with the same key
+names, so ``configs/*.yaml`` load into both packages.
 """
 
 from __future__ import annotations
@@ -46,6 +49,11 @@ def load_yaml_config(cls: Type[T], path: str, **overrides) -> T:
     return from_dict(cls, data)
 
 
+def save_yaml_config(cfg, path: str) -> None:
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)
+
+
 @dataclasses.dataclass(frozen=True)
 class RobotConfig:
     """Physical robot constants (schema: configs/diff_params.yaml)."""
@@ -62,6 +70,13 @@ class RobotConfig:
     max_motor_power: int = 265
     wheel_axle_offset: float = 0.02
     max_motor_torque: float = 1.5
+
+    @property
+    def diff_drive(self):
+        """The (wheel_radius, wheel_base) pair the kinematics take."""
+        from ..core.diff_drive import DiffDriveParams
+        return DiffDriveParams(wheel_radius=self.wheel_radius,
+                               wheel_base=self.wheel_base)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,3 +143,28 @@ def load_waypoints(path: str) -> np.ndarray:
     th = np.asarray(data.get("theta_component", np.zeros_like(x)),
                     np.float64)
     return np.stack([x, y, th], axis=-1)
+
+
+def load_landmarks(path: str):
+    """Load ground-truth landmarks (schema:
+    configs/block_world_landmarks.yaml). Returns ((n, 2) float64 centers,
+    (n,) int64 ids) as numpy arrays."""
+    with open(path) as f:
+        data = yaml.safe_load(f)
+    centers = np.stack([np.asarray(data["x"], np.float64),
+                        np.asarray(data["y"], np.float64)], axis=-1)
+    ids = np.asarray(data.get("id", range(len(centers))), np.int64)
+    return centers, ids
+
+
+def load_world(path: str, scale: float = 1.0):
+    """Load a planning world (schema: configs/map_boundaries.yaml) into an
+    ``ObstacleMap``. ``scale`` mirrors the launch files' coordinate scaling
+    (the reference's plan.launch uses 0.1)."""
+    from ..planning.world import load_obstacle_map
+
+    with open(path) as f:
+        data = yaml.safe_load(f)
+    return load_obstacle_map(data["obstacles"], data["bounds"],
+                             resolution=float(data.get("resolution", 0.1)),
+                             scale=scale)
