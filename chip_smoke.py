@@ -6,7 +6,7 @@ Builds the port's kernels (``tpunav_torch/ops/csrc/``) from source with
 nvcc: K1 the fused MPPI solve (with its obstacle mode), K2 the likelihood
 field, K3 the map update with its distance field, K4 the distance field
 alone. Checks each against its plain PyTorch version on the card, then
-drives the port's three paths:
+drives the port's paths:
 
 - the MPPI waypoint course (the demo's flagship configuration:
   configs/mppi_params.yaml at horizon 0.5 s and K=4,096, the pentagon of
@@ -27,6 +27,14 @@ drives the port's three paths:
   cylinders, the lidar → circle detector → unknown data association chain
   at capacity 50, K=2,048, 5,000 ticks), with the filter held against its
   CPU run and the detector against its CPU run and itself;
+- the reference's node graph (tpunav_torch/runtime/, the :class:`Graphs`
+  phases): the mppi_waypoints.launch graph on the virtual-time scheduler
+  through K1 at K=4,096 (``node_course``); the RBPF node at config 5
+  through K2–K4, the EKF node in the MPPI loop at config 3 and the
+  detector chain in config 4's world (``slam_nodes``); the robot on the
+  CPU and the laptop on the card in two processes over the TCP bus,
+  lockstep and free-running (``two_process``); and a checkpoint of the
+  RBPF node's state (``checkpoint``);
 
 and times every kernel beside its plain version. Each phase prints one
 JSON line; any failure raises and the script exits non-zero. It needs
@@ -1641,6 +1649,811 @@ class Ekf:
              card=self.card, **out)
 
 
+# ── The node graph: runtime/ on the card ──
+
+# examples/full_stack_two_process.py:36-52: the planner's world, the
+# landmarks the robot senses and their visibility radius.
+FS_OBSTACLES = [[[0.45, -0.3], [0.75, -0.3], [0.75, 0.25], [0.45, 0.25]],
+                [[0.2, 0.5], [0.5, 0.5], [0.5, 0.8], [0.2, 0.8]]]
+FS_BOUNDS = [[-0.4, 1.6], [-0.8, 1.3]]
+FS_START, FS_GOAL = (0.0, 0.0), (1.2, 0.8)
+FS_LANDMARKS = [[0.6, 0.1], [0.4, 0.5], [-0.1, 0.6], [0.9, -0.3],
+                [1.1, 0.4], [0.2, -0.4], [1.2, 1.0], [-0.1, -0.4]]
+FS_VISIBILITY = 1.5
+
+
+def fs_params():
+    from tpunav_torch.core import diff_drive as dd
+
+    return dd.DiffDriveParams(wheel_radius=0.033, wheel_base=0.16)
+
+
+def fs_waypoints():
+    """The laptop's planner leg, run once at start-up
+    (examples/full_stack_two_process.py:59-80): PRM + Theta* over the
+    example's world from seed 4; waypoints headed toward the next vertex."""
+    from tpunav_torch.planning.prm import RoadMap, theta_star
+    from tpunav_torch.planning.world import load_obstacle_map
+
+    rm = RoadMap(load_obstacle_map(FS_OBSTACLES, bounds=FS_BOUNDS),
+                 n_nodes=80, k_neighbors=8, clearance=0.08, seed=4)
+    s, g = rm.add_node(np.asarray(FS_START)), rm.add_node(np.asarray(FS_GOAL))
+    if s is None or g is None:
+        raise AssertionError("start or goal not in free space")
+    path = theta_star(rm, s, g)
+    if path is None or len(path) < 2:
+        raise AssertionError("the planner found no path")
+    wpts = []
+    for i in range(1, len(path)):
+        d = np.asarray(path[i]) - np.asarray(path[i - 1])
+        wpts.append([path[i][0], path[i][1], float(np.arctan2(d[1], d[0]))])
+    return np.asarray(wpts)
+
+
+def mppi_law(cfg, params, device):
+    """The examples' MPPI control law for ``WaypointDriverNode``
+    (examples/full_stack_two_process.py:83-111) on K1: (pose [x, y, θ],
+    waypoint) → one fused solve on ``device`` keyed by seed 11 + k on the
+    k-th call → the wheel command as a body twist, in numpy. The pose and
+    waypoint go to the device in one copy; the seed stays there."""
+    from tpunav_torch.control.mppi import init_controls
+    from tpunav_torch.core import diff_drive as dd
+    from tpunav_torch.models.cart import CartParams
+    from tpunav_torch.ops.fused_mppi import mppi_solve_fused
+    from tpunav_torch.runtime.nodes import host, to_device
+
+    cart = CartParams(params.wheel_radius, params.wheel_base)
+    state = {"u": init_controls(cfg, device=device),
+             "seed": to_device(11, torch.int32, device)}
+
+    def law(pose_xyt, wpt):
+        goal = [wpt[0], wpt[1], wpt[2] if len(wpt) > 2 else 0.0]
+        x = to_device(np.concatenate([pose_xyt, goal]), torch.float32, device)
+        cmd, state["u"] = mppi_solve_fused(cfg, cart, state["u"],
+                                           state["seed"], x[:3], x[3:])
+        state["seed"] = state["seed"] + 1
+        return host(dd.wheels_to_twist(params, cmd))
+
+    return law
+
+
+def fs_mppi_config(rollouts):
+    """examples/full_stack_two_process.py:92-93 at ``rollouts``."""
+    from tpunav_torch.control.mppi import MPPIConfig
+
+    return MPPIConfig(horizon=0.3, dt=0.05, rollouts=rollouts, ul_var=4.0,
+                      ur_var=4.0)
+
+
+def fs_robot(params, ch):
+    """The robot's side: the plant (truth) + turtle_interface + odometer +
+    the landmark sensor, on the CPU (the turtlebot has no card). One
+    lockstep cycle returns the true pose."""
+    from tpunav_torch.runtime.channels import Channel
+    from tpunav_torch.runtime.nodes import OdometerNode, TurtleInterfaceNode
+    from tpunav_torch.sim.landmark_sensor import landmark_measurements
+    from tpunav_torch.sim.plant import DiffDrivePlant
+
+    wheel_cmd, sensor = Channel("wheel_cmd"), Channel("sensor")
+    plant = DiffDrivePlant(params, wheel_cmd, sensor, sensor_rate_hz=60.0)
+    iface = TurtleInterfaceNode(params, ch["cmd_vel"], wheel_cmd, sensor,
+                                ch["joints"], device="cpu")
+    odo = OdometerNode(params, ch["joints"], ch["odom"], device="cpu")
+    lms = torch.tensor(FS_LANDMARKS)
+
+    def sense(t=0.0):
+        ch["landmarks"].publish(landmark_measurements(
+            lms, torch.tensor(plant.pose, dtype=torch.float32),
+            FS_VISIBILITY).numpy())
+
+    def cycle(k):
+        iface.tick(0.0)      # fresh cmd_vel → wheel_cmd
+        plant.tick(0.0)      # advance the truth, emit encoder ticks
+        iface.tick(0.0)      # fresh ticks → joints
+        odo.tick(0.0)        # joints → odom
+        sense()
+        return plant.pose.copy()
+
+    return cycle, (iface, plant, odo, sense)
+
+
+def fs_laptop(params, ch, waypoints, rollouts, device):
+    """The laptop's side: EKF SLAM (known DA) + the MPPI driver on the
+    SLAM pose, on ``device``. One lockstep cycle returns the SLAM pose."""
+    from tpunav_torch.estimation.ekf import EKFConfig
+    from tpunav_torch.runtime.channels import Channel
+    from tpunav_torch.runtime.nodes import WaypointDriverNode
+    from tpunav_torch.runtime.slam_nodes import EkfSlamNode
+
+    slam_pose = Channel("slam_pose")
+    ekf = EkfSlamNode(EKFConfig(num_landmarks=len(FS_LANDMARKS),
+                                spd_repair=False,
+                                motion_noise=(1e-8, 1e-8, 1e-8),
+                                measurement_noise=(1e-6, 1e-6)),
+                      params, ch["joints"], ch["landmarks"], slam_pose,
+                      Channel("odom_local"), known_da=True, device=device)
+    driver = WaypointDriverNode(
+        slam_pose, ch["cmd_vel"], waypoints,
+        mppi_law(fs_mppi_config(rollouts), params, device), goal_thresh=0.12)
+    driver.start()
+
+    def cycle(k):
+        ekf.tick(0.0)
+        prev = ch["cmd_vel"].seq
+        driver.tick(0.0)
+        if ch["cmd_vel"].seq == prev:
+            # Keep the lockstep clock advancing after the course is done.
+            ch["cmd_vel"].publish(np.zeros(3))
+        p = slam_pose.latest()
+        return np.zeros(3) if p is None else np.asarray(p, float).copy()
+
+    return cycle
+
+
+def fs_run_single(cycles, rollouts, device):
+    """The two-process graph in one process with the same device split and
+    the same tick order. Returns (truth, slam) per cycle."""
+    from tpunav_torch.runtime.channels import Channel
+
+    params = fs_params()
+    ch = {n: Channel(n) for n in ("cmd_vel", "joints", "landmarks", "odom")}
+    robot, _ = fs_robot(params, ch)
+    laptop = fs_laptop(params, ch, fs_waypoints(), rollouts, device)
+    truth, slam = [], []
+    for k in range(cycles):
+        truth.append(robot(k))
+        slam.append(laptop(k))
+    return np.asarray(truth), np.asarray(slam)
+
+
+def _bus_channels(client, robot: bool):
+    out = {"cmd_vel": client.subscribe if robot else client.advertise}
+    for name in ("joints", "landmarks", "odom"):
+        out[name] = client.advertise if robot else client.subscribe
+    return {name: make(name) for name, make in out.items()}
+
+
+def _fs_robot_main(port, cycles, out_path):
+    from tpunav_torch.runtime.net import BusClient, wait_for_new
+
+    torch.set_num_threads(1)
+    client = BusClient("127.0.0.1", port)
+    ch = _bus_channels(client, robot=True)
+    robot, _ = fs_robot(fs_params(), ch)
+    truth, last_cmd = [], 0
+    for k in range(cycles):
+        if k > 0:   # lockstep: the laptop commanded on the previous frame
+            _, last_cmd = wait_for_new(ch["cmd_vel"], last_cmd, timeout=120)
+        truth.append(robot(k))
+    np.savez(out_path, truth=np.asarray(truth))
+    client.close()
+
+
+def _fs_laptop_main(port, cycles, out_path, rollouts, device):
+    from tpunav_torch.runtime.net import BusClient, wait_for_new
+
+    torch.set_num_threads(1)
+    client = BusClient("127.0.0.1", port)
+    ch = _bus_channels(client, robot=False)
+    laptop = fs_laptop(fs_params(), ch, fs_waypoints(), rollouts, device)
+    slam, last_j, last_m = [], 0, 0
+    for k in range(cycles):
+        _, last_j = wait_for_new(ch["joints"], last_j, timeout=120)
+        _, last_m = wait_for_new(ch["landmarks"], last_m, timeout=120)
+        slam.append(laptop(k))
+        if k == 0:
+            t_warm = time.perf_counter()
+    steady = (cycles - 1) / (time.perf_counter() - t_warm)
+    np.savez(out_path, slam=np.asarray(slam), steady=steady)
+    client.close()
+
+
+def _spawn(targets, timeout):
+    """Start each (function, args) in a process of its own (spawn: the
+    children may use CUDA), join them all, and raise if one failed."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=args) for fn, args in targets]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=timeout)
+            if p.exitcode != 0:
+                raise AssertionError(f"{p.name} exit code {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def fs_run_two_process(out_dir, cycles, rollouts, device):
+    """Robot and laptop in two OS processes over the TCP bus, in lockstep
+    (each waits on the other's topic). Returns (truth, slam, the laptop's
+    steady cycles/s over the bus)."""
+    from tpunav_torch.runtime.net import BusServer
+
+    robot_out = os.path.join(out_dir, "robot.npz")
+    laptop_out = os.path.join(out_dir, "laptop.npz")
+    srv = BusServer()
+    try:
+        _spawn([(_fs_robot_main, (srv.port, cycles, robot_out)),
+                (_fs_laptop_main, (srv.port, cycles, laptop_out, rollouts,
+                                   device))], timeout=600)
+    finally:
+        srv.close()
+    lap = np.load(laptop_out)
+    return np.load(robot_out)["truth"], lap["slam"], float(lap["steady"])
+
+
+def _fs_robot_free(port, duration, out_path):
+    """The robot free-running: every node at its own rate on the wall-clock
+    scheduler, no lockstep."""
+    from tpunav_torch.runtime.channels import Node, Scheduler
+    from tpunav_torch.runtime.net import BusClient, wait_for_new
+
+    torch.set_num_threads(1)
+    client = BusClient("127.0.0.1", port)
+    ch = _bus_channels(client, robot=True)
+    _, (iface, plant, odo, sense) = fs_robot(fs_params(), ch)
+    # Bring-up handshake: one sensor frame, then wait for the laptop's
+    # first command before the clock starts.
+    ch["joints"].publish((0.0, 0.0, 0.0, 0.0))
+    sense()
+    wait_for_new(ch["cmd_vel"], 0, timeout=120)
+    sched = Scheduler(realtime=True)
+    sched.add(Node("turtle_interface", 60.0, iface.tick))
+    sched.add(Node("plant", 60.0, plant.tick))
+    sched.add(Node("odometer", 60.0, odo.tick))
+    sched.add(Node("landmark_sensor", 10.0, sense))
+    seq0 = ch["joints"].seq, ch["cmd_vel"].seq
+    sched.run(duration)
+    np.savez(out_path, truth=plant.pose,
+             joints=ch["joints"].seq - seq0[0],
+             cmd=ch["cmd_vel"].seq - seq0[1])
+    client.close()
+
+
+def _fs_laptop_free(port, duration, out_path, rollouts, device):
+    """The laptop free-running: EKF + driver as one 60 Hz node."""
+    from tpunav_torch.runtime.channels import Node, Scheduler
+    from tpunav_torch.runtime.net import BusClient, wait_for_new
+
+    torch.set_num_threads(1)
+    client = BusClient("127.0.0.1", port)
+    ch = _bus_channels(client, robot=False)
+    laptop = fs_laptop(fs_params(), ch, fs_waypoints(), rollouts, device)
+    wait_for_new(ch["joints"], 0, timeout=120)
+    wait_for_new(ch["landmarks"], 0, timeout=120)
+    laptop(0)                    # the first tick pays the kernels' loading
+    ticks = [0]
+
+    def tick(t):
+        laptop(ticks[0])
+        ticks[0] += 1
+
+    sched = Scheduler(realtime=True)
+    sched.add(Node("slam+driver", 60.0, tick))
+    sched.run(duration)
+    np.savez(out_path, ticks=ticks[0])
+    client.close()
+
+
+def fs_run_free(out_dir, duration, rollouts, device):
+    """Both sides free-running for ``duration`` wall seconds; the joints and
+    cmd_vel rates the robot saw and the laptop's ticks."""
+    from tpunav_torch.runtime.net import BusServer
+
+    robot_out = os.path.join(out_dir, "robot_free.npz")
+    laptop_out = os.path.join(out_dir, "laptop_free.npz")
+    srv = BusServer()
+    try:
+        _spawn([(_fs_robot_free, (srv.port, duration, robot_out)),
+                (_fs_laptop_free, (srv.port, duration, laptop_out, rollouts,
+                                   device))], timeout=600)
+    finally:
+        srv.close()
+    rob, lap = np.load(robot_out), np.load(laptop_out)
+    return {"joints_rate_hz": float(rob["joints"]) / duration,
+            "cmd_vel_rate_hz": float(rob["cmd"]) / duration,
+            "laptop_ticks": int(lap["ticks"]),
+            "final_truth": rob["truth"].tolist()}
+
+
+class Graphs:
+    """The reference's node graph on the card (``tpunav_torch/runtime/``):
+    the mppi_waypoints.launch graph through K1, the RBPF node at BASELINE
+    config 5 through K2–K4, the EKF node in the MPPI loop (config 3), the
+    detector chain (config 4's world), the two-process deployment over the
+    TCP bus, and a checkpoint of the RBPF node's state."""
+
+    # One scan period (0.2 s) of this twist is rbpf_course's u = (0.03 rad,
+    # 0.02 m).
+    RBPF_TWIST = np.array([0.15, 0.1, 0.0])
+    # Config 3's plant is off the nominal wheel radius and base by the
+    # size of error the reference's rotation node calibrates away, so
+    # dead reckoning drifts and the landmarks must correct it.
+    TRUE_WHEELS = (0.0335, 0.157)
+
+    def __init__(self, smoke: Smoke, rbpf: Rbpf, ekf: Ekf):
+        self.s, self.r, self.e = smoke, rbpf, ekf
+        self.dev, self.card = smoke.dev, smoke.card
+        self.params = smoke.config.load_robot_config(
+            os.path.join(CONFIGS, "diff_params.yaml")).diff_drive
+        self.k1_course = self.slam_counts = None
+
+    def course_graph(self, cfg, waypoints):
+        """mppi_waypoints.launch at 60 Hz: driver → cmd_vel →
+        turtle_interface → wheel_cmd → plant → encoder ticks →
+        turtle_interface → joints → odometer → odom → driver. Returns the
+        scheduler, the driver, the law's profiler, the channels and a
+        function that runs n more cycles."""
+        from tpunav_torch.runtime import Channel, Node, Scheduler, SolveProfiler
+        from tpunav_torch.runtime.nodes import (OdometerNode,
+                                                TurtleInterfaceNode,
+                                                WaypointDriverNode)
+        from tpunav_torch.sim.plant import DiffDrivePlant
+
+        ch = {n: Channel(n) for n in ("cmd_vel", "wheel_cmd", "sensor",
+                                      "joints", "odom")}
+        law = SolveProfiler(mppi_law(cfg, self.params, self.dev),
+                            name="mppi_law")
+        driver = WaypointDriverNode(ch["odom"], ch["cmd_vel"], waypoints, law,
+                                    goal_thresh=0.1)
+        driver.start()
+        iface = TurtleInterfaceNode(self.params, ch["cmd_vel"],
+                                    ch["wheel_cmd"], ch["sensor"],
+                                    ch["joints"], device=self.dev)
+        plant = DiffDrivePlant(self.params, ch["wheel_cmd"], ch["sensor"],
+                               sensor_rate_hz=60.0)
+        odo = OdometerNode(self.params, ch["joints"], ch["odom"],
+                           device=self.dev)
+        cycles = [0]
+
+        def odometer(t):
+            odo.tick(t)
+            cycles[0] += 1
+
+        s = Scheduler()
+        for name, fn in [("driver", driver.tick), ("turtle_interface",
+                                                   iface.tick),
+                         ("plant", plant.tick), ("odometer", odometer)]:
+            s.add(Node(name, 60.0, fn))
+
+        def run_cycles(n):
+            target = cycles[0] + n
+            s.run(1e9, until=lambda: cycles[0] >= target)
+
+        return s, driver, law, ch, run_cycles
+
+    def node_course(self):
+        """The mppi_waypoints.launch graph at full width on the virtual-time
+        scheduler: K1 at configs/mppi_params.yaml, horizon 0.5 s, K=4,096,
+        N=50, around the real_waypoints.yaml pentagon (goal_thresh 0.1).
+        Gates: one full cycle within 120 s of virtual time, odometry within
+        0.1 m of the last waypoint, one K1 launch per published command.
+        Then on a fresh graph: cycles/s, launches, device idle share and
+        host syncs per cycle, and a Chrome trace of 20 cycles."""
+        from tpunav_torch.runtime import trace
+
+        t0 = time.perf_counter()
+        cfg = self.s.config.load_mppi_config(
+            os.path.join(CONFIGS, "mppi_params.yaml"), horizon=0.5,
+            rollouts=4096)
+        wpts = self.s.config.load_waypoints(
+            os.path.join(CONFIGS, "real_waypoints.yaml"))
+        s, driver, law, ch, _ = self.course_graph(cfg, wpts)
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        s.run(120.0, until=lambda: driver.done)
+        wall = time.perf_counter() - t1
+        counts = read_counts()
+        cycles = round(s.t * 60.0) + 1
+        odom = ch["odom"].latest()
+        last = wpts[(driver.idx - 1) % len(wpts)]
+        d_last = float(np.hypot(odom[1] - last[0], odom[2] - last[1]))
+        commands = ch["cmd_vel"].seq - 1          # the last is stop()'s zero
+        if not (driver.done and s.t <= 120.0):
+            raise AssertionError(f"node course not done: {driver.ctr} visits "
+                                 f"in {s.t} s")
+        if not d_last < 0.1:
+            raise AssertionError(f"odometry {odom} ends {d_last} m from the "
+                                 "last waypoint")
+        if counts != {"K1": commands, "K2": 0, "K3": 0, "K4": 0}:
+            raise AssertionError(f"launches {counts} for {commands} commands:"
+                                 " the driver did not solve on K1 once each")
+        self.k1_course = counts["K1"]
+        law_rate, visits = law.hz(), driver.ctr
+
+        # A fresh graph: 60 cycles warm, then 120 timed, 120 profiled, 60
+        # counted for syncs and 20 traced.
+        s, driver, _, _, run_cycles = self.course_graph(cfg, wpts)
+        run_cycles(60)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_cycles(120)
+        torch.cuda.synchronize()
+        cycle_us = 1e6 * (time.perf_counter() - t1) / 120
+        kern = profile_device(lambda: run_cycles(120), 1)
+        busy = sum(us for us, _ in kern.values()) / 120
+        syncs = count_syncs(lambda: run_cycles(60), 1) / 60
+        out = os.path.join(ROOT, "tools", "out", "node_course_trace")
+        with trace(out):
+            run_cycles(20)
+        newest = max((os.path.join(out, f) for f in os.listdir(out)),
+                     key=os.path.getmtime)
+        with open(newest) as f:
+            text = f.read()
+        named = [k for k in ("mppi_rollout_partials", "mppi_combine")
+                 if k in text]
+        if len(named) != 2 or driver.done:
+            raise AssertionError(f"trace {newest} names {named} of K1's two "
+                                 "kernels")
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+        emit("node_course", seconds=time.perf_counter() - t0,
+             card=self.card, K=cfg.rollouts, N=cfg.steps,
+             course_virtual_seconds=round(cycles / 60.0, 4), cycles=cycles,
+             visits=visits, done=True, final_odom=odom.tolist(),
+             dist_to_last_waypoint=d_last, commands=commands,
+             kernel_launches=counts, cycles_per_s=cycles / wall,
+             law_hz=law_rate, window_cycles=120,
+             unprofiled_cycle_us=cycle_us, device_us_per_cycle=busy,
+             launches_per_cycle=sum(c for _, c in kern.values()) / 120,
+             device_idle_share=1 - busy / cycle_us,
+             host_syncs_per_cycle=syncs,
+             trace=os.path.relpath(newest, ROOT), trace_names_k1=named,
+             top_kernels_us_per_cycle={name[:60]: us / 120
+                                       for name, (us, _) in top})
+
+    def rbpf_graph(self, seed=0):
+        """BASELINE config 5 as a node graph: fake encoders at 30 Hz on
+        RBPF_TWIST, a scan publisher at 5 Hz (the port's lidar in walls at
+        ±1.8 m, 360 beams, 2 mm noise from a generator seeded 7), and the
+        RbpfMappingNode (P=500, k=50, 80×80 at 0.05 m, ICP 25 iterations).
+        Returns the node, the channels, and a function that runs until n
+        more updates were published (calling ``on_update`` after each)."""
+        from tpunav_torch.core import diff_drive as dd
+        from tpunav_torch.runtime import Channel, Node, Scheduler
+        from tpunav_torch.runtime.nodes import FakeDiffEncodersNode, host
+        from tpunav_torch.runtime.slam_nodes import RbpfMappingNode
+
+        r, g = self.r, self.r.g80
+        ch = {n: Channel(n) for n in ("cmd_vel", "joints", "scan",
+                                      "slam_pose", "grid", "map_odom",
+                                      "truth")}
+        segs = r.lidar.box_segments(-1.8, -1.8, 1.8, 1.8, device=self.dev)
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(7)
+        enc = FakeDiffEncodersNode(self.params, ch["cmd_vel"], ch["joints"],
+                                   rate_hz=30.0, device=self.dev)
+        node = RbpfMappingNode(r.cfg, self.params, ch["joints"], ch["scan"],
+                               ch["slam_pose"], ch["grid"],
+                               map_odom=ch["map_odom"], truth=ch["truth"],
+                               seed=seed, device=self.dev)
+
+        def scan(t):
+            pose = dd.pose(enc.state)
+            out = host(torch.cat([pose, r.lidar.scan_segments(
+                pose, segs, num_beams=g.num_beams, beam_min=g.beam_min,
+                beam_delta=g.beam_delta, max_range=g.range_max,
+                generator=gen, noise_std=0.002)]))
+            ch["truth"].publish(out[:3])
+            ch["scan"].publish(out[3:])
+
+        s = Scheduler()
+        s.add(Node("cmd", 30.0, lambda t: ch["cmd_vel"].publish(
+            self.RBPF_TWIST)))
+        s.add(Node("encoders", 30.0, enc.tick))
+        s.add(Node("scan", 5.0, scan))
+        s.add(Node("slam", 5.0, node.tick))
+
+        def run_updates(n):
+            target = ch["slam_pose"].seq + n
+            s.run(1e9, until=lambda: ch["slam_pose"].seq >= target)
+
+        return node, ch, run_updates
+
+    def rbpf_node(self):
+        """(a) The RBPF node at BASELINE config 5 over 120 updates (24 s of
+        virtual time). Gates: best particle |xy| < 0.2 m from the truth
+        (examples/rbpf_slam_demo.py:82), the grid holds 100 and 0 cells,
+        map→odom published, one K2 and one K3 launch per update (K4 once,
+        in pf_init). Its updates/s beside rbpf_course's."""
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_counts()           # K4 launches in pf_init, in the node's ctor
+        node, ch, run_updates = self.rbpf_graph()
+        run_updates(Rbpf.WARM)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter()
+        run_updates(Rbpf.UPDATES - Rbpf.WARM)
+        torch.cuda.synchronize()
+        steady = (Rbpf.UPDATES - Rbpf.WARM) / (time.perf_counter() - t_warm)
+        counts = read_counts()
+        updates = ch["slam_pose"].seq
+        est, tru = ch["slam_pose"].latest(), ch["truth"].latest()
+        xy = float(np.hypot(est[1] - tru[1], est[2] - tru[2]))
+        grid = ch["grid"].latest()
+        if not (np.isfinite(est).all() and xy < 0.2):
+            raise AssertionError(f"RBPF node: best particle {xy} m off")
+        if not ((grid == 100).any() and (grid == 0).any()
+                and ch["map_odom"].latest() is not None):
+            raise AssertionError("RBPF node: no walls or no free cells in "
+                                 "the grid, or no map→odom")
+        want = {"K1": 0, "K2": updates, "K3": updates, "K4": 1}
+        if updates != Rbpf.UPDATES or counts != want:
+            raise AssertionError(f"RBPF node: launches {counts} over "
+                                 f"{updates} updates, expected {want}")
+        course = 1e3 / self.r.ms_per_update
+        # Where the node's extra time goes: launches, device time and host
+        # syncs per update over 5 more updates (rbpf_profile has the
+        # course's).
+        kern = profile_device(lambda: run_updates(1), 5)
+        busy = sum(us for us, _ in kern.values()) / 5
+        syncs = count_syncs(lambda: run_updates(1), 5)
+        # Host-bound rates drift within a call, so the overhead is also
+        # taken in turns on the same host: 20 bare updates of the course's
+        # inputs, 20 node updates, 20 node, 20 bare (ms per update).
+        u, scans, odoms, prevs = self.r.inputs
+
+        def bare():
+            st = self.r.pf.pf_init(self.r.cfg, seed=1, device=self.dev)
+            for i in range(20):
+                st = self.r.pf.pf_slam_step(self.r.cfg, st, scans[i], u,
+                                            odoms[i], prevs[i])
+
+        turns = {"bare": [], "node": []}
+        for name in ("bare", "node", "node", "bare"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bare() if name == "bare" else run_updates(20)
+            torch.cuda.synchronize()
+            turns[name].append(1e3 * (time.perf_counter() - t1) / 20)
+        return {"seconds": time.perf_counter() - t0, "P": self.r.P,
+                "k": self.r.K, "map": [self.r.g80.height, self.r.g80.width],
+                "updates": updates, "steady_updates_per_s": steady,
+                "rbpf_course_updates_per_s": course,
+                "node_overhead_ms_per_update": 1e3 / steady - 1e3 / course,
+                "turns_ms_per_update": turns,
+                "node_overhead_ms_per_update_in_turns":
+                    statistics.mean(turns["node"])
+                    - statistics.mean(turns["bare"]),
+                "launches_per_update": sum(c for _, c in kern.values()) / 5,
+                "device_us_per_update": busy,
+                "device_idle_share": 1 - busy / (1e6 / steady),
+                "host_syncs_per_update": syncs,
+                "pose_error_cm": 100 * xy,
+                "occupied_cells": int((grid == 100).sum()),
+                "free_cells": int((grid == 0).sum()),
+                "map_odom": ch["map_odom"].latest().tolist(),
+                "kernel_launches": counts}
+
+    def ekf_node(self):
+        """(b) Config 3 as a node graph: the driver on the SLAM pose with K1
+        at K=1,024, N=8 around the demo's square; turtle_interface and the
+        plant at 60 Hz (the plant's wheels off nominal, TRUE_WHEELS);
+        EkfSlamNode (known DA, 12 slots) fed by landmark_measurements of
+        the block world within 1.2 m at 10 Hz. Gates: EKF |xy| error <
+        odometry's, one K1 launch per published command."""
+        from tpunav_torch.core import diff_drive as dd
+        from tpunav_torch.runtime import Channel, Node, Scheduler
+        from tpunav_torch.runtime.nodes import (TurtleInterfaceNode,
+                                                WaypointDriverNode)
+        from tpunav_torch.runtime.slam_nodes import EkfSlamNode
+        from tpunav_torch.sim.plant import DiffDrivePlant
+
+        t0 = time.perf_counter()
+        mppi, ekf_cfg, loop, _, _ = self.e.config3()
+        centers, _ = self.s.config.load_landmarks(
+            os.path.join(CONFIGS, "block_world_landmarks.yaml"))
+        lms = torch.tensor(centers, dtype=torch.float32)
+        ch = {n: Channel(n) for n in ("cmd_vel", "wheel_cmd", "sensor",
+                                      "joints", "landmarks", "slam_pose",
+                                      "odom_pose", "map_odom")}
+        driver = WaypointDriverNode(ch["slam_pose"], ch["cmd_vel"],
+                                    SLAM_WAYPOINTS,
+                                    mppi_law(mppi, self.params, self.dev),
+                                    goal_thresh=loop.goal_thresh)
+        driver.start()
+        iface = TurtleInterfaceNode(self.params, ch["cmd_vel"],
+                                    ch["wheel_cmd"], ch["sensor"],
+                                    ch["joints"], device=self.dev)
+        plant = DiffDrivePlant(dd.DiffDriveParams(*self.TRUE_WHEELS),
+                               ch["wheel_cmd"], ch["sensor"],
+                               sensor_rate_hz=60.0)
+        ekf = EkfSlamNode(ekf_cfg, self.params, ch["joints"], ch["landmarks"],
+                          ch["slam_pose"], ch["odom_pose"],
+                          map_odom=ch["map_odom"], known_da=True,
+                          device=self.dev)
+
+        def sense(t):
+            ch["landmarks"].publish(self.e.sensor.landmark_measurements(
+                lms, torch.tensor(plant.pose, dtype=torch.float32),
+                loop.visibility).numpy())
+
+        s = Scheduler()
+        for name, rate, fn in [("driver", 60.0, driver.tick),
+                               ("turtle_interface", 60.0, iface.tick),
+                               ("plant", 60.0, plant.tick),
+                               ("landmark_sensor", 10.0, sense),
+                               ("slam", 60.0, ekf.tick)]:
+            s.add(Node(name, rate, fn))
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        s.run(90.0, until=lambda: driver.done)
+        wall = time.perf_counter() - t1
+        counts = read_counts()
+        commands = ch["cmd_vel"].seq - int(driver.done)
+        s.run(0.5)                     # the robot stops; the filter catches up
+        tru, est, odo = (plant.pose, ch["slam_pose"].latest(),
+                         ch["odom_pose"].latest())
+        ekf_err = float(np.hypot(est[1] - tru[1], est[2] - tru[2]))
+        odo_err = float(np.hypot(odo[1] - tru[1], odo[2] - tru[2]))
+        if not ekf_err < odo_err:
+            raise AssertionError(f"EKF node: error {ekf_err} m not below "
+                                 f"odometry's {odo_err} m")
+        if counts != {"K1": commands, "K2": 0, "K3": 0, "K4": 0}:
+            raise AssertionError(f"EKF node: launches {counts} for {commands}"
+                                 " commands")
+        return {"seconds": time.perf_counter() - t0, "K": mppi.rollouts,
+                "N": mppi.steps, "landmarks": len(centers),
+                "virtual_seconds": s.t, "done": driver.done,
+                "visits": driver.ctr, "commands": commands,
+                "ekf_updates": ch["slam_pose"].seq, "ekf_error_m": ekf_err,
+                "odometry_error_m": odo_err,
+                "landmarks_tracked": int(ekf.ekf.count),
+                "kernel_launches": counts,
+                "graph_seconds_per_virtual_second": wall / s.t}
+
+    def detector_node(self):
+        """(c) Config 4's world: 360-beam scans (1 mm noise) at 5 Hz from a
+        robot circling 1.25 m out, into LandmarksNode (max_clusters 32) and
+        EkfSlamNode (unknown DA, capacity 50), 30 s of virtual time. Gates:
+        the node's measurements equal feature_detection +
+        circles_to_measurements on the same scans bit for bit, all state
+        finite, at least 20 landmarks tracked."""
+        from tpunav_torch.core import diff_drive as dd
+        from tpunav_torch.core import se2
+        from tpunav_torch.runtime import Channel, Node, Scheduler
+        from tpunav_torch.runtime.nodes import FakeDiffEncodersNode, host
+        from tpunav_torch.runtime.slam_nodes import EkfSlamNode, LandmarksNode
+
+        t0 = time.perf_counter()
+        _, ekf_cfg, _, _, world, _ = self.e.config4()
+        radii = self.e.t(self.e.radii)
+        lm_cfg = self.e.lmk.LandmarkConfig(max_clusters=32)
+        ch = {n: Channel(n) for n in ("cmd_vel", "joints", "scan",
+                                      "landmarks", "slam_pose", "odom_pose")}
+        enc = FakeDiffEncodersNode(self.params, ch["cmd_vel"], ch["joints"],
+                                   rate_hz=20.0, device=self.dev)
+        start = se2.make(*self.e.t([math.pi / 2, 1.25, 0.0]))
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(4)
+        lmk = LandmarksNode(lm_cfg, ch["scan"], ch["landmarks"],
+                            device=self.dev)
+        ekf = EkfSlamNode(ekf_cfg, self.params, ch["joints"], ch["landmarks"],
+                          ch["slam_pose"], ch["odom_pose"], known_da=False,
+                          device=self.dev)
+        seen = []
+
+        def scan(t):
+            p = dd.pose(enc.state)           # in the start frame
+            w = se2.compose(start, se2.make(p[0], p[1], p[2]))
+            ch["scan"].publish(host(self.e.lidar.scan_cylinders(
+                torch.stack([se2.theta_of(w), *se2.translation_of(w)]),
+                world, radii, generator=gen, noise_std=1e-3)))
+
+        def detect(t):
+            lmk.tick(t)
+            seen.append((ch["scan"].latest(), ch["landmarks"].latest()))
+
+        s = Scheduler()
+        s.add(Node("cmd", 20.0, lambda t: ch["cmd_vel"].publish(
+            np.array([0.08, 0.1, 0.0]))))
+        s.add(Node("encoders", 20.0, enc.tick))
+        s.add(Node("scan", 5.0, scan))
+        s.add(Node("landmarks", 5.0, detect))
+        s.add(Node("slam", 20.0, ekf.tick))
+        s.run(29.99)
+        same = all(np.array_equal(
+            m, host(self.e.lmk.circles_to_measurements(
+                self.e.lmk.feature_detection(lm_cfg, self.e.t(r)))),
+            equal_nan=True) for r, m in seen)
+        finite = all(bool(torch.isfinite(x).all()) for x in ekf.ekf[:2])
+        count = int(ekf.ekf.count)
+        if not (same and finite and count >= 20 and len(seen) == 150):
+            raise AssertionError(f"detector chain: measurements equal {same},"
+                                 f" finite {finite}, {count} landmarks, "
+                                 f"{len(seen)} scans")
+        est = ch["slam_pose"].latest()
+        odo = host(dd.pose(enc.state))
+        return {"seconds": time.perf_counter() - t0, "scans": len(seen),
+                "beams": 360, "capacity": ekf_cfg.num_landmarks,
+                "detections_per_scan": float(np.mean(
+                    [np.isfinite(m).all(-1).sum() for _, m in seen])),
+                "measurements_bit_identical": same, "finite": finite,
+                "landmarks_tracked": count,
+                "slam_xy_error_m": float(np.hypot(est[1] - odo[1],
+                                                  est[2] - odo[2]))}
+
+    def slam_nodes(self):
+        """(a) the RBPF node, (b) the EKF node in the MPPI loop, (c) the
+        detector chain; the counts are set to 0 before each and read after,
+        and summed into the kernels line."""
+        t0 = time.perf_counter()
+        rbpf = self.rbpf_node()
+        ekf = self.ekf_node()
+        det = self.detector_node()
+        self.slam_counts = {k: rbpf["kernel_launches"][k]
+                            + ekf["kernel_launches"][k] for k in
+                            ("K1", "K2", "K3", "K4")}
+        emit("slam_nodes", seconds=time.perf_counter() - t0, card=self.card,
+             rbpf_config5=rbpf, ekf_config3=ekf, detector_chain=det)
+
+    def two_process(self, cycles=150, duration=10.0):
+        """The two-machine deployment (examples/full_stack_two_process.py):
+        the robot (plant, turtle_interface, odometer, landmark sensor) on
+        the CPU in one process, the laptop (PRM + Theta* once, EKF SLAM,
+        the driver with K1 at K=4,096) on the card in another, over the TCP
+        bus. Lockstep: equal to the same graph in one process within 1e-9,
+        the robot moves > 5 cm. Free-running on the wall clock at a
+        nominal 60 Hz: joints and cmd_vel both ≥ 30 Hz."""
+        import tempfile
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            truth2, slam2, steady = fs_run_two_process(d, cycles, 4096,
+                                                       "cuda")
+            truth1, slam1 = fs_run_single(cycles, 4096, self.dev)
+            d_truth = float(np.abs(truth2 - truth1).max())
+            d_slam = float(np.abs(slam2 - slam1).max())
+            moved = float(np.linalg.norm(truth2[-1][1:]))
+            if not (d_truth <= 1e-9 and d_slam <= 1e-9 and moved > 0.05):
+                raise AssertionError(f"two processes vs one: |Δtruth| "
+                                     f"{d_truth}, |Δslam| {d_slam}, moved "
+                                     f"{moved} m")
+            free = fs_run_free(d, duration, 4096, "cuda")
+        if not (free["joints_rate_hz"] >= 30 and free["cmd_vel_rate_hz"] >= 30):
+            raise AssertionError(f"free-running rates {free}")
+        emit("two_process", seconds=time.perf_counter() - t0, card=self.card,
+             K=4096, lockstep_cycles=cycles, max_abs_truth_diff=d_truth,
+             max_abs_slam_diff=d_slam, bar=1e-9, moved_m=moved,
+             lockstep_laptop_cycles_per_s=steady, free_seconds=duration,
+             nominal_hz=60, **free)
+
+    def checkpoint(self):
+        """The RBPF node's PFState at config 5 (its CUDA generator
+        included) saved after 10 updates and loaded into a fresh template:
+        10 more updates give the digests of an uninterrupted 20."""
+        import tempfile
+
+        from tpunav_torch.runtime import load_pytree, save_pytree
+
+        t0 = time.perf_counter()
+        node, _, run_updates = self.rbpf_graph()
+        run_updates(20)
+        whole = digest(node.pf.poses, node.pf.log_weights, node.pf.grids)
+        node, _, run_updates = self.rbpf_graph()
+        run_updates(10)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "pf.npz")
+            save_pytree(path, node.pf)
+            template = self.r.pf.pf_init(self.r.cfg, seed=123,
+                                         device=self.dev)
+            node.pf = load_pytree(path, template)
+        run_updates(10)
+        resumed = digest(node.pf.poses, node.pf.log_weights, node.pf.grids)
+        if resumed != whole or node.pf.generator.device != self.dev:
+            raise AssertionError(f"checkpoint resume {resumed} != {whole}")
+        emit("checkpoint", seconds=time.perf_counter() - t0, P=self.r.P,
+             updates=[10, 10], generator=str(node.pf.generator.device),
+             digest_uninterrupted=whole, digest_resumed=resumed)
+
+
 def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
     """Device µs per call (torch.profiler over 50 calls, after 5) of K1 with
     in-kernel Philox at K=4,096 and 49,152, N=50, without obstacles, with
@@ -1938,6 +2751,11 @@ def main() -> int:
     ekf.dense()
     ekf.times()
     ekf.profile()
+    graphs = Graphs(smoke, rbpf, ekf)
+    graphs.node_course()
+    graphs.slam_nodes()
+    graphs.two_process()
+    graphs.checkpoint()
     kernel_times(smoke, rbpf, obst)
 
     main_row = smoke.timing[0]
@@ -1954,6 +2772,8 @@ def main() -> int:
         "bound_ms": k1_ms, "bound_by": k1_by, "library_ms": None,
         "launches_ekf_course": ekf.k1_course,
         "launches_dense_world": ekf.k1_dense,
+        "launches_node_course": graphs.k1_course,
+        "launches_slam_nodes": graphs.slam_counts["K1"],
     }]
     for key, name, source, replaces in [
             ("K2", "likelihood_field (K2)", "likelihood.cu",
@@ -1969,7 +2789,8 @@ def main() -> int:
             "replaces": replaces, "launches": rbpf.counts[key],
             "max_abs_err": rbpf.max_err[key], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None})
+            "bound_by": row["bound_by"], "library_ms": None,
+            "launches_slam_nodes": graphs.slam_counts[key]})
     obst_row = obst.timing[0]                  # K=4,096, O=4: the course's
     ob_ms, ob_by = bound(*k1_work(obst_row["K"], obst_row["N"],
                                   obst_row["O"]))

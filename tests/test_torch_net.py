@@ -1,0 +1,134 @@
+"""The port's TCP bus (``runtime/net.py``, a copy of ``tpunav``'s with the
+accept-loop repair) and the node graph across two OS processes.
+
+The two-process graph is ``chip_smoke.py``'s counterpart of
+examples/full_stack_two_process.py, run here on the CPU: the robot
+(plant, turtle_interface, odometer, landmark sensor) in one process and
+the laptop (PRM + Theta*, EKF SLAM, the MPPI driver through K1's plain
+version at K=128) in another, lockstep over the bus, against the same
+graph in one process.
+"""
+
+import socket
+import time
+
+import numpy as np
+
+import chip_smoke
+from tpunav_torch.runtime.net import BusClient, BusServer, wait_for_new
+
+
+def test_bus_latest_wins_and_latched():
+    srv = BusServer()
+    try:
+        a = BusClient(srv.host, srv.port)
+        b = BusClient(srv.host, srv.port)
+        pub, sub = a.advertise("t"), b.subscribe("t")
+        pub.publish(np.array([1.0]))
+        pub.publish(np.array([2.0]))
+        val, seq = wait_for_new(sub, 1, timeout=5)
+        assert seq == 2
+        np.testing.assert_array_equal(val, [2.0])
+        v, s = sub.take_new(seq)
+        assert v is None and s == seq
+        # A late subscriber receives the latest value at once.
+        c = BusClient(srv.host, srv.port)
+        val, seq = wait_for_new(c.subscribe("t"), 0, timeout=5)
+        assert seq == 2
+        np.testing.assert_array_equal(val, [2.0])
+        for cl in (a, b, c):
+            cl.close()
+    finally:
+        srv.close()
+
+
+def test_bus_payloads_are_arrays_and_tuples():
+    srv = BusServer()
+    try:
+        a = BusClient(srv.host, srv.port)
+        b = BusClient(srv.host, srv.port)
+        sub, pub = b.subscribe("mixed"), a.advertise("mixed")
+        payload = (np.arange(6.0).reshape(2, 3), (3, 4), "joints",
+                   np.array([1, -1], np.int8))
+        pub.publish(payload)
+        val, _ = wait_for_new(sub, 0, timeout=5)
+        np.testing.assert_array_equal(val[0], payload[0])
+        assert val[1] == (3, 4) and val[2] == "joints"
+        assert val[3].dtype == np.int8
+        a.close()
+        b.close()
+    finally:
+        srv.close()
+
+
+def test_bus_burst_coalesces_to_latest():
+    """A fast burst coalesces in the per-connection outbox: the subscriber
+    converges on the final value and seq."""
+    srv = BusServer()
+    try:
+        a = BusClient(srv.host, srv.port)
+        b = BusClient(srv.host, srv.port)
+        sub, pub = b.subscribe("burst"), a.advertise("burst")
+        n = 500
+        for i in range(n):
+            pub.publish(np.array([float(i)]))
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline and sub.seq < n:
+            time.sleep(0.002)
+        assert sub.seq == n
+        np.testing.assert_array_equal(sub.latest(), [float(n - 1)])
+        a.close()
+        b.close()
+    finally:
+        srv.close()
+
+
+def test_bus_server_close_unblocks_clients():
+    """close() closes the accepted connections. One publish → wait_for_new
+    round trip first, so the server has registered the connection."""
+    srv = BusServer()
+    a = BusClient(srv.host, srv.port)
+    b = BusClient(srv.host, srv.port)
+    sub = a.subscribe("t")
+    b.advertise("t").publish(np.zeros(1))
+    wait_for_new(sub, 0, timeout=5)      # forwarded to a: a is registered
+    srv.close()
+    for cl in (a, b):
+        cl._recv_thread.join(timeout=5.0)
+        assert not cl._recv_thread.is_alive()
+        cl.close()
+
+
+def test_bus_connection_accepted_after_close_is_closed():
+    """A connection the accept loop takes once close() has stopped the
+    server (before the listener is shut) is closed at once: its client
+    sees EOF, and the server does not keep it."""
+    srv = BusServer()
+    try:
+        with srv._lock:
+            srv._running = False          # close()'s first step
+        sock = socket.create_connection((srv.host, srv.port))
+        try:
+            sock.settimeout(5.0)
+            assert sock.recv(1) == b""    # EOF, not a hang
+            assert not srv._conns
+        finally:
+            sock.close()
+    finally:
+        srv.close()
+    srv._accept_thread.join(timeout=5.0)
+    assert not srv._accept_thread.is_alive()
+
+
+def test_two_process_lockstep_matches_single_process(tmp_path):
+    """80 lockstep cycles across two processes equal the single-process run
+    of the same graph within 1e-9 (tests/test_net.py:114-115's bar), and
+    the robot moves more than 5 cm."""
+    truth2, slam2, steady = chip_smoke.fs_run_two_process(
+        str(tmp_path), 80, 128, "cpu")
+    truth1, slam1 = chip_smoke.fs_run_single(80, 128, "cpu")
+    assert truth2.shape == truth1.shape == (80, 3)
+    assert np.max(np.abs(truth2 - truth1)) < 1e-9
+    assert np.max(np.abs(slam2 - slam1)) < 1e-9
+    assert np.linalg.norm(truth2[-1][1:]) > 0.05
+    assert steady > 0

@@ -465,6 +465,36 @@ def _entry_points():
         "pf_state_from_numpy": lambda: interop.pf_state_from_numpy(
             {n: np.zeros(()) for n in _STATE}),
         "se2.identity": lambda: se2.identity(),
+        **_node_entry_points(pcfg),
+    }
+
+
+def _node_entry_points(pcfg):
+    """The runtime's node constructors that create state on a device."""
+    from tpunav_torch.core import diff_drive as dd
+    from tpunav_torch.estimation.ekf import EKFConfig
+    from tpunav_torch.estimation.landmarks import LandmarkConfig
+    from tpunav_torch.runtime import nodes, slam_nodes
+    from tpunav_torch.runtime.channels import Channel
+    from tpunav_torch.sim.tsim import TurtleWay
+
+    p = dd.TURTLEBOT3
+
+    def ch(n):
+        return [Channel() for _ in range(n)]
+
+    return {
+        "OdometerNode": lambda: nodes.OdometerNode(p, *ch(2)),
+        "FakeDiffEncodersNode": lambda: nodes.FakeDiffEncodersNode(p, *ch(2)),
+        "TurtleInterfaceNode": lambda: nodes.TurtleInterfaceNode(p, *ch(4)),
+        "LandmarksNode": lambda: slam_nodes.LandmarksNode(LandmarkConfig(),
+                                                          *ch(2)),
+        "EkfSlamNode": lambda: slam_nodes.EkfSlamNode(EKFConfig(), p,
+                                                      *ch(4)),
+        "RbpfMappingNode": lambda: slam_nodes.RbpfMappingNode(pcfg, p,
+                                                              *ch(4)),
+        "TurtleWay": lambda: TurtleWay([(0.0, 0.0), (1.0, 0.0)], 1.0, 0.5,
+                                       60.0, *ch(2)),
     }
 
 

@@ -6,7 +6,9 @@ find. It imports ``torch``, ``numpy`` and ``yaml``, never ``jax`` or
 ``tpunav``. Four paths are ported: the MPPI waypoint course, the
 obstacle-aware MPPI course of BASELINE config 2 (planner-fed, with K1's
 obstacle mode), EKF SLAM closing the MPPI loop (BASELINE configs 3 and 4,
-with the lidar circle detector), and RBPF grid SLAM:
+with the lidar circle detector), and RBPF grid SLAM, and the host runtime
+that runs them as the reference's node graph, in one process or across
+two over a TCP bus:
 
 - ``tpunav_torch.core``        angle wrapping, SE(2), diff-drive kinematics,
                                waypoint controllers, random draws
@@ -24,9 +26,16 @@ with the lidar circle detector), and RBPF grid SLAM:
 - ``tpunav_torch.estimation``  EKF SLAM (known and unknown data
                                association), the lidar circle detector, and
                                the RBPF: grids, ICP, the particle filter
-- ``tpunav_torch.sim``         wheel-motor dynamics, the landmark sensor and
-                               the simulated lidar
-- ``tpunav_torch.runtime``     YAML configuration loaders
+- ``tpunav_torch.sim``         wheel-motor dynamics, the landmark sensor,
+                               the simulated lidar, the diff-drive plant
+                               and the tsim course controllers
+- ``tpunav_torch.runtime``     channels, the virtual-time scheduler, the
+                               reference's nodes and SLAM nodes, the TCP
+                               bus, YAML configuration loaders, metrics,
+                               checkpoints and profiling
+- ``tpunav_torch.robot_model`` the robot's link tree (the URDF equivalent)
+- ``tpunav_torch.viz``         matplotlib drawing of maps, paths and the
+                               robot
 - ``tpunav_torch.interop``     configuration, state and roadmaps carried
                                across from ``tpunav`` as numpy
 - ``tpunav_torch.device``      the CUDA default of every entry point and

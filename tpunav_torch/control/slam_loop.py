@@ -31,7 +31,9 @@ from ..estimation.ekf.filter import (EKFConfig, EKFState, ekf_init,
                                      known_correspondence_slam, robot_pose,
                                      slam_unknown_da)
 from ..models.cart import CartParams, kinematic_cart
-from ..ops.fused_mppi import mppi_solve_fused_packed
+# A module import: ops.fused_mppi imports control.mppi, so a name import
+# here would fail when ops.fused_mppi is imported first.
+from ..ops import fused_mppi
 from ..ops.rk4 import rk4_step
 from ..sim.landmark_sensor import landmark_measurements
 from .mppi import MPPIConfig, init_controls, mppi_solve
@@ -133,8 +135,8 @@ def slam_loop_tick(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
 
     if cfg.use_fused:
         seed = cfg.fused_seed + st.ticks              # int32, on the device
-        cmd, u = mppi_solve_fused_packed(mppi_cfg, model, st.u, seed,
-                                         est_xyt, wpt, noise)
+        cmd, u = fused_mppi.mppi_solve_fused_packed(
+            mppi_cfg, model, st.u, seed, est_xyt, wpt, noise)
     else:
         cmd, u = mppi_solve(mppi_cfg, model, st.u, st.generator, est_xyt,
                             wpt, noise=None if noise is None

@@ -24,7 +24,9 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve
 from ..models.cart import CartParams, kinematic_cart
-from ..ops.fused_mppi import mppi_solve_fused_packed, pack_obstacles
+# A module import: ops.fused_mppi imports control.mppi, so a name import
+# here would fail when ops.fused_mppi is imported first.
+from ..ops import fused_mppi
 from ..ops.rk4 import rk4_step
 from ..sim.motor import MotorParams, track
 from .mppi import MPPIConfig, init_controls, mppi_solve
@@ -96,7 +98,7 @@ def _obstacle_table(course: CourseConfig, st: CourseState, extra_cost,
         raise ValueError(
             "obstacles/obs_cfg are fused-kernel only; with use_fused=False "
             "pass extra_cost (control/obstacle_cost.py)")
-    return pack_obstacles(obstacles, obs_cfg, st.pose.device)
+    return fused_mppi.pack_obstacles(obstacles, obs_cfg, st.pose.device)
 
 
 def course_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
@@ -132,8 +134,8 @@ def _tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
 
     if course.use_fused:
         seed = course.fused_seed + st.ticks          # int32, on the device
-        cmd, u = mppi_solve_fused_packed(cfg, model, st.u, seed, st.pose,
-                                         wpt, noise, table)
+        cmd, u = fused_mppi.mppi_solve_fused_packed(
+            cfg, model, st.u, seed, st.pose, wpt, noise, table)
     else:
         cmd, u = mppi_solve(cfg, model, st.u, st.generator, st.pose, wpt,
                             extra_cost, noise=None if noise is None

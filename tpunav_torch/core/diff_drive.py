@@ -88,15 +88,23 @@ def _wrap_heading(pose):
                      dim=-1)
 
 
+def _like(v, ref):
+    """``v`` on ``ref``'s device and dtype. A host number is copied without
+    waiting for the device's queue: ``torch.as_tensor(v, device=cuda)``
+    would block, and the runtime's nodes call this on every message."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=ref.device, dtype=ref.dtype)
+    return torch.as_tensor(v, dtype=ref.dtype).to(ref.device,
+                                                  non_blocking=True)
+
+
 def update_odometry(params: DiffDriveParams, state: DiffDriveState,
                     left, right):
     """Advance the pose from new absolute encoder angles. Returns
     (new_state, wheel_vel), wheel_vel the wrapped encoder delta
     (ref: DiffDrive::updateOdometry diff_drive.cpp:97-150)."""
-    left = torch.as_tensor(left, dtype=state.left.dtype,
-                           device=state.left.device)
-    right = torch.as_tensor(right, dtype=state.right.dtype,
-                            device=state.right.device)
+    left = _like(left, state.left)
+    right = _like(right, state.right)
     dul = normalize_angle_pi(left - state.left)
     dur = normalize_angle_pi(right - state.right)
     wheel_vel = torch.stack([dul, dur], dim=-1)

@@ -1,5 +1,13 @@
-"""Host runtime: configuration loaders
-(counterpart: ``tpunav/runtime/__init__.py``)."""
+"""Host runtime: channels, node scheduler, nodes, the TCP bus, config,
+metrics, checkpoints and profiling (counterpart:
+``tpunav/runtime/__init__.py``, without ``distributed`` and ``cache``).
+
+Replaces the reference's ROS1 substrate (SURVEY.md §2.7, L1/L4/L5):
+roscpp pub/sub topics → in-process latest-wins channels (and
+``runtime.net``'s bus across processes); roslaunch/rosparam → typed
+config dataclasses + YAML; ros::Rate loops → a deterministic virtual-time
+scheduler (or wall-clock); rosbag-less state → state checkpoints.
+"""
 
 from .config import (  # noqa: F401
     LidarConfig,
@@ -13,3 +21,9 @@ from .config import (  # noqa: F401
     load_yaml_config,
     save_yaml_config,
 )
+from .channels import Channel, Node, Scheduler  # noqa: F401
+from . import nodes  # noqa: F401
+from . import slam_nodes  # noqa: F401
+from .checkpoint import load_pytree, save_pytree  # noqa: F401
+from .metrics import Metrics, PoseError  # noqa: F401
+from .profiling import SolveProfiler, annotate, trace  # noqa: F401
