@@ -35,6 +35,11 @@ drives the port's paths:
   CPU and the laptop on the card in two processes over the TCP bus,
   lockstep and free-running (``two_process``); and a checkpoint of the
   RBPF node's state (``checkpoint``);
+- the sharded paths (``tpunav_torch.parallel``, the :class:`Sharded`
+  phases) in spawned ranks: K-sharded MPPI through K1's partials in one
+  NCCL rank and in two gloo ranks sharing the card (``sharded_mppi``),
+  and P-sharded RBPF at config 5 through K2–K4 in two gloo ranks
+  (``sharded_rbpf``), each held against the unsharded path;
 
 and times every kernel beside its plain version. Each phase prints one
 JSON line; any failure raises and the script exits non-zero. It needs
@@ -1848,40 +1853,20 @@ def _fs_laptop_main(port, cycles, out_path, rollouts, device):
     client.close()
 
 
-def _spawn(targets, timeout):
-    """Start each (function, args) in a process of its own (spawn: the
-    children may use CUDA), join them all, and raise if one failed."""
-    import multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=fn, args=args) for fn, args in targets]
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(timeout=timeout)
-            if p.exitcode != 0:
-                raise AssertionError(f"{p.name} exit code {p.exitcode}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-
-
 def fs_run_two_process(out_dir, cycles, rollouts, device):
     """Robot and laptop in two OS processes over the TCP bus, in lockstep
     (each waits on the other's topic). Returns (truth, slam, the laptop's
     steady cycles/s over the bus)."""
+    from examples_torch import spawn
     from tpunav_torch.runtime.net import BusServer
 
     robot_out = os.path.join(out_dir, "robot.npz")
     laptop_out = os.path.join(out_dir, "laptop.npz")
     srv = BusServer()
     try:
-        _spawn([(_fs_robot_main, (srv.port, cycles, robot_out)),
-                (_fs_laptop_main, (srv.port, cycles, laptop_out, rollouts,
-                                   device))], timeout=600)
+        spawn([(_fs_robot_main, (srv.port, cycles, robot_out)),
+               (_fs_laptop_main, (srv.port, cycles, laptop_out, rollouts,
+                                  device))], timeout=600)
     finally:
         srv.close()
     lap = np.load(laptop_out)
@@ -1944,15 +1929,16 @@ def _fs_laptop_free(port, duration, out_path, rollouts, device):
 def fs_run_free(out_dir, duration, rollouts, device):
     """Both sides free-running for ``duration`` wall seconds; the joints and
     cmd_vel rates the robot saw and the laptop's ticks."""
+    from examples_torch import spawn
     from tpunav_torch.runtime.net import BusServer
 
     robot_out = os.path.join(out_dir, "robot_free.npz")
     laptop_out = os.path.join(out_dir, "laptop_free.npz")
     srv = BusServer()
     try:
-        _spawn([(_fs_robot_free, (srv.port, duration, robot_out)),
-                (_fs_laptop_free, (srv.port, duration, laptop_out, rollouts,
-                                   device))], timeout=600)
+        spawn([(_fs_robot_free, (srv.port, duration, robot_out)),
+               (_fs_laptop_free, (srv.port, duration, laptop_out, rollouts,
+                                  device))], timeout=600)
     finally:
         srv.close()
     rob, lap = np.load(robot_out), np.load(laptop_out)
@@ -2454,6 +2440,310 @@ class Graphs:
              digest_uninterrupted=whole, digest_resumed=resumed)
 
 
+# ── The sharded paths (tpunav_torch.parallel), ranks spawned on the card ──
+
+SHARD_SOLVES = 20           # the chained solves of sharded_mppi (a)
+SHARD_UPDATES = 40          # the RBPF updates of sharded_rbpf (a)
+
+
+def card_noise(cfg, seed: int):
+    """(N, K, 2) scaled perturbations from a card generator seeded with
+    ``seed``: the same bits in every process on the card."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    sig = torch.tensor([cfg.ul_var, cfg.ur_var]).sqrt().to(dev)
+    return torch.randn((cfg.steps, cfg.rollouts, 2), generator=gen,
+                       device=dev) * sig
+
+
+def ulps_apart(a, b) -> float:
+    """max |a − b| in float32 spacings at the larger magnitude."""
+    a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+    spacing = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32))
+    return float((np.abs(a - b) / spacing).max())
+
+
+def _shard_nccl_chain(mesh, device, solves):
+    """sharded_mppi (a), on one NCCL rank: the fused sharded solve at
+    K=4,096 (K1's partials, one MIN and one SUM over the group) chained
+    ``solves`` times; each solve held against mppi_solve_fused on the same
+    controls and seed. Counts K1 solves of the sharded calls only, all and
+    those in obstacle mode."""
+    import torch.distributed as dist
+
+    from tpunav_torch.parallel import mppi_solve_fused_sharded
+
+    smoke = Smoke()
+    fm = smoke.fm
+    cfg = smoke.cfg(4096)
+    u, pose, xd, _ = smoke.tensors(cfg, u_off=(0.5, -0.2))
+    solve = mppi_solve_fused_sharded(cfg, smoke.model, mesh)
+    launches, obstacle, unequal, ulps, abs_err = 0, 0, 0, 0.0, 0.0
+    for i in range(solves):
+        before, before_obs = fm.KERNEL_LAUNCHES, fm.OBSTACLE_LAUNCHES
+        got = solve(u, 7 + i, pose, xd)
+        launches += fm.KERNEL_LAUNCHES - before
+        obstacle += fm.OBSTACLE_LAUNCHES - before_obs
+        want = fm.mppi_solve_fused(cfg, smoke.model, u, 7 + i, pose, xd)
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                unequal += 1
+                ulps = max(ulps, ulps_apart(a, b))
+                abs_err = max(abs_err, float((a - b).abs().max()))
+        u = got[1]
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError("non-finite controls from the sharded chain")
+    return {"backend": dist.get_backend(), "ranks": mesh.size,
+            "k1_solves": launches, "k1_obstacle_solves": obstacle,
+            "unequal_outputs": unequal,
+            "max_ulps": ulps, "max_abs_diff": abs_err}
+
+
+def _shard_gloo_solves(mesh, device):
+    """sharded_mppi (b) and (d), on each of two gloo ranks: the fused
+    sharded solve at K=196,608 (98,304 per rank) on this rank's columns of
+    the global injected noise, and the plain sharded solve at K=4,096 on
+    its rows. Returns the update rows (cmd, then u_next[:-1]) and the K1
+    solves of each, all and those in obstacle mode."""
+    from tpunav_torch.parallel import (mppi_solve_fused_sharded,
+                                       mppi_solve_sharded)
+
+    smoke = Smoke()
+    out = {}
+    for name, k, fused in (("k196608", 196608, True),
+                           ("plain_k4096", 4096, False)):
+        cfg = smoke.cfg(k)
+        u, pose, xd, _ = smoke.tensors(cfg)
+        z = card_noise(cfg, k)
+        cols = slice(mesh.index * k // mesh.size,
+                     (mesh.index + 1) * k // mesh.size)
+        before = smoke.fm.KERNEL_LAUNCHES
+        before_obs = smoke.fm.OBSTACLE_LAUNCHES
+        if fused:
+            cmd, un = mppi_solve_fused_sharded(cfg, smoke.model, mesh)(
+                u, 0, pose, xd, noise=z[:, cols].contiguous())
+        else:
+            cmd, un = mppi_solve_sharded(cfg, smoke.model, mesh)(
+                u, z[:, cols].transpose(0, 1).contiguous(), pose, xd)
+        out[name] = torch.cat([cmd[None], un[:-1]]).cpu().numpy()
+        out[name + "_k1_solves"] = smoke.fm.KERNEL_LAUNCHES - before
+        out[name + "_k1_obstacle_solves"] = (smoke.fm.OBSTACLE_LAUNCHES
+                                             - before_obs)
+    return out
+
+
+def _shard_rbpf_course(mesh, device, updates):
+    """sharded_rbpf (a), on each of two gloo ranks: config 5's course
+    (Rbpf.course_inputs) through pf_slam_step_sharded at P/2 particles per
+    rank, drawing from the replicated generator. Returns this rank's K1
+    (all, and in obstacle mode), K2, K3 and K4 launches over the updates,
+    the resampling events (an update whose previous poses are not the
+    poses it started from), ms per update, the exchange's all-gather ms,
+    whether the fields are K4 of the grids, a digest of the gathered state,
+    and on rank 0 the gathered poses, log-weights and grids."""
+    from tpunav_torch import interop
+    from tpunav_torch.ops import fused_mppi
+    from tpunav_torch.parallel import pf_init_sharded, pf_slam_step_sharded
+
+    rb = Rbpf("")
+    u, scans, odoms, prevs = rb.course_inputs()
+    cfg = rb.cfg
+    st = pf_init_sharded(cfg, mesh, seed=0, device=device)
+    step = pf_slam_step_sharded(cfg, mesh)
+    flags = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(updates):
+        start = st.poses
+        st = step(st, scans[i], u, odoms[i], prevs[i])
+        flags.append((st.prev_poses != start).any())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    k1_obstacle = fused_mppi.OBSTACLE_LAUNCHES
+    events = int((mesh.sum_(torch.stack(flags).to(torch.int32)) > 0).sum())
+    edt = torch.equal(st.dists, rb.mu.edt_batch(cfg.grid, st.grids))
+    # The exchange's one all-gather, on a buffer of its shape: the local
+    # rows' [pose, previous pose, grid] side by side.
+    g = cfg.grid
+    packed = torch.zeros((cfg.num_particles // mesh.size,
+                          6 + g.height * g.width), device=device)
+    mesh.all_gather(packed)
+    torch.cuda.synchronize()
+    t1, reps = time.perf_counter(), 20
+    for _ in range(reps):
+        mesh.all_gather(packed)
+    torch.cuda.synchronize()
+    gather_ms = 1e3 * (time.perf_counter() - t1) / reps
+    whole = interop.pf_state_gather_to_numpy(st, mesh)
+    out = {"launches": counts, "k1_obstacle": k1_obstacle,
+           "events": events, "dists_are_edt": edt,
+           "ms_per_update": 1e3 * secs / updates, "exchange_ms": gather_ms,
+           "exchange_mb": 4 * cfg.num_particles * (6 + g.height * g.width)
+           / 1e6,
+           "digest": hashlib.sha256(b"".join(
+               whole[n].tobytes() for n in sorted(whole))).hexdigest()[:16]}
+    if mesh.index == 0:
+        out.update({n: whole[n] for n in ("poses", "log_weights", "grids")})
+    return out
+
+
+class Sharded:
+    """The sharded paths on the card: ``tpunav_torch.parallel`` through
+    ``runtime.distributed``, in ranks spawned by ``examples_torch.launch``.
+    One NCCL rank owns the card alone; two ranks share it under gloo (NCCL
+    refuses two ranks on one device), so nothing here measures scaling."""
+
+    def __init__(self, smoke: Smoke, rbpf: Rbpf):
+        self.s, self.r = smoke, rbpf
+        self.launches = {}
+
+    def mppi(self):
+        from examples_torch import launch, mppi_two_process
+
+        t0 = time.perf_counter()
+        s = self.s
+        (a,) = launch(_shard_nccl_chain, (SHARD_SOLVES,), world=1,
+                      device="cuda", backend="nccl", timeout=300)
+        if a["k1_solves"] != SHARD_SOLVES:
+            raise AssertionError(f"(a) {a['k1_solves']} K1 solves for "
+                                 f"{SHARD_SOLVES} sharded solves")
+        if a["unequal_outputs"] and not a["max_ulps"] <= 2.0:
+            raise AssertionError(f"(a) one NCCL rank vs mppi_solve_fused: "
+                                 f"{a['max_ulps']} ulps")
+
+        ranks = launch(_shard_gloo_solves, (), world=2, device="cuda",
+                       backend="gloo", timeout=300)
+        for key in ("k196608", "plain_k4096"):
+            if not np.array_equal(ranks[0][key], ranks[1][key]):
+                raise AssertionError(f"({key}) the ranks' controls differ")
+        cases = {}
+        for key, k, bar in (("k196608", 196608, BAR),
+                            ("plain_k4096", 4096, 1e-5)):
+            cfg = s.cfg(k)
+            u, pose, xd, _ = s.tensors(cfg)
+            z = card_noise(cfg, k)
+            if key == "k196608":
+                cmd, un = s.fm.mppi_solve_fused(cfg, s.model, u, 0, pose, xd,
+                                                noise=z)
+            else:
+                cmd, un = s.mppi.mppi_solve(cfg, s.model, u, None, pose, xd,
+                                            noise=z.transpose(0, 1))
+            got = torch.from_numpy(ranks[0][key]).to(s.dev)
+            err, exempt, err_all = gate_rows(
+                s.mppi, cfg, s.model, got, torch.cat([cmd[None], un[:-1]]),
+                u, pose, xd, z, None, f"sharded_mppi {key}", bar=bar)
+            cases[key] = {"K": k, "bar": bar, "max_abs_err": err,
+                          "exempt_rows": exempt, "max_abs_err_all": err_all,
+                          "k1_solves_per_rank": [r[key + "_k1_solves"]
+                                                 for r in ranks]}
+        if cases["k196608"]["k1_solves_per_rank"] != [1, 1]:
+            raise AssertionError(f"(b) K1 solves {cases['k196608']}")
+
+        c = mppi_two_process.launcher("cuda", "gloo", timeout=300)
+        if [r["k1_launches"] for r in c] != [SHARD_SOLVES] * 2:
+            raise AssertionError(f"(c) K1 solves {[r['k1_launches'] for r in c]}")
+        # K1's counts per phase and rank, all solves and those in obstacle
+        # mode (no sharded phase passes obstacles: that count reads 0).
+        self.launches["K1"] = {
+            "sharded_mppi_nccl_1rank": [a["k1_solves"]],
+            "sharded_mppi_k196608_2ranks": cases["k196608"][
+                "k1_solves_per_rank"],
+            "mppi_two_process_2ranks": [r["k1_launches"] for r in c]}
+        self.launches["K1_obstacle"] = {
+            "sharded_mppi_nccl_1rank": [a["k1_obstacle_solves"]],
+            "sharded_mppi_k196608_2ranks": [
+                r["k196608_k1_obstacle_solves"] for r in ranks],
+            "mppi_two_process_2ranks": [r["k1_obstacle_launches"]
+                                        for r in c]}
+        emit("sharded_mppi", seconds=time.perf_counter() - t0, card=s.card,
+             nccl_one_rank={"K": 4096, "N": 50, "solves": SHARD_SOLVES,
+                            **a},
+             gloo_two_ranks=cases,
+             two_process_course={
+                 "K": mppi_two_process.ROLLOUTS, "solves": SHARD_SOLVES,
+                 "solves_per_s_per_rank": [r["solves_per_sec"] for r in c],
+                 "k1_solves_per_rank": [r["k1_launches"] for r in c],
+                 "ranks_bit_identical": True},
+             note="two ranks share one card: no rate here is a scaling "
+                  "number")
+
+    def rbpf(self):
+        from examples_torch import launch, rbpf_two_process
+
+        t0 = time.perf_counter()
+        r = self.r
+        ranks = launch(_shard_rbpf_course, (SHARD_UPDATES,), world=2,
+                       device="cuda", backend="gloo", timeout=400)
+        if ranks[0]["digest"] != ranks[1]["digest"]:
+            raise AssertionError("the ranks' gathered states differ")
+        want_counts = {"K1": 0, "K2": SHARD_UPDATES, "K3": SHARD_UPDATES,
+                       "K4": SHARD_UPDATES}
+        for rk in ranks:
+            if rk["launches"] != want_counts:
+                raise AssertionError(f"launches {rk['launches']}, expected "
+                                     f"{want_counts} per rank")
+            if not rk["dists_are_edt"]:
+                raise AssertionError("fields are not K4 of the grids")
+
+        # The unsharded filter on the same course and the same draws.
+        u, scans, odoms, prevs = r.course_inputs()
+        st = r.pf.pf_init(r.cfg, seed=0, device=r.dev)
+        events = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(SHARD_UPDATES):
+            start = st.poses
+            st = r.pf.pf_slam_step(r.cfg, st, scans[i], u, odoms[i],
+                                   prevs[i])
+            events += int((st.prev_poses != start).any())
+        one_ms = 1e3 * (time.perf_counter() - t1) / SHARD_UPDATES
+        diffs = {}
+        for name, bar in (("poses", 1e-4), ("log_weights", 1e-3),
+                          ("grids", 1e-3)):
+            d = float(np.abs(ranks[0][name] -
+                             getattr(st, name).cpu().numpy()).max())
+            diffs[name] = d
+            if not d <= bar:
+                raise AssertionError(f"sharded vs unsharded {name}: {d} > "
+                                     f"{bar}")
+        if ranks[0]["events"] != events:
+            raise AssertionError(f"resampling events {ranks[0]['events']} "
+                                 f"sharded, {events} unsharded")
+
+        a, b = rbpf_two_process.launcher("cuda", "gloo", timeout=300)
+        self.launches["K1"]["sharded_rbpf_2ranks"] = [
+            rk["launches"]["K1"] for rk in ranks]
+        self.launches["K1_obstacle"]["sharded_rbpf_2ranks"] = [
+            rk["k1_obstacle"] for rk in ranks]
+        self.launches.update({key: {
+            "sharded_rbpf_2ranks": [rk["launches"][key] for rk in ranks],
+            "rbpf_two_process_2ranks": [x["launches"][i] for x in (a, b)]}
+            for i, key in enumerate(("K2", "K3", "K4"))})
+        emit("sharded_rbpf", seconds=time.perf_counter() - t0, card=r.card,
+             P=r.P, per_rank=r.P // 2, k=r.K,
+             map=[r.g80.height, r.g80.width], beams=r.g80.num_beams,
+             updates=SHARD_UPDATES, max_abs_diff=diffs,
+             bars={"poses": 1e-4, "log_weights": 1e-3, "grids": 1e-3},
+             resampling_events={"sharded": ranks[0]["events"],
+                                "unsharded": events},
+             launches_per_rank=[rk["launches"] for rk in ranks],
+             ms_per_update_per_rank=[rk["ms_per_update"] for rk in ranks],
+             ms_per_update_unsharded=one_ms,
+             exchange_ms_per_update=[rk["exchange_ms"] for rk in ranks],
+             exchange_mb=ranks[0]["exchange_mb"],
+             fields_are_k4_of_grids=True, ranks_bit_identical=True,
+             forced_resample={"clones": a["clones"],
+                              "particles": rbpf_two_process.P_TOTAL,
+                              "ranks_bit_identical": True,
+                              "launches_per_rank": [a["launches"],
+                                                    b["launches"]]},
+             note="two ranks share one card through gloo's host staging: "
+                  "no rate here is a scaling number")
+
+
 def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
     """Device µs per call (torch.profiler over 50 calls, after 5) of K1 with
     in-kernel Philox at K=4,096 and 49,152, N=50, without obstacles, with
@@ -2549,22 +2839,24 @@ def wall_clearance(poses) -> float:
     return float(d.min())
 
 
-def gate_rows(mppi, cfg, model, got, plain, u, pose, xd, noise, cost, what):
+def gate_rows(mppi, cfg, model, got, plain, u, pose, xd, noise, cost, what,
+              bar=BAR):
     """K1's update rows (cmd, then u_next[:-1]) against its plain
-    version's: a row may lie above BAR only where the float64 solve shows a
-    near-tie (``rounding_slack``). Returns (max |Δ| over the other rows,
-    exempt rows, max |Δ| over all rows); raises on a row that is neither."""
+    version's: a row may lie above ``bar`` only where the float64 solve
+    shows a near-tie (``rounding_slack``). Returns (max |Δ| over the other
+    rows, exempt rows, max |Δ| over all rows); raises on a row that is
+    neither."""
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite controls from the kernel")
     if float(got.abs().max()) > cfg.max_wheel_vel:
         raise AssertionError(f"{what}: controls not clamped")
     tie, slack = rounding_slack(mppi, cfg, model, u, pose, xd, noise, cost)
     err = (got - plain).abs().cpu().numpy()
-    bad = (err > BAR).any(axis=1)
-    ok = tie | (err <= BAR + slack).all(axis=1)
+    bad = (err > bar).any(axis=1)
+    ok = tie | (err <= bar + slack).all(axis=1)
     if not ok[bad].all():
         rows = np.nonzero(bad & ~ok)[0].tolist()
-        raise AssertionError(f"{what} vs plain: rows {rows} above {BAR}")
+        raise AssertionError(f"{what} vs plain: rows {rows} above {bar}")
     kept = err[~bad]
     return (float(kept.max()) if kept.size else 0.0, int(bad.sum()),
             float(err.max()))
@@ -2649,6 +2941,7 @@ def reset_counts() -> None:
     from tpunav_torch.ops import fused_mppi, likelihood, map_update
 
     fused_mppi.KERNEL_LAUNCHES = 0
+    fused_mppi.OBSTACLE_LAUNCHES = 0
     likelihood.LIK_LAUNCHES = 0
     map_update.MAP_LAUNCHES = 0
     map_update.EDT_LAUNCHES = 0
@@ -2756,6 +3049,9 @@ def main() -> int:
     graphs.slam_nodes()
     graphs.two_process()
     graphs.checkpoint()
+    sharded = Sharded(smoke, rbpf)
+    sharded.mppi()
+    sharded.rbpf()
     kernel_times(smoke, rbpf, obst)
 
     main_row = smoke.timing[0]
@@ -2774,6 +3070,7 @@ def main() -> int:
         "launches_dense_world": ekf.k1_dense,
         "launches_node_course": graphs.k1_course,
         "launches_slam_nodes": graphs.slam_counts["K1"],
+        "launches_sharded": sharded.launches["K1"],
     }]
     for key, name, source, replaces in [
             ("K2", "likelihood_field (K2)", "likelihood.cu",
@@ -2790,7 +3087,8 @@ def main() -> int:
             "max_abs_err": rbpf.max_err[key], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "launches_slam_nodes": graphs.slam_counts[key]})
+            "launches_slam_nodes": graphs.slam_counts[key],
+            "launches_sharded": sharded.launches[key]})
     obst_row = obst.timing[0]                  # K=4,096, O=4: the course's
     ob_ms, ob_by = bound(*k1_work(obst_row["K"], obst_row["N"],
                                   obst_row["O"]))
@@ -2800,7 +3098,8 @@ def main() -> int:
         "replaces": "tpunav/ops/pallas_mppi.py:149",
         "launches": obst.launches, "max_abs_err": obst.max_err,
         "ms": obst_row["kernel_ms"], "plain_ms": obst_row["plain_ms"],
-        "bound_ms": ob_ms, "bound_by": ob_by, "library_ms": None})
+        "bound_ms": ob_ms, "bound_by": ob_by, "library_ms": None,
+        "launches_sharded": sharded.launches["K1_obstacle"]})
     print(json.dumps({"kernels": kernels}))
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {

@@ -253,13 +253,17 @@ def test_set_initial_controls():
 # ------------------------------------------------------------ guards ----
 
 def test_port_imports_no_jax():
-    """Every module of the package imports without jax or tpunav."""
+    """Every module of the package, and the port's demos, import without
+    jax or tpunav."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tpunav_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    tpunav_torch.__path__, 'tpunav_torch.')]\n"
         "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for name in ('examples_torch', 'examples_torch.mppi_two_process',\n"
+        "             'examples_torch.rbpf_two_process'):\n"
         "    importlib.import_module(name)\n"
         "need = {'tpunav_torch.interop', 'tpunav_torch.ops.fused_mppi',\n"
         "        'tpunav_torch.ops.likelihood', 'tpunav_torch.ops.map_update',\n"
@@ -275,7 +279,11 @@ def test_port_imports_no_jax():
         "        'tpunav_torch.estimation.landmarks',\n"
         "        'tpunav_torch.sim.landmark_sensor',\n"
         "        'tpunav_torch.control.slam_loop',\n"
-        "        'tpunav_torch.runtime.config'}\n"
+        "        'tpunav_torch.runtime.config',\n"
+        "        'tpunav_torch.runtime.distributed',\n"
+        "        'tpunav_torch.parallel', 'tpunav_torch.parallel.mesh',\n"
+        "        'tpunav_torch.parallel.mppi_sharded',\n"
+        "        'tpunav_torch.parallel.rbpf_sharded'}\n"
         "assert need <= set(names), need - set(names)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpunav'))\n"

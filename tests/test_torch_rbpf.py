@@ -446,6 +446,7 @@ def test_lidar_yaml_loads_equal_in_both_packages():
 def _entry_points():
     from tpunav_torch.control import mppi
     from tpunav_torch.control.waypoint_loop import course_init
+    from tpunav_torch.parallel import pf_init_sharded, rollout_mesh
 
     cfg = mppi.MPPIConfig(horizon=0.1)
     pcfg = PFConfig(num_particles=2, k_samples=2, grid=GridConfig(**SMALL))
@@ -465,6 +466,9 @@ def _entry_points():
         "pf_state_from_numpy": lambda: interop.pf_state_from_numpy(
             {n: np.zeros(()) for n in _STATE}),
         "se2.identity": lambda: se2.identity(),
+        "rollout_mesh": lambda: rollout_mesh(),
+        "pf_init_sharded": lambda: pf_init_sharded(
+            pcfg, rollout_mesh(device="cpu")),
         **_node_entry_points(pcfg),
     }
 

@@ -8,7 +8,8 @@ obstacle-aware MPPI course of BASELINE config 2 (planner-fed, with K1's
 obstacle mode), EKF SLAM closing the MPPI loop (BASELINE configs 3 and 4,
 with the lidar circle detector), and RBPF grid SLAM, and the host runtime
 that runs them as the reference's node graph, in one process or across
-two over a TCP bus:
+two over a TCP bus, and MPPI and the RBPF sharded over the ranks of a
+``torch.distributed`` process group:
 
 - ``tpunav_torch.core``        angle wrapping, SE(2), diff-drive kinematics,
                                waypoint controllers, random draws
@@ -32,7 +33,12 @@ two over a TCP bus:
 - ``tpunav_torch.runtime``     channels, the virtual-time scheduler, the
                                reference's nodes and SLAM nodes, the TCP
                                bus, YAML configuration loaders, metrics,
-                               checkpoints and profiling
+                               checkpoints, profiling, and the process
+                               group's set-up (``distributed``)
+- ``tpunav_torch.parallel``    the shard axis over a process group, MPPI
+                               with K sharded (through K1's partials) and
+                               the RBPF with P sharded (K2–K4 on each
+                               rank's particles)
 - ``tpunav_torch.robot_model`` the robot's link tree (the URDF equivalent)
 - ``tpunav_torch.viz``         matplotlib drawing of maps, paths and the
                                robot

@@ -79,6 +79,11 @@ class PFState(NamedTuple):
     generator: torch.Generator  # the filter's random stream
 
 
+# The leaves with one row per particle; a sharded state splits them over
+# the shards and replicates the others.
+PARTICLE_LEAVES = ("poses", "prev_poses", "log_weights", "grids", "dists")
+
+
 class PFNoise(NamedTuple):
     """Standard normals for one update, in place of the state's generator:
     the proposal samples (P, k, 3), the final pose draw (P, 3), the
@@ -261,22 +266,16 @@ def _low_variance_resample(cfg: PFConfig, st: PFState, normal) -> PFState:
     return _gather(st, _resample_index(cfg, st.log_weights, normal))
 
 
-def pf_slam_step(cfg: PFConfig, st: PFState, ranges, u, cur_odom,
-                 prev_odom, noise: Optional[PFNoise] = None) -> PFState:
-    """One full RBPF SLAM update (ref: ParticleFilter::SLAM
-    particle_filter.cpp:141-251): ICP against the previous scan (odometry
-    initial guess) → per-particle pose proposal (Gaussian proposal on
-    success, motion model on failure) → per-particle map integration →
-    weight normalization → low-variance resampling where N_eff < P/2.
-
-    ranges: (B,); u: (2,) [w, vx]; cur_odom, prev_odom: (3,) — all float32
-    on the state's device. ``noise``: this update's normals (see
-    :class:`PFNoise`); with None they are drawn from ``st.generator``."""
+def _propose_and_integrate(cfg: PFConfig, st: PFState, ranges, u,
+                           cur_odom, prev_odom, noise: PFNoise,
+                           rows=slice(None)):
+    """The per-particle half of an update on the particles of ``st``, which
+    are the global particles ``rows``: ICP against the previous scan →
+    pose proposal (Gaussian proposal on success, motion model on failure)
+    → map integration. ``noise`` is the global draw; its ``rows`` are
+    used. Returns (new poses, unnormalised log-weights, grids, dists)."""
     gcfg = cfg.grid
-    p, k = cfg.num_particles, cfg.k_samples
-    if noise is None:
-        noise = draw_noise(cfg, st)
-
+    k = cfg.k_samples
     src, src_ok = scan_to_points(ranges, gcfg.range_min, gcfg.range_max,
                                  gcfg.beam_min, gcfg.beam_delta)
     dst, dst_ok = scan_to_points(st.prev_scan, gcfg.range_min,
@@ -289,13 +288,14 @@ def pf_slam_step(cfg: PFConfig, st: PFState, ranges, u, cur_odom,
     # Both branches of tpunav's lax.cond; the motion-model pose is sample
     # k+1 of the one likelihood sweep. Both kernels read one beam table.
     table = beam_table(gcfg, ranges)
-    samples = _draw_samples(cfg, st.poses, icp.transform, noise.samples)
-    motion = _sample_motion_model(cfg, st.poses, u, noise.motion)
+    samples = _draw_samples(cfg, st.poses, icp.transform, noise.samples[rows])
+    motion = _sample_motion_model(cfg, st.poses, u, noise.motion[rows])
     logp = likelihood_field_batch(
         gcfg, st.dists, ranges,
         torch.cat([samples, motion[:, None, :]], dim=1), table)  # (P, k+1)
     proposed, log_eta = _gaussian_from_samples(
-        cfg, samples, logp[:, :k], st.poses, cur_odom, prev_odom, noise.pose)
+        cfg, samples, logp[:, :k], st.poses, cur_odom, prev_odom,
+        noise.pose[rows])
     new_poses = torch.where(matcher_ok, proposed, motion)
     log_weights = st.log_weights + torch.where(matcher_ok, log_eta,
                                                logp[:, k])
@@ -303,15 +303,41 @@ def pf_slam_step(cfg: PFConfig, st: PFState, ranges, u, cur_odom,
     # Every particle integrates the scan into its own map (ref: :236-240).
     grids, dists = map_update_batch(gcfg, st.grids, ranges,
                                     new_poses.contiguous(), table)
+    return new_poses, log_weights, grids, dists
 
-    # Normalize + N_eff (ref: normalizeWeights/effectiveParticles
-    # :442-465), then resample as a gather: the identity where N_eff ≥ P/2.
+
+def _normalize_and_index(cfg: PFConfig, log_weights, normal):
+    """Normalize the (P,) log-weights and take N_eff (ref:
+    normalizeWeights/effectiveParticles :442-465); returns them with the
+    resample index: the systematic draw where N_eff < P/2, else the
+    identity."""
+    p = cfg.num_particles
     log_weights = log_weights - torch.logsumexp(log_weights, 0)
     w = torch.exp(log_weights)
     neff = 1.0 / torch.sum(w * w)
     idx = torch.where(neff < p / 2,
-                      _resample_index(cfg, log_weights, noise.resample),
+                      _resample_index(cfg, log_weights, normal),
                       torch.arange(p, device=w.device))
+    return log_weights, idx
+
+
+def pf_slam_step(cfg: PFConfig, st: PFState, ranges, u, cur_odom,
+                 prev_odom, noise: Optional[PFNoise] = None) -> PFState:
+    """One full RBPF SLAM update (ref: ParticleFilter::SLAM
+    particle_filter.cpp:141-251): ICP against the previous scan (odometry
+    initial guess) → per-particle pose proposal (Gaussian proposal on
+    success, motion model on failure) → per-particle map integration →
+    weight normalization → low-variance resampling where N_eff < P/2.
+
+    ranges: (B,); u: (2,) [w, vx]; cur_odom, prev_odom: (3,) — all float32
+    on the state's device. ``noise``: this update's normals (see
+    :class:`PFNoise`); with None they are drawn from ``st.generator``."""
+    if noise is None:
+        noise = draw_noise(cfg, st)
+    new_poses, log_weights, grids, dists = _propose_and_integrate(
+        cfg, st, ranges, u, cur_odom, prev_odom, noise)
+    log_weights, idx = _normalize_and_index(cfg, log_weights,
+                                            noise.resample)
     st = PFState(poses=new_poses, prev_poses=st.poses,
                  log_weights=log_weights, grids=grids, dists=dists,
                  prev_scan=ranges, has_prev=torch.ones_like(st.has_prev),

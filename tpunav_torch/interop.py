@@ -6,7 +6,8 @@ the configurations (``MPPIConfig``, ``CartParams``, ``MotorParams``,
 ``PFConfig`` with its ``GridConfig`` and ``ICPConfig``; ``EKFConfig``,
 ``SlamLoopConfig`` and ``LandmarkConfig`` with its ``LaserProps``) and
 their state is ``CourseState``, ``PFState``, ``EKFState``,
-``SlamLoopState`` or a planner's ``RoadMap``. Nothing here imports jax:
+``SlamLoopState`` or a planner's ``RoadMap``; a ``PFState`` also goes to
+and from the shards of a process group. Nothing here imports jax:
 the caller hands over plain dicts and numpy arrays.
 """
 
@@ -23,7 +24,8 @@ from .control.slam_loop import SlamLoopState
 from .control.waypoint_loop import CourseState
 from .device import DEFAULT_DEVICE, resolve
 from .estimation.ekf.filter import EKFState
-from .estimation.rbpf.particle_filter import PFState
+from .estimation.rbpf.particle_filter import PARTICLE_LEAVES, PFState
+from .parallel.mesh import ShardMesh
 from .planning.prm import RoadMap
 from .planning.world import ObstacleMap
 
@@ -100,6 +102,33 @@ def pf_state_to_numpy(st: PFState) -> Dict[str, np.ndarray]:
     behind)."""
     return {name: getattr(st, name).detach().cpu().numpy()
             for name in _PF_DTYPES}
+
+
+def pf_state_shard_from_numpy(d: Dict[str, Any], mesh: ShardMesh,
+                              device=DEFAULT_DEVICE,
+                              seed: int = 0) -> PFState:
+    """This rank's shard of a ``PFState`` given whole as numpy (the arrays
+    of :func:`pf_state_from_numpy`, P particles): its P/S rows of the
+    particle leaves, the previous scan and the flag replicated, the state
+    ``parallel.pf_slam_step_sharded`` takes."""
+    p = np.asarray(d["poses"]).shape[0]
+    if p % mesh.size != 0:
+        raise ValueError(f"{p} particles not divisible by {mesh.size} shards")
+    rows = slice(mesh.index * p // mesh.size,
+                 (mesh.index + 1) * p // mesh.size)
+    return pf_state_from_numpy(
+        {name: np.asarray(d[name])[rows] if name in PARTICLE_LEAVES
+         else d[name] for name in _PF_DTYPES}, device, seed)
+
+
+def pf_state_gather_to_numpy(st: PFState,
+                             mesh: ShardMesh) -> Dict[str, np.ndarray]:
+    """The whole state of a sharded ``PFState`` as numpy arrays, the
+    particle leaves gathered over ``mesh`` (a collective: every rank
+    calls it, and every rank gets the whole state)."""
+    return {name: (mesh.all_gather(getattr(st, name))
+                   if name in PARTICLE_LEAVES else getattr(st, name)
+                   ).detach().cpu().numpy() for name in _PF_DTYPES}
 
 
 def roadmap_from_numpy(obs_map: ObstacleMap, nodes, k_neighbors: int = 10,

@@ -17,7 +17,8 @@ cost-to-go stay in shared memory up to N = 256 steps, and beyond that in a
 
 A CPU tensor takes the plain version (``_solve_partials_reference`` then
 ``_combine_reference``, in the kernel's own decomposition); a CUDA tensor
-launches the kernel, or raises. ``KERNEL_LAUNCHES`` counts kernel solves.
+launches the kernel, or raises. ``KERNEL_LAUNCHES`` counts kernel solves,
+``OBSTACLE_LAUNCHES`` those of them in obstacle mode.
 
 Noise: ``noise=None`` draws in-kernel Philox4x32-10 keyed by the seed (the
 plain version replays the same stream from ``ops/philox.py``); an
@@ -52,6 +53,7 @@ _BLOCK = 32                 # rollouts per block of kernel A (a warp's lanes)
 _CHUNK = 64                 # steps per chunk of the horizon in kernel A
 _SMEM_HORIZON = 256         # longest horizon kept in shared memory
 KERNEL_LAUNCHES = 0         # kernel solves launched (one per solve)
+OBSTACLE_LAUNCHES = 0       # of those, the solves with obstacles (O > 0)
 
 
 class _KernelParams(ctypes.Structure):
@@ -249,7 +251,7 @@ def _combine_reference(cfg: MPPIConfig, u, parts, partial_out: bool):
 
 def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
             noise, table, partial_out: bool):
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, OBSTACLE_LAUNCHES
     lib = load()
     n, k = cfg.steps, cfg.rollouts
     n_obs = 0 if table is None else table.shape[0] - 1
@@ -273,6 +275,7 @@ def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
             parts.data_ptr(), out.data_ptr(), stream)
     check_launch(lib, err, "fused MPPI")
     KERNEL_LAUNCHES += 1
+    OBSTACLE_LAUNCHES += int(n_obs > 0)
     return out
 
 
