@@ -40,6 +40,12 @@ drives the port's paths:
   NCCL rank and in two gloo ranks sharing the card (``sharded_mppi``),
   and P-sharded RBPF at config 5 through K2–K4 in two gloo ranks
   (``sharded_rbpf``), each held against the unsharded path;
+- the closed-loop demos (``examples_torch/``, the :class:`Demos` phases):
+  the RBPF exploration under K1 at config 5 with its checkpoint and
+  resume (``explore``), the full stack — RBPF map → D* Lite → K1, all four
+  kernels in one loop (``full_stack``), the lidar EKF courses
+  (``lidar_ekf``) and the exploration loop's per-scan budget
+  (``rbpf_stages``);
 
 and times every kernel beside its plain version. Each phase prints one
 JSON line; any failure raises and the script exits non-zero. It needs
@@ -70,14 +76,13 @@ import time
 import numpy as np
 import torch
 
+from examples_torch import kernel_profile, launches_per_call, syncs_per_call
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIGS = os.path.join(ROOT, "configs")
 BAR = 2e-4                 # K1 vs its plain version: max |Δ| on cmd, u_next[:-1]
 POSE = (0.1, -0.2, 0.3)
 XD = (1.0, 1.0, 0.0)
-# examples/obstacle_mppi_demo.py: the wall, the course's ends and weights.
-WALL = [[[0.95, 0.7], [1.05, 0.7], [1.05, 1.3], [0.95, 1.3]]]
-START, GOAL = (0.2, 1.0), (1.8, 1.0)
 NEAR_TIE_ULPS = 16
 
 
@@ -247,25 +252,38 @@ class Smoke:
         a horizon longer than one 64-step chunk (N=70), one longer than the
         256 steps kept in shared memory (N=300: noise and cost-to-go in the
         global scratch), and ragged 32-rollout blocks (K = 1, 33, 101), on
-        injected noise. Rows above BAR must be near-ties of the float64
-        solve (``gate_rows``)."""
+        injected noise; and at the shape the closed-loop demos give K1
+        (K=2,048, N=50: examples_torch.rbpf_explore_demo and
+        full_stack_demo), once on injected noise and once on the in-kernel
+        Philox draw. Rows above BAR must be near-ties of the float64 solve
+        (``gate_rows``)."""
         t0 = time.perf_counter()
         cases = []
-        for k, n in [(4096, 70), (4096, 300), (1, 70), (33, 70), (101, 300)]:
+        for k, n, philox in [(4096, 70, False), (4096, 300, False),
+                             (1, 70, False), (33, 70, False),
+                             (101, 300, False), (2048, 50, False),
+                             (2048, 50, True)]:
             cfg = self.mppi.MPPIConfig(horizon=n * 0.01, dt=0.01, rollouts=k)
             assert cfg.steps == n
-            u, pose, xd, noise = self.tensors(cfg, u_off=(0.5, -0.2),
-                                              noise_seed=k + n)
-            cmd, un = self.fm.mppi_solve_fused(cfg, self.model, u, 0, pose,
+            u, pose, xd, noise = self.tensors(
+                cfg, u_off=(0.5, -0.2),
+                noise_seed=None if philox else k + n)
+            seed = 965 if philox else 0
+            cmd, un = self.fm.mppi_solve_fused(cfg, self.model, u, seed, pose,
                                                xd, noise=noise)
-            cmd_p, un_p = self.plain(cfg, u, 0, pose, xd, noise)
+            cmd_p, un_p = self.plain(cfg, u, seed, pose, xd, noise)
+            if philox:           # the draw both took, for the near-tie rule
+                noise = self.philox.mppi_noise(
+                    torch.tensor(seed, device=self.dev), k, n,
+                    float(cfg.ul_var) ** 0.5, float(cfg.ur_var) ** 0.5)
             err, exempt, err_all = gate_rows(
                 self.mppi, cfg, self.model, torch.cat([cmd[None], un[:-1]]),
                 torch.cat([cmd_p[None], un_p[:-1]]), u, pose, xd, noise, None,
-                f"K1 at K={k}, N={n}")
+                f"K1 at K={k}, N={n}{' (Philox)' if philox else ''}")
             self.max_err = max(self.max_err, err)
-            cases.append({"K": k, "N": n, "max_abs_err": err,
-                          "exempt_rows": exempt,
+            cases.append({"K": k, "N": n,
+                          "noise": "philox" if philox else "injected",
+                          "max_abs_err": err, "exempt_rows": exempt,
                           "max_abs_err_all_rows": err_all})
         emit("horizons", seconds=time.perf_counter() - t0, bar=BAR,
              cases=cases)
@@ -371,7 +389,7 @@ class Smoke:
         for _ in range(10):
             tick()
         ticks = 120
-        kern = profile_device(tick, ticks)
+        kern = kernel_profile(tick, ticks)
         busy = sum(us for us, _ in kern.values()) / ticks
         tick_us = 1e6 / self.steady if self.steady else None
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
@@ -543,29 +561,12 @@ class Rbpf:
              cases=cases)
 
     def course_inputs(self, seed: int = 7):
-        """The demo's and bench's course (examples/rbpf_slam_demo.py,
-        bench.py:bench_rbpf): an arc at u = (0.03 rad, 0.02 m) per update
-        inside walls at ±1.8 m, 360-beam scans with 2 mm range noise drawn
-        from a generator seeded with ``seed``, odometry = ground truth. Made
-        up front, as scans arrive."""
-        u = torch.tensor([0.03, 0.02], device=self.dev)
-        segs = self.lidar.box_segments(-1.8, -1.8, 1.8, 1.8, device=self.dev)
-        gen = torch.Generator(device=self.dev)
-        gen.manual_seed(seed)
-        g = self.g80
-        pose = torch.zeros(3, device=self.dev)
-        scans, odoms = [], []
-        for _ in range(self.UPDATES):
-            th = pose[0] + u[0]
-            pose = torch.stack([th, pose[1] + u[1] * torch.cos(th),
-                                pose[2] + u[1] * torch.sin(th)])
-            odoms.append(pose)
-            scans.append(self.lidar.scan_segments(
-                pose, segs, num_beams=g.num_beams, beam_min=g.beam_min,
-                beam_delta=g.beam_delta, max_range=g.range_max,
-                generator=gen, noise_std=0.002))
-        prevs = [torch.zeros(3, device=self.dev)] + odoms[:-1]
-        return u, scans, odoms, prevs
+        """The demo's and bench's course (examples_torch.rbpf_slam_demo,
+        bench.py:bench_rbpf) on config 5's 80×80 map, 120 updates, scan
+        noise from a generator seeded ``seed``: (u, scans, odoms, prevs)."""
+        from examples_torch.rbpf_slam_demo import course_inputs
+
+        return course_inputs(self.g80, self.UPDATES, seed, self.dev)
 
     def pose_error_cm(self, seed, inputs):
         """The best particle's |xy| error in cm after the course on
@@ -605,7 +606,8 @@ class Rbpf:
                 raise AssertionError(f"non-finite {name} after the course")
         if not xy_err < 0.2:
             raise AssertionError(f"pose diverged: |xy| error {xy_err} m")
-        want = {"K1": 0, "K2": self.UPDATES, "K3": self.UPDATES, "K4": 1}
+        want = {"K1": 0, "K1_obstacle": 0, "K2": self.UPDATES,
+                "K3": self.UPDATES, "K4": 1}
         if counts != want:
             raise AssertionError(f"launches {counts}, expected {want}: one "
                                  "K2 and one K3 per update, K4 in pf_init")
@@ -687,7 +689,7 @@ class Rbpf:
             bound_ms, bound_by = bound(*work[name])
             # The kernel's own device time (the event time above also holds
             # the wrapper's table-building launches and host gaps).
-            kern = profile_device(kernel, 10)
+            kern = kernel_profile(kernel, 10)
             device_us = sum(us for key, (us, _) in kern.items()
                             if tags[name] in key) / 10
             rows[name] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
@@ -715,7 +717,7 @@ class Rbpf:
         for _ in range(10):
             update()
         n = 20
-        kern = profile_device(update, n)
+        kern = kernel_profile(update, n)
         busy = sum(us for us, _ in kern.values()) / n
         ours = {name: sum(us for key, (us, _) in kern.items() if tag in key)
                 / n for name, tag in [("K2", "likelihood_"),
@@ -732,7 +734,7 @@ class Rbpf:
         dst, dst_ok = scan_to_points(scans[10], g.range_min, g.range_max,
                                      g.beam_min, g.beam_delta)
         guess = torch.zeros(3, device=self.dev)
-        icp = profile_device(lambda: icp_match(self.cfg.icp, src, src_ok, dst,
+        icp = kernel_profile(lambda: icp_match(self.cfg.icp, src, src_ok, dst,
                                                dst_ok, guess), 5)
         emit("rbpf_profile", seconds=time.perf_counter() - t0,
              card=self.card, updates=n, device_us_per_update=busy,
@@ -754,13 +756,14 @@ class Obstacle:
     U_OFF = (2.0, 2.0)     # a nominal 0.066 m/s forward, into the obstacles
 
     def __init__(self, smoke: Smoke):
+        from examples_torch import obstacle_mppi_demo
         from tpunav_torch import planning
         from tpunav_torch.control import obstacle_cost as oc
 
         self.s, self.oc, self.plan = smoke, oc, planning
+        self.demo_mod = obstacle_mppi_demo
         self.fm, self.dev, self.card = smoke.fm, smoke.dev, smoke.card
-        self.demo = oc.SegmentCostParams(r_safe=0.1, w_hit=1e7, w_field=2e3,
-                                         sigma=0.05)
+        self.demo = obstacle_mppi_demo.OBS_CFG
         ref = planning.REFERENCE_MAP
         polys = [p[:n].tolist() for p, n in zip(ref.polygons,
                                                 ref.n_vertices)]
@@ -771,7 +774,8 @@ class Obstacle:
         # circle and wall of tests/test_pallas_mppi.py:85-88; the 41 edges
         # of the reference world, from inside its corridor at y = 2.9 m.
         self.sets = {
-            "demo_wall": (oc.segments_from_polygons(WALL, device=self.dev),
+            "demo_wall": (oc.segments_from_polygons(obstacle_mppi_demo.WALL,
+                                                    device=self.dev),
                           (0.75, 1.0, 0.1), (1.8, 1.0, 0.0), self.demo),
             "circle_and_wall": (torch.cat([circle, wall]), (0.0, 0.0, 0.0),
                                 (1.0, 0.2, 0.0),
@@ -859,31 +863,24 @@ class Obstacle:
                                                         course_init,
                                                         run_course_chunked)
 
-        plan, t_plan = self.plan, time.perf_counter()
-        world = plan.load_obstacle_map(WALL, bounds=[[0.0, 2.0], [0.0, 2.0]],
-                                       resolution=0.05)
-        rm = plan.RoadMap(world, n_nodes=80, k_neighbors=10, clearance=0.18,
-                          seed=2)
-        route = plan.theta_star(rm, rm.add_node(START), rm.add_node(GOAL))
-        if route is None:
-            raise AssertionError("Theta* found no route around the wall")
+        t_plan = time.perf_counter()
+        route = self.demo_mod.plan_route()   # Theta* on the PRM, after START
         plan_s = time.perf_counter() - t_plan
-        wpts = np.asarray(route, np.float32)[1:]      # skip the start node
-        waypoints = torch.tensor(np.concatenate(
-            [wpts, np.zeros((len(wpts), 1), np.float32)], axis=1),
-            device=self.dev)
-        segs = self.oc.segments_from_polygons(WALL, device=self.dev)
+        waypoints = torch.from_numpy(route).to(self.dev)
+        segs = self.oc.segments_from_polygons(self.demo_mod.WALL,
+                                              device=self.dev)
         cfg = self.s.mppi.MPPIConfig(horizon=0.5, dt=0.01, rollouts=4096)
         course = CourseConfig(goal_thresh=0.1, tick_dt=1.0 / 60.0,
                               max_ticks=20_000, use_fused=True)
-        st = course_init(cfg, torch.tensor([START[0], START[1], 0.0]),
+        st = course_init(cfg, torch.tensor(self.demo_mod.START + [0.0]),
                          seed=0, device=self.dev)
         chunk, marks, clear = 240, [], [math.inf]
 
         def on_chunk(s, tel):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            clear[0] = min(clear[0], wall_clearance(tel["pose"].cpu()))
+            clear[0] = min(clear[0], self.demo_mod.wall_clearance(
+                tel["pose"].cpu()))
 
         torch.cuda.synchronize()
         reset_counts()
@@ -901,15 +898,18 @@ class Obstacle:
         if not clear[0] > 0.05:
             raise AssertionError(f"the course scraped the wall: clearance "
                                  f"{clear[0]} m")
-        if counts != {"K1": ticks, "K2": 0, "K3": 0, "K4": 0}:
+        if counts != {"K1": ticks, "K1_obstacle": ticks, "K2": 0, "K3": 0,
+                      "K4": 0}:
             raise AssertionError(f"launches {counts} for {ticks} ticks: the "
-                                 "course did not run on K1")
+                                 "course did not run on K1's obstacle mode")
         steady = ((ticks - chunk) / (marks[-1] - marks[0])
                   if len(marks) > 1 else None)
         self.course_cfg = (cfg, course, waypoints, segs)
         self.launches, self.steady = counts["K1"], steady
         emit("obstacle_course", seconds=wall, K=cfg.rollouts, N=cfg.steps,
-             obstacles=int(segs.shape[0]), route=np.round(route, 4).tolist(),
+             obstacles=int(segs.shape[0]),
+             route=[self.demo_mod.START] +
+             np.round(route[:, :2], 4).tolist(),
              plan_seconds=plan_s, ticks=ticks, done=bool(st.done),
              final_pose=pose.tolist(), min_wall_clearance_m=clear[0],
              kernel_launches=counts, first_chunk_seconds=marks[0] - t0,
@@ -1000,7 +1000,7 @@ class Obstacle:
         t0 = time.perf_counter()
         cfg, course, wpts, segs = self.course_cfg
         table = self.fm.pack_obstacles(segs, self.demo, self.dev)
-        box = [course_init(cfg, torch.tensor([START[0], START[1], 0.0]),
+        box = [course_init(cfg, torch.tensor(self.demo_mod.START + [0.0]),
                            seed=1, device=self.dev)]
 
         def tick():
@@ -1010,7 +1010,7 @@ class Obstacle:
         for _ in range(10):
             tick()
         ticks = 120
-        kern = profile_device(tick, ticks)
+        kern = kernel_profile(tick, ticks)
         busy = sum(us for us, _ in kern.values()) / ticks
         tick_us = 1e6 / self.steady if self.steady else None
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
@@ -1023,27 +1023,9 @@ class Obstacle:
                                       for name, (us, _) in top})
 
 
-# examples/slam_mppi_closed_loop_demo.py:35-37: the square course through
-# the block world.
-SLAM_WAYPOINTS = [[0.5, 0.0, 0.0], [0.4, 0.5, 1.57], [-0.3, 0.45, 3.0],
-                  [-0.5, -0.2, -1.8], [0.2, -0.5, -0.4]]
 # bench.py:292-294: bench_slam_loop's course.
 BENCH_WAYPOINTS = [[0.4, 0.0, 0.0], [0.3, 0.4, 1.57], [-0.3, 0.3, 3.0],
                    [-0.4, -0.3, -2.0], [0.2, -0.4, -0.5]]
-
-
-def dense_world():
-    """examples/dense_world_slam_demo.py:42-61: 44 cylinders in two rings
-    and the 12-waypoint ring that weaves between them."""
-    ao = np.linspace(0.0, 2 * np.pi, 24, endpoint=False)
-    ai = np.linspace(0.0, 2 * np.pi, 20, endpoint=False) + 0.13
-    world = np.concatenate([
-        np.stack([1.55 * np.cos(ao), 1.55 * np.sin(ao)], -1),
-        np.stack([0.95 * np.cos(ai), 0.95 * np.sin(ai)], -1)])
-    a = np.linspace(0.0, 2 * np.pi, 12, endpoint=False)
-    r = np.where(np.arange(12) % 2 == 0, 1.42, 1.12)
-    ring = np.stack([r * np.cos(a), r * np.sin(a), a + np.pi / 2], -1)
-    return world.astype(np.float32), ring.astype(np.float32)
 
 
 def bench_ekf_course(n=50, n_visible=12, updates=200, seed=11):
@@ -1067,24 +1049,6 @@ def bench_ekf_course(n=50, n_visible=12, updates=200, seed=11):
     return out
 
 
-def count_syncs(fn, reps: int) -> float:
-    """Host syncs per call of ``fn``: the synchronizing CUDA calls that
-    torch's sync debug mode reports, over ``reps`` calls."""
-    import warnings
-
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            for _ in range(reps):
-                fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message).lower()
-               for w in caught) / reps
-
-
 def wall_us(fn, reps: int, warmup: int = 3) -> float:
     """Host µs per call of ``fn`` over ``reps`` calls ending in a sync (the
     EKF update is a chain of small launches: its time is the host's)."""
@@ -1099,9 +1063,10 @@ def wall_us(fn, reps: int, warmup: int = 3) -> float:
 
 
 def launches(fn, reps: int = 3) -> float:
-    """Device launches per call of ``fn`` (torch.profiler)."""
+    """Device launches per call of ``fn`` (torch.profiler), after one
+    call."""
     fn()
-    return sum(c for _, c in profile_device(fn, reps).values()) / reps
+    return launches_per_call(fn, reps)
 
 
 def masked_slam(ekff, cfg, st, meas, u, known: bool):
@@ -1145,6 +1110,8 @@ class Ekf:
     their profile."""
 
     def __init__(self, smoke: Smoke):
+        from examples_torch import (dense_world_slam_demo,
+                                    slam_mppi_closed_loop_demo)
         from tpunav_torch.control import slam_loop
         from tpunav_torch.estimation import landmarks
         from tpunav_torch.estimation.ekf import filter as ekff
@@ -1155,8 +1122,11 @@ class Ekf:
         self.sl, self.lmk, self.ekff, self.spd = (slam_loop, landmarks, ekff,
                                                   spd)
         self.sensor, self.lidar = landmark_sensor, lidar
-        self.world, self.ring = dense_world()
-        self.radii = np.full(len(self.world), 0.04, np.float32)
+        self.c3_demo, self.c4_demo = (slam_mppi_closed_loop_demo,
+                                      dense_world_slam_demo)
+        self.world = self.c4_demo.dense_world()
+        self.radii = np.full(len(self.world), self.c4_demo.CYL_RADIUS,
+                             np.float32)
 
     # ── configurations ──
 
@@ -1166,48 +1136,22 @@ class Ekf:
                                    measurement_noise=(1e-4, 1e-4))
 
     def config3(self):
-        """examples/slam_mppi_closed_loop_demo.py:40-50 (known DA, 12
-        slots), on the fused kernel."""
-        mppi = self.s.mppi.MPPIConfig(horizon=0.4, dt=0.05, rollouts=1024,
-                                      ul_var=4.0, ur_var=4.0)
-        ekf = self.ekff.EKFConfig(num_landmarks=12, dmin=5e1, dmax=1e4,
-                                  spd_repair=False,
-                                  motion_noise=(1e-6, 1e-6, 1e-6),
-                                  measurement_noise=(1e-6, 1e-6))
-        loop = self.sl.SlamLoopConfig(goal_thresh=0.12, known_da=True,
-                                      sensor_every=6, visibility=1.2,
-                                      use_fused=True)
-        centers, _ = self.s.config.load_landmarks(
-            os.path.join(CONFIGS, "block_world_landmarks.yaml"))
-        return mppi, ekf, loop, self.t(SLAM_WAYPOINTS), self.t(centers)
+        """Config 3 as examples_torch.slam_mppi_closed_loop_demo runs it
+        (known DA, 12 slots, K=1,024), on the fused kernel."""
+        demo = self.c3_demo
+        mppi, ekf, loop = demo.configs(True, 12, use_fused=True)
+        return (mppi, ekf, loop, self.t(demo.WAYPOINTS),
+                self.t(demo.block_world()))
 
     def config4(self, rollouts=2048):
-        """examples/dense_world_slam_demo.py:64-107: unknown DA at
-        capacity 50 fed by lidar → detector (max_clusters 32), 20 Hz
-        ticks, sensing every 4th, on the fused kernel. Returns the configs,
-        the waypoint ring, the world and the measurement chain."""
-        mppi = self.s.mppi.MPPIConfig(horizon=0.4, dt=0.05,
-                                      rollouts=rollouts, ul_var=4.0,
-                                      ur_var=4.0)
-        ekf = self.ekff.EKFConfig(num_landmarks=50, dmin=5e1, dmax=3e3,
-                                  spd_repair=False,
-                                  motion_noise=(1e-5, 1e-5, 1e-5),
-                                  measurement_noise=(1e-5, 1e-5))
-        loop = self.sl.SlamLoopConfig(goal_thresh=0.15, cycles=2,
-                                      sensor_every=4, tick_dt=0.05,
-                                      odom_bias=(1e-4, 1e-4), known_da=False,
-                                      use_fused=True)
-        world, radii = self.t(self.world), self.t(self.radii)
-        lm_cfg = self.lmk.LandmarkConfig(max_clusters=32)
-
-        def meas_fn(true_txy, generator):
-            ranges = self.lidar.scan_cylinders(true_txy, world, radii,
-                                               generator=generator,
-                                               noise_std=1e-3)
-            return self.lmk.circles_to_measurements(
-                self.lmk.feature_detection(lm_cfg, ranges))
-
-        return mppi, ekf, loop, self.t(self.ring), world, meas_fn
+        """Config 4 as examples_torch.dense_world_slam_demo builds it:
+        unknown DA at capacity 50 fed by lidar → detector (max_clusters
+        32), 20 Hz ticks, sensing every 4th, on the fused kernel. Returns
+        the configs, the waypoint ring, the world and the measurement
+        chain."""
+        _, (mppi, ekf, loop), ring, world, meas_fn = \
+            self.c4_demo.build(rollouts=rollouts, device=self.dev)
+        return mppi, ekf, loop, ring, world, meas_fn
 
     def t(self, a, dtype=torch.float32, device=None):
         return torch.as_tensor(np.asarray(a)).to(device or self.dev, dtype)
@@ -1373,87 +1317,79 @@ class Ekf:
              digests=[d for d, _ in digests], ms_per_call=self.detector_ms,
              launches_per_call=launches(lambda: lmk.feature_detection(
                  cfg, scan)),
-             syncs_per_call=count_syncs(lambda: lmk.feature_detection(
+             syncs_per_call=syncs_per_call(lambda: lmk.feature_detection(
                  cfg, scan), 3),
              eigh_32x4x4_f64_ms=eigh_ms)
 
     def course(self):
-        """BASELINE config 3 as the demo runs it: run_slam_loop to done or
-        6,000 ticks from seed 1; the demo's gates (done, EKF error <
+        """BASELINE config 3 as the demo runs it
+        (examples_torch.slam_mppi_closed_loop_demo: run_slam_loop to done
+        or 6,000 ticks from seed 1); the demo's gates (done, EKF error <
         odometry error) and one K1 launch per tick."""
-        mppi, ekf, loop, wpts, lms = self.config3()
-        st = self.sl.slam_loop_init(mppi, ekf, seed=1, device=self.dev)
+        demo = self.c3_demo
         torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
-        st = self.sl.run_slam_loop(mppi, ekf, loop, self.s.model, wpts, lms,
-                                   st, max_ticks=6000)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        out = demo.run("config 3", demo.block_world(), True, 12,
+                       use_fused=True, verbose=False, device=self.dev)
         counts = read_counts()
-        ticks = int(st.ticks)
-        est, tru, odo = (st.ekf.state[:3].cpu(), st.true_pose.cpu(),
-                         st.odom.cpu())
-        ekf_err = float(torch.hypot(est[1] - tru[0], est[2] - tru[1]))
-        odo_err = float(torch.hypot(odo[1] - tru[0], odo[2] - tru[1]))
-        if not bool(st.done):
+        st, ticks, wall = out["state"], out["ticks"], out["wall_s"]
+        ekf_err, odo_err = out["ekf_err_m"], out["odom_err_m"]
+        if not out["done"]:
             raise AssertionError(f"config 3 incomplete after {ticks} ticks")
         if not ekf_err < odo_err:
             raise AssertionError(f"config 3: EKF error {ekf_err} m not below "
                                  f"odometry's {odo_err} m")
-        if counts != {"K1": ticks, "K2": 0, "K3": 0, "K4": 0}:
+        if counts != {"K1": ticks, "K1_obstacle": 0, "K2": 0, "K3": 0,
+                      "K4": 0}:
             raise AssertionError(f"launches {counts} for {ticks} ticks: the "
                                  "loop did not solve on K1 once per tick")
+        mppi, ekf, loop = demo.configs(True, 12)
         self.k1_course, self.c3_tick_us = counts["K1"], 1e6 * wall / ticks
         emit("ekf_course", seconds=wall, K=mppi.rollouts, N=mppi.steps,
-             landmarks=len(lms), slots=ekf.num_landmarks, known_da=True,
-             sensor_every=loop.sensor_every, ticks=ticks,
-             visits=int(st.visits), done=True, ekf_error_m=ekf_err,
+             landmarks=len(demo.block_world()), slots=ekf.num_landmarks,
+             known_da=True, sensor_every=loop.sensor_every, ticks=ticks,
+             visits=out["visits"], done=True, ekf_error_m=ekf_err,
              odometry_error_m=odo_err,
              landmarks_tracked=int(st.ekf.count), kernel_launches=counts,
              ticks_per_s=ticks / wall, card=self.card)
 
     def dense(self, ticks=5000):
-        """BASELINE config 4 at its stated scale (the demo's 5,000 ticks of
-        the 44-cylinder world, K=2,048, lidar → detector → unknown DA at
-        capacity 50). Gates: final SLAM |xy| error < 0.5 × odometry's
-        (tests/test_perception_loop.py:143-145), 36-50 landmarks tracked,
-        a finite filter, one K1 launch per tick."""
-        mppi, ekf, loop, ring, world, meas_fn = self.config4()
-        st = self.sl.slam_loop_init(mppi, ekf, pose_xyt=[1.42, 0.0,
-                                                         math.pi / 2],
-                                    seed=0, device=self.dev)
+        """BASELINE config 4 at its stated scale
+        (examples_torch.dense_world_slam_demo: 5,000 ticks of the
+        44-cylinder world from seed 0, K=2,048, lidar → detector → unknown
+        DA at capacity 50). Gates: final SLAM |xy| error < 0.5 ×
+        odometry's (tests/test_perception_loop.py:143-145), 36-50
+        landmarks tracked, a finite filter, one K1 launch per tick."""
+        course, (mppi, ekf, loop), _, _, _ = self.c4_demo.build(
+            ticks, device=self.dev)
         torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            st = self.sl.slam_loop_tick(mppi, ekf, loop, self.s.model, ring,
-                                        world, st, meas_fn=meas_fn)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        # The ticks alone are timed, without the demo's per-tick telemetry:
+        # ekf_profile's idle share divides the same tick's device time.
+        out = course(0, telemetry=False)
+        wall = out["wall_s"]
         counts = read_counts()
-        est, tru, odo = (st.ekf.state[:3].cpu(), st.true_pose.cpu(),
-                         st.odom.cpu())
-        slam_xy = float(torch.hypot(est[1] - tru[0], est[2] - tru[1]))
-        odo_xy = float(torch.hypot(odo[1] - tru[0], odo[2] - tru[1]))
-        n_lm = int(st.ekf.count)
+        st = out["state"]
+        e_s, e_o = out["ekf_err"], out["odo_err"]
+        slam_xy, odo_xy = float(np.hypot(*e_s[1:])), float(np.hypot(*e_o[1:]))
+        n_lm = out["count"]
         finite = all(bool(torch.isfinite(x).all())
                      for x in (st.ekf.state, st.ekf.cov, st.true_pose))
         if not (finite and slam_xy < 0.5 * odo_xy and 36 <= n_lm <= 50):
             raise AssertionError(f"config 4: SLAM |xy| {slam_xy} m, odometry "
                                  f"{odo_xy} m, {n_lm} landmarks, finite "
                                  f"{finite}")
-        if counts != {"K1": ticks, "K2": 0, "K3": 0, "K4": 0}:
+        if counts != {"K1": ticks, "K1_obstacle": 0, "K2": 0, "K3": 0,
+                      "K4": 0}:
             raise AssertionError(f"launches {counts} for {ticks} ticks: the "
                                  "loop did not solve on K1 once per tick")
         self.dense_state, self.k1_dense = st, counts["K1"]
         self.c4_tick_us = 1e6 * wall / ticks
-        heading = float((est[0] - tru[2] + math.pi) % (2 * math.pi) - math.pi)
         emit("dense_world", seconds=wall, K=mppi.rollouts, N=mppi.steps,
              cylinders=len(self.world), capacity=ekf.num_landmarks,
              beams=360, max_clusters=32, sensor_every=loop.sensor_every,
-             ticks=ticks, visits=int(st.visits), slam_xy_error_m=slam_xy,
-             slam_heading_error_rad=heading, odometry_xy_error_m=odo_xy,
+             ticks=ticks, visits=out["visits"], slam_xy_error_m=slam_xy,
+             slam_heading_error_rad=float(e_s[0]), odometry_xy_error_m=odo_xy,
              landmarks_tracked=n_lm, kernel_launches=counts,
              ticks_per_s=ticks / wall, card=self.card)
 
@@ -1558,8 +1494,8 @@ class Ekf:
                 "dynamic_launches": launches(lambda: step(c, st_, m, u4)),
                 "masked_launches": launches(lambda: masked_slam(
                     ekff, c, st_, m, u4, known)),
-                "dynamic_syncs": count_syncs(lambda: step(c, st_, m, u4), 5),
-                "masked_syncs": count_syncs(lambda: masked_slam(
+                "dynamic_syncs": syncs_per_call(lambda: step(c, st_, m, u4), 5),
+                "masked_syncs": syncs_per_call(lambda: masked_slam(
                     ekff, c, st_, m, u4, known), 5),
                 "bit_identical": same})
         # The SPD repair of an (S, S) = (103, 103) float32 covariance, as
@@ -1573,9 +1509,9 @@ class Ekf:
                 lambda: spd.repair_if_needed(cov)),
             "where_launches": launches(lambda: torch.where(
                 spd.is_spd(cov), cov, spd.nearest_spd(cov))),
-            "host_branch_syncs": count_syncs(
+            "host_branch_syncs": syncs_per_call(
                 lambda: spd.repair_if_needed(cov), 5),
-            "where_syncs": count_syncs(lambda: torch.where(
+            "where_syncs": syncs_per_call(lambda: torch.where(
                 spd.is_spd(cov), cov, spd.nearest_spd(cov)), 5),
             "is_spd": bool(spd.is_spd(cov))}
         loops = [self.loop_rate(True), self.loop_rate(False, trials=1)]
@@ -1589,13 +1525,13 @@ class Ekf:
     def profile_window(self, tick, ticks, sense_fn, tick_us):
         """Launches and device µs per tick over ``ticks`` ticks, host syncs
         per tick, and the launches of one sensing update alone."""
-        kern = profile_device(tick, ticks)
+        kern = kernel_profile(tick, ticks)
         busy = sum(us for us, _ in kern.values()) / ticks
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
         return {"ticks": ticks, "device_us_per_tick": busy,
                 "launches_per_tick": sum(c for _, c in kern.values()) / ticks,
                 "launches_per_sensing_update": launches(sense_fn),
-                "host_syncs_per_tick": count_syncs(tick, ticks),
+                "host_syncs_per_tick": syncs_per_call(tick, ticks),
                 "unprofiled_tick_us": tick_us,
                 "device_idle_share": 1 - busy / tick_us,
                 "top_device_us_per_tick": {name[:60]: us / ticks
@@ -1656,298 +1592,6 @@ class Ekf:
 
 # ── The node graph: runtime/ on the card ──
 
-# examples/full_stack_two_process.py:36-52: the planner's world, the
-# landmarks the robot senses and their visibility radius.
-FS_OBSTACLES = [[[0.45, -0.3], [0.75, -0.3], [0.75, 0.25], [0.45, 0.25]],
-                [[0.2, 0.5], [0.5, 0.5], [0.5, 0.8], [0.2, 0.8]]]
-FS_BOUNDS = [[-0.4, 1.6], [-0.8, 1.3]]
-FS_START, FS_GOAL = (0.0, 0.0), (1.2, 0.8)
-FS_LANDMARKS = [[0.6, 0.1], [0.4, 0.5], [-0.1, 0.6], [0.9, -0.3],
-                [1.1, 0.4], [0.2, -0.4], [1.2, 1.0], [-0.1, -0.4]]
-FS_VISIBILITY = 1.5
-
-
-def fs_params():
-    from tpunav_torch.core import diff_drive as dd
-
-    return dd.DiffDriveParams(wheel_radius=0.033, wheel_base=0.16)
-
-
-def fs_waypoints():
-    """The laptop's planner leg, run once at start-up
-    (examples/full_stack_two_process.py:59-80): PRM + Theta* over the
-    example's world from seed 4; waypoints headed toward the next vertex."""
-    from tpunav_torch.planning.prm import RoadMap, theta_star
-    from tpunav_torch.planning.world import load_obstacle_map
-
-    rm = RoadMap(load_obstacle_map(FS_OBSTACLES, bounds=FS_BOUNDS),
-                 n_nodes=80, k_neighbors=8, clearance=0.08, seed=4)
-    s, g = rm.add_node(np.asarray(FS_START)), rm.add_node(np.asarray(FS_GOAL))
-    if s is None or g is None:
-        raise AssertionError("start or goal not in free space")
-    path = theta_star(rm, s, g)
-    if path is None or len(path) < 2:
-        raise AssertionError("the planner found no path")
-    wpts = []
-    for i in range(1, len(path)):
-        d = np.asarray(path[i]) - np.asarray(path[i - 1])
-        wpts.append([path[i][0], path[i][1], float(np.arctan2(d[1], d[0]))])
-    return np.asarray(wpts)
-
-
-def mppi_law(cfg, params, device):
-    """The examples' MPPI control law for ``WaypointDriverNode``
-    (examples/full_stack_two_process.py:83-111) on K1: (pose [x, y, θ],
-    waypoint) → one fused solve on ``device`` keyed by seed 11 + k on the
-    k-th call → the wheel command as a body twist, in numpy. The pose and
-    waypoint go to the device in one copy; the seed stays there."""
-    from tpunav_torch.control.mppi import init_controls
-    from tpunav_torch.core import diff_drive as dd
-    from tpunav_torch.models.cart import CartParams
-    from tpunav_torch.ops.fused_mppi import mppi_solve_fused
-    from tpunav_torch.runtime.nodes import host, to_device
-
-    cart = CartParams(params.wheel_radius, params.wheel_base)
-    state = {"u": init_controls(cfg, device=device),
-             "seed": to_device(11, torch.int32, device)}
-
-    def law(pose_xyt, wpt):
-        goal = [wpt[0], wpt[1], wpt[2] if len(wpt) > 2 else 0.0]
-        x = to_device(np.concatenate([pose_xyt, goal]), torch.float32, device)
-        cmd, state["u"] = mppi_solve_fused(cfg, cart, state["u"],
-                                           state["seed"], x[:3], x[3:])
-        state["seed"] = state["seed"] + 1
-        return host(dd.wheels_to_twist(params, cmd))
-
-    return law
-
-
-def fs_mppi_config(rollouts):
-    """examples/full_stack_two_process.py:92-93 at ``rollouts``."""
-    from tpunav_torch.control.mppi import MPPIConfig
-
-    return MPPIConfig(horizon=0.3, dt=0.05, rollouts=rollouts, ul_var=4.0,
-                      ur_var=4.0)
-
-
-def fs_robot(params, ch):
-    """The robot's side: the plant (truth) + turtle_interface + odometer +
-    the landmark sensor, on the CPU (the turtlebot has no card). One
-    lockstep cycle returns the true pose."""
-    from tpunav_torch.runtime.channels import Channel
-    from tpunav_torch.runtime.nodes import OdometerNode, TurtleInterfaceNode
-    from tpunav_torch.sim.landmark_sensor import landmark_measurements
-    from tpunav_torch.sim.plant import DiffDrivePlant
-
-    wheel_cmd, sensor = Channel("wheel_cmd"), Channel("sensor")
-    plant = DiffDrivePlant(params, wheel_cmd, sensor, sensor_rate_hz=60.0)
-    iface = TurtleInterfaceNode(params, ch["cmd_vel"], wheel_cmd, sensor,
-                                ch["joints"], device="cpu")
-    odo = OdometerNode(params, ch["joints"], ch["odom"], device="cpu")
-    lms = torch.tensor(FS_LANDMARKS)
-
-    def sense(t=0.0):
-        ch["landmarks"].publish(landmark_measurements(
-            lms, torch.tensor(plant.pose, dtype=torch.float32),
-            FS_VISIBILITY).numpy())
-
-    def cycle(k):
-        iface.tick(0.0)      # fresh cmd_vel → wheel_cmd
-        plant.tick(0.0)      # advance the truth, emit encoder ticks
-        iface.tick(0.0)      # fresh ticks → joints
-        odo.tick(0.0)        # joints → odom
-        sense()
-        return plant.pose.copy()
-
-    return cycle, (iface, plant, odo, sense)
-
-
-def fs_laptop(params, ch, waypoints, rollouts, device):
-    """The laptop's side: EKF SLAM (known DA) + the MPPI driver on the
-    SLAM pose, on ``device``. One lockstep cycle returns the SLAM pose."""
-    from tpunav_torch.estimation.ekf import EKFConfig
-    from tpunav_torch.runtime.channels import Channel
-    from tpunav_torch.runtime.nodes import WaypointDriverNode
-    from tpunav_torch.runtime.slam_nodes import EkfSlamNode
-
-    slam_pose = Channel("slam_pose")
-    ekf = EkfSlamNode(EKFConfig(num_landmarks=len(FS_LANDMARKS),
-                                spd_repair=False,
-                                motion_noise=(1e-8, 1e-8, 1e-8),
-                                measurement_noise=(1e-6, 1e-6)),
-                      params, ch["joints"], ch["landmarks"], slam_pose,
-                      Channel("odom_local"), known_da=True, device=device)
-    driver = WaypointDriverNode(
-        slam_pose, ch["cmd_vel"], waypoints,
-        mppi_law(fs_mppi_config(rollouts), params, device), goal_thresh=0.12)
-    driver.start()
-
-    def cycle(k):
-        ekf.tick(0.0)
-        prev = ch["cmd_vel"].seq
-        driver.tick(0.0)
-        if ch["cmd_vel"].seq == prev:
-            # Keep the lockstep clock advancing after the course is done.
-            ch["cmd_vel"].publish(np.zeros(3))
-        p = slam_pose.latest()
-        return np.zeros(3) if p is None else np.asarray(p, float).copy()
-
-    return cycle
-
-
-def fs_run_single(cycles, rollouts, device):
-    """The two-process graph in one process with the same device split and
-    the same tick order. Returns (truth, slam) per cycle."""
-    from tpunav_torch.runtime.channels import Channel
-
-    params = fs_params()
-    ch = {n: Channel(n) for n in ("cmd_vel", "joints", "landmarks", "odom")}
-    robot, _ = fs_robot(params, ch)
-    laptop = fs_laptop(params, ch, fs_waypoints(), rollouts, device)
-    truth, slam = [], []
-    for k in range(cycles):
-        truth.append(robot(k))
-        slam.append(laptop(k))
-    return np.asarray(truth), np.asarray(slam)
-
-
-def _bus_channels(client, robot: bool):
-    out = {"cmd_vel": client.subscribe if robot else client.advertise}
-    for name in ("joints", "landmarks", "odom"):
-        out[name] = client.advertise if robot else client.subscribe
-    return {name: make(name) for name, make in out.items()}
-
-
-def _fs_robot_main(port, cycles, out_path):
-    from tpunav_torch.runtime.net import BusClient, wait_for_new
-
-    torch.set_num_threads(1)
-    client = BusClient("127.0.0.1", port)
-    ch = _bus_channels(client, robot=True)
-    robot, _ = fs_robot(fs_params(), ch)
-    truth, last_cmd = [], 0
-    for k in range(cycles):
-        if k > 0:   # lockstep: the laptop commanded on the previous frame
-            _, last_cmd = wait_for_new(ch["cmd_vel"], last_cmd, timeout=120)
-        truth.append(robot(k))
-    np.savez(out_path, truth=np.asarray(truth))
-    client.close()
-
-
-def _fs_laptop_main(port, cycles, out_path, rollouts, device):
-    from tpunav_torch.runtime.net import BusClient, wait_for_new
-
-    torch.set_num_threads(1)
-    client = BusClient("127.0.0.1", port)
-    ch = _bus_channels(client, robot=False)
-    laptop = fs_laptop(fs_params(), ch, fs_waypoints(), rollouts, device)
-    slam, last_j, last_m = [], 0, 0
-    for k in range(cycles):
-        _, last_j = wait_for_new(ch["joints"], last_j, timeout=120)
-        _, last_m = wait_for_new(ch["landmarks"], last_m, timeout=120)
-        slam.append(laptop(k))
-        if k == 0:
-            t_warm = time.perf_counter()
-    steady = (cycles - 1) / (time.perf_counter() - t_warm)
-    np.savez(out_path, slam=np.asarray(slam), steady=steady)
-    client.close()
-
-
-def fs_run_two_process(out_dir, cycles, rollouts, device):
-    """Robot and laptop in two OS processes over the TCP bus, in lockstep
-    (each waits on the other's topic). Returns (truth, slam, the laptop's
-    steady cycles/s over the bus)."""
-    from examples_torch import spawn
-    from tpunav_torch.runtime.net import BusServer
-
-    robot_out = os.path.join(out_dir, "robot.npz")
-    laptop_out = os.path.join(out_dir, "laptop.npz")
-    srv = BusServer()
-    try:
-        spawn([(_fs_robot_main, (srv.port, cycles, robot_out)),
-               (_fs_laptop_main, (srv.port, cycles, laptop_out, rollouts,
-                                  device))], timeout=600)
-    finally:
-        srv.close()
-    lap = np.load(laptop_out)
-    return np.load(robot_out)["truth"], lap["slam"], float(lap["steady"])
-
-
-def _fs_robot_free(port, duration, out_path):
-    """The robot free-running: every node at its own rate on the wall-clock
-    scheduler, no lockstep."""
-    from tpunav_torch.runtime.channels import Node, Scheduler
-    from tpunav_torch.runtime.net import BusClient, wait_for_new
-
-    torch.set_num_threads(1)
-    client = BusClient("127.0.0.1", port)
-    ch = _bus_channels(client, robot=True)
-    _, (iface, plant, odo, sense) = fs_robot(fs_params(), ch)
-    # Bring-up handshake: one sensor frame, then wait for the laptop's
-    # first command before the clock starts.
-    ch["joints"].publish((0.0, 0.0, 0.0, 0.0))
-    sense()
-    wait_for_new(ch["cmd_vel"], 0, timeout=120)
-    sched = Scheduler(realtime=True)
-    sched.add(Node("turtle_interface", 60.0, iface.tick))
-    sched.add(Node("plant", 60.0, plant.tick))
-    sched.add(Node("odometer", 60.0, odo.tick))
-    sched.add(Node("landmark_sensor", 10.0, sense))
-    seq0 = ch["joints"].seq, ch["cmd_vel"].seq
-    sched.run(duration)
-    np.savez(out_path, truth=plant.pose,
-             joints=ch["joints"].seq - seq0[0],
-             cmd=ch["cmd_vel"].seq - seq0[1])
-    client.close()
-
-
-def _fs_laptop_free(port, duration, out_path, rollouts, device):
-    """The laptop free-running: EKF + driver as one 60 Hz node."""
-    from tpunav_torch.runtime.channels import Node, Scheduler
-    from tpunav_torch.runtime.net import BusClient, wait_for_new
-
-    torch.set_num_threads(1)
-    client = BusClient("127.0.0.1", port)
-    ch = _bus_channels(client, robot=False)
-    laptop = fs_laptop(fs_params(), ch, fs_waypoints(), rollouts, device)
-    wait_for_new(ch["joints"], 0, timeout=120)
-    wait_for_new(ch["landmarks"], 0, timeout=120)
-    laptop(0)                    # the first tick pays the kernels' loading
-    ticks = [0]
-
-    def tick(t):
-        laptop(ticks[0])
-        ticks[0] += 1
-
-    sched = Scheduler(realtime=True)
-    sched.add(Node("slam+driver", 60.0, tick))
-    sched.run(duration)
-    np.savez(out_path, ticks=ticks[0])
-    client.close()
-
-
-def fs_run_free(out_dir, duration, rollouts, device):
-    """Both sides free-running for ``duration`` wall seconds; the joints and
-    cmd_vel rates the robot saw and the laptop's ticks."""
-    from examples_torch import spawn
-    from tpunav_torch.runtime.net import BusServer
-
-    robot_out = os.path.join(out_dir, "robot_free.npz")
-    laptop_out = os.path.join(out_dir, "laptop_free.npz")
-    srv = BusServer()
-    try:
-        spawn([(_fs_robot_free, (srv.port, duration, robot_out)),
-               (_fs_laptop_free, (srv.port, duration, laptop_out, rollouts,
-                                  device))], timeout=600)
-    finally:
-        srv.close()
-    rob, lap = np.load(robot_out), np.load(laptop_out)
-    return {"joints_rate_hz": float(rob["joints"]) / duration,
-            "cmd_vel_rate_hz": float(rob["cmd"]) / duration,
-            "laptop_ticks": int(lap["ticks"]),
-            "final_truth": rob["truth"].tolist()}
-
-
 class Graphs:
     """The reference's node graph on the card (``tpunav_torch/runtime/``):
     the mppi_waypoints.launch graph through K1, the RBPF node at BASELINE
@@ -1976,6 +1620,7 @@ class Graphs:
         turtle_interface → joints → odometer → odom → driver. Returns the
         scheduler, the driver, the law's profiler, the channels and a
         function that runs n more cycles."""
+        from examples_torch.full_stack_two_process import mppi_law
         from tpunav_torch.runtime import Channel, Node, Scheduler, SolveProfiler
         from tpunav_torch.runtime.nodes import (OdometerNode,
                                                 TurtleInterfaceNode,
@@ -2048,7 +1693,8 @@ class Graphs:
         if not d_last < 0.1:
             raise AssertionError(f"odometry {odom} ends {d_last} m from the "
                                  "last waypoint")
-        if counts != {"K1": commands, "K2": 0, "K3": 0, "K4": 0}:
+        if counts != {"K1": commands, "K1_obstacle": 0, "K2": 0, "K3": 0,
+                      "K4": 0}:
             raise AssertionError(f"launches {counts} for {commands} commands:"
                                  " the driver did not solve on K1 once each")
         self.k1_course = counts["K1"]
@@ -2063,9 +1709,9 @@ class Graphs:
         run_cycles(120)
         torch.cuda.synchronize()
         cycle_us = 1e6 * (time.perf_counter() - t1) / 120
-        kern = profile_device(lambda: run_cycles(120), 1)
+        kern = kernel_profile(lambda: run_cycles(120), 1)
         busy = sum(us for us, _ in kern.values()) / 120
-        syncs = count_syncs(lambda: run_cycles(60), 1) / 60
+        syncs = syncs_per_call(lambda: run_cycles(60), 1) / 60
         out = os.path.join(ROOT, "tools", "out", "node_course_trace")
         with trace(out):
             run_cycles(20)
@@ -2169,7 +1815,8 @@ class Graphs:
                 and ch["map_odom"].latest() is not None):
             raise AssertionError("RBPF node: no walls or no free cells in "
                                  "the grid, or no map→odom")
-        want = {"K1": 0, "K2": updates, "K3": updates, "K4": 1}
+        want = {"K1": 0, "K1_obstacle": 0, "K2": updates, "K3": updates,
+                "K4": 1}
         if updates != Rbpf.UPDATES or counts != want:
             raise AssertionError(f"RBPF node: launches {counts} over "
                                  f"{updates} updates, expected {want}")
@@ -2177,9 +1824,9 @@ class Graphs:
         # Where the node's extra time goes: launches, device time and host
         # syncs per update over 5 more updates (rbpf_profile has the
         # course's).
-        kern = profile_device(lambda: run_updates(1), 5)
+        kern = kernel_profile(lambda: run_updates(1), 5)
         busy = sum(us for us, _ in kern.values()) / 5
-        syncs = count_syncs(lambda: run_updates(1), 5)
+        syncs = syncs_per_call(lambda: run_updates(1), 5)
         # Host-bound rates drift within a call, so the overhead is also
         # taken in turns on the same host: 20 bare updates of the course's
         # inputs, 20 node updates, 20 node, 20 bare (ms per update).
@@ -2224,6 +1871,7 @@ class Graphs:
         EkfSlamNode (known DA, 12 slots) fed by landmark_measurements of
         the block world within 1.2 m at 10 Hz. Gates: EKF |xy| error <
         odometry's, one K1 launch per published command."""
+        from examples_torch.full_stack_two_process import mppi_law
         from tpunav_torch.core import diff_drive as dd
         from tpunav_torch.runtime import Channel, Node, Scheduler
         from tpunav_torch.runtime.nodes import (TurtleInterfaceNode,
@@ -2240,7 +1888,7 @@ class Graphs:
                                       "joints", "landmarks", "slam_pose",
                                       "odom_pose", "map_odom")}
         driver = WaypointDriverNode(ch["slam_pose"], ch["cmd_vel"],
-                                    SLAM_WAYPOINTS,
+                                    self.e.c3_demo.WAYPOINTS,
                                     mppi_law(mppi, self.params, self.dev),
                                     goal_thresh=loop.goal_thresh)
         driver.start()
@@ -2282,7 +1930,8 @@ class Graphs:
         if not ekf_err < odo_err:
             raise AssertionError(f"EKF node: error {ekf_err} m not below "
                                  f"odometry's {odo_err} m")
-        if counts != {"K1": commands, "K2": 0, "K3": 0, "K4": 0}:
+        if counts != {"K1": commands, "K1_obstacle": 0, "K2": 0, "K3": 0,
+                      "K4": 0}:
             raise AssertionError(f"EKF node: launches {counts} for {commands}"
                                  " commands")
         return {"seconds": time.perf_counter() - t0, "K": mppi.rollouts,
@@ -2390,11 +2039,14 @@ class Graphs:
         nominal 60 Hz: joints and cmd_vel both ≥ 30 Hz."""
         import tempfile
 
+        from examples_torch.full_stack_two_process import (run_free,
+                                                           run_single,
+                                                           run_two_process)
+
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as d:
-            truth2, slam2, steady = fs_run_two_process(d, cycles, 4096,
-                                                       "cuda")
-            truth1, slam1 = fs_run_single(cycles, 4096, self.dev)
+            truth2, slam2, steady = run_two_process(d, cycles, 4096, "cuda")
+            truth1, slam1 = run_single(cycles, 4096, self.dev)
             d_truth = float(np.abs(truth2 - truth1).max())
             d_slam = float(np.abs(slam2 - slam1).max())
             moved = float(np.linalg.norm(truth2[-1][1:]))
@@ -2402,7 +2054,7 @@ class Graphs:
                 raise AssertionError(f"two processes vs one: |Δtruth| "
                                      f"{d_truth}, |Δslam| {d_slam}, moved "
                                      f"{moved} m")
-            free = fs_run_free(d, duration, 4096, "cuda")
+            free = run_free(d, duration, 4096, "cuda")
         if not (free["joints_rate_hz"] >= 30 and free["cmd_vel_rate_hz"] >= 30):
             raise AssertionError(f"free-running rates {free}")
         emit("two_process", seconds=time.perf_counter() - t0, card=self.card,
@@ -2543,7 +2195,6 @@ def _shard_rbpf_course(mesh, device, updates):
     whether the fields are K4 of the grids, a digest of the gathered state,
     and on rank 0 the gathered poses, log-weights and grids."""
     from tpunav_torch import interop
-    from tpunav_torch.ops import fused_mppi
     from tpunav_torch.parallel import pf_init_sharded, pf_slam_step_sharded
 
     rb = Rbpf("")
@@ -2562,7 +2213,6 @@ def _shard_rbpf_course(mesh, device, updates):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts()
-    k1_obstacle = fused_mppi.OBSTACLE_LAUNCHES
     events = int((mesh.sum_(torch.stack(flags).to(torch.int32)) > 0).sum())
     edt = torch.equal(st.dists, rb.mu.edt_batch(cfg.grid, st.grids))
     # The exchange's one all-gather, on a buffer of its shape: the local
@@ -2578,7 +2228,7 @@ def _shard_rbpf_course(mesh, device, updates):
     torch.cuda.synchronize()
     gather_ms = 1e3 * (time.perf_counter() - t1) / reps
     whole = interop.pf_state_gather_to_numpy(st, mesh)
-    out = {"launches": counts, "k1_obstacle": k1_obstacle,
+    out = {"launches": counts,
            "events": events, "dists_are_edt": edt,
            "ms_per_update": 1e3 * secs / updates, "exchange_ms": gather_ms,
            "exchange_mb": 4 * cfg.num_particles * (6 + g.height * g.width)
@@ -2679,8 +2329,8 @@ class Sharded:
                        device="cuda", backend="gloo", timeout=400)
         if ranks[0]["digest"] != ranks[1]["digest"]:
             raise AssertionError("the ranks' gathered states differ")
-        want_counts = {"K1": 0, "K2": SHARD_UPDATES, "K3": SHARD_UPDATES,
-                       "K4": SHARD_UPDATES}
+        want_counts = {"K1": 0, "K1_obstacle": 0, "K2": SHARD_UPDATES,
+                       "K3": SHARD_UPDATES, "K4": SHARD_UPDATES}
         for rk in ranks:
             if rk["launches"] != want_counts:
                 raise AssertionError(f"launches {rk['launches']}, expected "
@@ -2717,7 +2367,7 @@ class Sharded:
         self.launches["K1"]["sharded_rbpf_2ranks"] = [
             rk["launches"]["K1"] for rk in ranks]
         self.launches["K1_obstacle"]["sharded_rbpf_2ranks"] = [
-            rk["k1_obstacle"] for rk in ranks]
+            rk["launches"]["K1_obstacle"] for rk in ranks]
         self.launches.update({key: {
             "sharded_rbpf_2ranks": [rk["launches"][key] for rk in ranks],
             "rbpf_two_process_2ranks": [x["launches"][i] for x in (a, b)]}
@@ -2742,6 +2392,151 @@ class Sharded:
                                                     b["launches"]]},
              note="two ranks share one card through gloo's host staging: "
                   "no rate here is a scaling number")
+
+
+class Demos:
+    """The closed-loop demos (``examples_torch/``) on the card: the RBPF
+    exploration under K1 with its checkpoint and resume (BASELINE config
+    5), the full stack (RBPF map → D* Lite → K1: all four kernels in one
+    loop), the lidar EKF courses, and the exploration loop's per-scan
+    budget. Each phase's launches are counted from 0 over its run."""
+
+    def __init__(self, smoke: Smoke):
+        self.s, self.dev, self.card = smoke, smoke.dev, smoke.card
+        self.launches = {}
+
+    def counted(self, name, fn):
+        """``fn()`` with every launch count set to 0 before it; keeps the
+        counts under ``name``."""
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        self.launches[name] = read_counts()
+        return out
+
+    def explore(self):
+        """examples_torch.rbpf_explore_demo.run_experiment at P=500,
+        K=2,048, 80×80, 360 beams, six K1 solves per scan, 20 scans per
+        chunk: a warm-up chunk, a timed one, the checkpoint, the chunk after
+        it from memory and from disk, four timed chunks. Gates: SLAM |xy| <
+        0.25 m (the demo's) and below odometry's; per scan 6 K1, 1 K2 and 1
+        K3 launches, one K4 per pf_init; the resumed chunk's digests
+        (poses, log-weights, grids, u) equal the in-memory chunk's."""
+        from examples_torch import rbpf_explore_demo as ex
+
+        t0 = time.perf_counter()
+        r = self.counted("explore", lambda: ex.run_experiment(
+            device=self.dev))
+        counts = self.launches["explore"]
+        slam_xy = float(np.hypot(*r["slam_err"][1:]))
+        odo_xy = float(np.hypot(*r["odom_err"][1:]))
+        if not (slam_xy < 0.25 and slam_xy < odo_xy):
+            raise AssertionError(f"explore: SLAM |xy| {slam_xy} m, odometry "
+                                 f"{odo_xy} m")
+        scans = r["scans_run"]
+        want = {"K1": ex.TICKS_PER_SCAN * scans, "K2": scans, "K3": scans,
+                "K4": r["pf_inits"], "K1_obstacle": 0}
+        if counts != want:
+            raise AssertionError(f"explore: launches {counts}, expected "
+                                 f"{want} for {scans} scans")
+        if not r["resume_bit_equal"]:
+            raise AssertionError(f"explore: the resumed chunk left the "
+                                 f"saved one: {r['resume_digests']}")
+        emit("explore", seconds=time.perf_counter() - t0, P=r["num_particles"],
+             K=r["mppi_rollouts"], N=50, solves_per_scan=ex.TICKS_PER_SCAN,
+             scans=r["n_scans"], scans_run=scans,
+             slam_err_theta_x_y=r["slam_err"].tolist(), slam_xy_error_m=slam_xy,
+             odometry_err_theta_x_y=r["odom_err"].tolist(),
+             odometry_xy_error_m=odo_xy, occupied_cells=r["occupied_cells"],
+             updates_per_s_best=r["updates_per_sec"],
+             updates_per_s_median=r["updates_per_sec_median"],
+             solves_per_s_best=ex.TICKS_PER_SCAN * r["updates_per_sec"],
+             chunk_seconds=r["chunk_seconds"],
+             checkpoint_mb=r["checkpoint_mb"], resume_bit_equal=True,
+             resume_digest=r["resume_digests"]["resumed"]["grids"][:16],
+             kernel_launches=counts, card=self.card)
+
+    def full_stack(self):
+        """examples_torch.full_stack_demo.run(seed=5) at P=500, K1 at
+        K=2,048, 12 solves per scan. Gates: the goal reached, final error
+        < 0.3 m (the demo's); per scan 12 K1, 1 K2 and 1 K3 launches, one
+        K4 in pf_init; finite outputs. Reports ms per scan by stage and
+        the host syncs per scan (torch's sync debug mode over the run)."""
+        from examples_torch import full_stack_demo as fs
+
+        t0 = time.perf_counter()
+        box = []
+        syncs = self.counted("full_stack", lambda: syncs_per_call(
+            lambda: box.append(fs.run(seed=5, verbose=False,
+                                      device=self.dev)), 1))
+        out = box[0]
+        counts = self.launches["full_stack"]
+        n = out["updates"]
+        finite = all(np.isfinite(out[k]).all() for k in
+                     ("trail_true", "trail_slam", "grid", "stream"))
+        if not (out["reached"] and out["final_goal_err_m"] < 0.3 and finite):
+            raise AssertionError(
+                f"full stack: reached {out['reached']} in {out['scans']} "
+                f"scans, goal error {out['final_goal_err_m']} m, finite "
+                f"{finite}")
+        want = {"K1": 12 * n, "K2": n, "K3": n, "K4": 1, "K1_obstacle": 0}
+        if counts != want:
+            raise AssertionError(f"full stack: launches {counts}, expected "
+                                 f"{want} for {n} scan updates")
+        emit("full_stack", seconds=time.perf_counter() - t0, P=500,
+             K=out["rollouts"], N=50, solves_per_scan=12, seed=5,
+             reached=True, scans=out["scans"], updates=n,
+             wall_s=out["wall_s"], final_goal_error_m=out["final_goal_err_m"],
+             slam_vs_true_m=out["slam_vs_true_m"],
+             ms_per_scan=out["ms_per_scan"], host_syncs=syncs,
+             host_syncs_per_scan=syncs / n, kernel_launches=counts,
+             card=self.card)
+
+    def lidar_ekf(self, steps=400):
+        """examples_torch.lidar_ekf_slam_demo.run, known and unknown DA,
+        400 steps, seed 0. Gates: SLAM |xy| below odometry's in both; 12 of
+        12 landmarks for known DA, at least 10 for unknown DA (tpunav
+        records 11.0 ± 0.0, RESULTS.md)."""
+        from examples_torch import lidar_ekf_slam_demo as le
+
+        t0 = time.perf_counter()
+        rows = {}
+        for tag, (step, known, cfg) in le.CONFIGS.items():
+            ekf_err, odo_err, n_lm, wall, _, _ = self.counted(
+                f"lidar_ekf_{tag}", lambda: le.run(step, cfg, known, steps,
+                                                   seed=0, device=self.dev))
+            slam_xy = float(np.hypot(*ekf_err[1:]))
+            odo_xy = float(np.hypot(*odo_err[1:]))
+            least = 12 if known else 10
+            if not (slam_xy < odo_xy and n_lm >= least):
+                raise AssertionError(f"lidar EKF ({tag} DA): SLAM |xy| "
+                                     f"{slam_xy} m, odometry {odo_xy} m, "
+                                     f"{n_lm} landmarks (need {least})")
+            rows[tag] = {"slam_err_theta_x_y": ekf_err.tolist(),
+                         "slam_xy_error_m": slam_xy,
+                         "odometry_xy_error_m": odo_xy,
+                         "landmarks_tracked": n_lm,
+                         "slots": cfg.num_landmarks, "steps": steps,
+                         "steps_per_s": steps / wall,
+                         "kernel_launches": self.launches[f"lidar_ekf_{tag}"]}
+        emit("lidar_ekf", seconds=time.perf_counter() - t0, card=self.card,
+             **rows)
+
+    def rbpf_stages(self):
+        """examples_torch.profile_rbpf_stages: the exploration loop's ms
+        per scan by stage over 5 scans (the profiler's cost grows with the
+        scans it records), with launches and host syncs per scan, and the
+        stages of one config-5 update."""
+        from examples_torch import profile_rbpf_stages as prof
+
+        t0 = time.perf_counter()
+        loop = self.counted("rbpf_stages", lambda: prof.profile_closed_loop(
+            reps=5, device=self.dev))
+        stages = prof.stage_times(reps=5, device=self.dev)
+        emit("rbpf_stages", seconds=time.perf_counter() - t0, P=500, K=2048,
+             closed_loop_per_scan=loop, update_stages_ms=stages,
+             kernel_launches=self.launches["rbpf_stages"], card=self.card)
 
 
 def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
@@ -2815,7 +2610,7 @@ def device_us(fn, tags, reps: int) -> dict:
     torch.profiler over ``reps`` calls after 5."""
     for _ in range(5):
         fn()
-    kern = profile_device(fn, reps)
+    kern = kernel_profile(fn, reps)
     return {tag: sum(us for key, (us, _) in kern.items() if tag in key)
             / reps for tag in tags}
 
@@ -2826,17 +2621,6 @@ def digest(*ts) -> str:
     for t in ts:
         h.update(t.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
-
-
-def wall_clearance(poses) -> float:
-    """The executed poses' closest approach to the demo's wall, 0 inside it
-    (examples/obstacle_mppi_demo.py:61-70)."""
-    p = poses.numpy()
-    dx = np.clip(p[:, 0], 0.95, 1.05) - p[:, 0]
-    dy = np.clip(p[:, 1], 0.7, 1.3) - p[:, 1]
-    d = np.hypot(dx, dy)
-    d[(np.abs(p[:, 0] - 1.0) < 0.05) & (np.abs(p[:, 1] - 1.0) < 0.3)] = 0.0
-    return float(d.min())
 
 
 def gate_rows(mppi, cfg, model, got, plain, u, pose, xd, noise, cost, what,
@@ -2948,10 +2732,14 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
+    """Every kernel's launch count; "K1_obstacle" counts K1's solves in
+    obstacle mode (also counted under "K1")."""
     from tpunav_torch.ops import fused_mppi, likelihood, map_update
 
-    return {"K1": fused_mppi.KERNEL_LAUNCHES, "K2": likelihood.LIK_LAUNCHES,
-            "K3": map_update.MAP_LAUNCHES, "K4": map_update.EDT_LAUNCHES}
+    return {"K1": fused_mppi.KERNEL_LAUNCHES,
+            "K1_obstacle": fused_mppi.OBSTACLE_LAUNCHES,
+            "K2": likelihood.LIK_LAUNCHES, "K3": map_update.MAP_LAUNCHES,
+            "K4": map_update.EDT_LAUNCHES}
 
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes/s
@@ -2982,28 +2770,14 @@ def k1_work(k: int, n: int, n_obs: int = 0):
     return 4 * (2 * n + 3 + 3 + 1 + table + 2 * n), ops * k * n
 
 
-def device_kernels(prof):
-    """{kernel name: (device µs, launches)} from a torch.profiler run."""
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.self_device_time_total
-        if us > 0:
-            out[e.key] = (us, e.count)
-    return out
-
-
-def profile_device(fn, reps):
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return device_kernels(prof)
+def demo_launches(demos: Demos, key: str) -> dict:
+    """One kernel's measured launches in the demo phases, for the
+    ``kernels`` line."""
+    return {"launches_explore": demos.launches["explore"][key],
+            "launches_full_stack": demos.launches["full_stack"][key],
+            "launches_demos": {
+                name: counts[key] for name, counts in demos.launches.items()
+                if name not in ("explore", "full_stack")}}
 
 
 def main() -> int:
@@ -3052,6 +2826,11 @@ def main() -> int:
     sharded = Sharded(smoke, rbpf)
     sharded.mppi()
     sharded.rbpf()
+    demos = Demos(smoke)
+    demos.explore()
+    demos.full_stack()
+    demos.lidar_ekf()
+    demos.rbpf_stages()
     kernel_times(smoke, rbpf, obst)
 
     main_row = smoke.timing[0]
@@ -3071,6 +2850,7 @@ def main() -> int:
         "launches_node_course": graphs.k1_course,
         "launches_slam_nodes": graphs.slam_counts["K1"],
         "launches_sharded": sharded.launches["K1"],
+        **demo_launches(demos, "K1"),
     }]
     for key, name, source, replaces in [
             ("K2", "likelihood_field (K2)", "likelihood.cu",
@@ -3088,7 +2868,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "launches_slam_nodes": graphs.slam_counts[key],
-            "launches_sharded": sharded.launches[key]})
+            "launches_sharded": sharded.launches[key],
+            **demo_launches(demos, key)})
     obst_row = obst.timing[0]                  # K=4,096, O=4: the course's
     ob_ms, ob_by = bound(*k1_work(obst_row["K"], obst_row["N"],
                                   obst_row["O"]))
@@ -3099,7 +2880,8 @@ def main() -> int:
         "launches": obst.launches, "max_abs_err": obst.max_err,
         "ms": obst_row["kernel_ms"], "plain_ms": obst_row["plain_ms"],
         "bound_ms": ob_ms, "bound_by": ob_by, "library_ms": None,
-        "launches_sharded": sharded.launches["K1_obstacle"]})
+        "launches_sharded": sharded.launches["K1_obstacle"],
+        **demo_launches(demos, "K1_obstacle")})
     print(json.dumps({"kernels": kernels}))
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {

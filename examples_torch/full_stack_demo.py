@@ -1,0 +1,359 @@
+"""The full stack in one loop: RBPF mapping → D* Lite replanning → fused
+MPPI control, through initially unknown obstacles.
+
+Counterpart of ``examples/full_stack_demo.py``. The reference runs these
+as separate launches (mapping: bmapping/launch/slam.launch; global
+planning on a static yaml world: planner/src/grid_planner_node.cpp:217-264
+with a simulated truth reveal; local control: nuturtle_robot
+mppi_waypoints.launch). Here they are one loop: every scan interval the
+particle filter (kernels K2 and K3; K4 builds its first field) refines
+pose and map from lidar on drifting odometry, the best particle's
+occupancy grid, inflated, feeds D* Lite's belief — the planner's sensor is
+the live SLAM map, not a scripted reveal — and the MPPI controller (kernel
+K1) chases a lookahead point on the replanned path. The robot must find a
+barrier across the straight route and drive round it through a gap that
+no map showed it.
+
+    python -m examples_torch.full_stack_demo [--device cpu]
+
+D* Lite runs on the host, so the SLAM pose and the best grid cross to the
+host once per scan, in one copy after the update; nothing is read inside
+the control chunk.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from examples_torch import Marks, device_parser, draw, out_path, synchronize
+from examples_torch.rbpf_explore_demo import body_twist
+from tpunav_torch.control.mppi import MPPIConfig, init_controls, mppi_solve
+from tpunav_torch.device import DEFAULT_DEVICE, resolve
+from tpunav_torch.estimation.rbpf import (GridConfig, PFConfig, best_particle,
+                                          pf_init, pf_slam_step)
+from tpunav_torch.estimation.rbpf.icp import ICPConfig
+from tpunav_torch.models.cart import CartParams, kinematic_cart
+from tpunav_torch.ops.fused_mppi import mppi_solve_fused
+from tpunav_torch.ops.rk4 import rk4_step
+from tpunav_torch.planning.dstar import dstar_from_labels
+from tpunav_torch.planning.grid_map import FREE, OBSTACLE
+from tpunav_torch.sim.lidar import scan_segments
+
+MODEL = CartParams(0.033, 0.160)
+TICK_DT = 1.0 / 60.0
+WHEEL_BIAS = (1.03, 1.0)        # odometry drift
+SCAN_SEED = 97
+START_XY = (-1.2, -1.2)
+GOAL_XY = (1.2, -0.9)           # the straight line crosses the barrier
+LOOKAHEAD = 8                   # cells (~0.4 m) ahead on the D* path
+
+
+def make_world(dtype=torch.float32, device=DEFAULT_DEVICE):
+    """Box arena with an unknown interior barrier: a wall across the
+    middle with one gap near the top — the direct start→goal line is
+    blocked. (5, 4) segments [ax, ay, bx, by]."""
+    segs = [
+        [-1.8, -1.8, 1.8, -1.8], [1.8, -1.8, 1.8, 1.8],
+        [1.8, 1.8, -1.8, 1.8], [-1.8, 1.8, -1.8, -1.8],
+        # Barrier x=0 from y=-1.8 up to y=0.9 (gap 0.9..1.8).
+        [0.0, -1.8, 0.0, 0.9],
+    ]
+    return torch.tensor(segs, dtype=dtype).to(resolve(device))
+
+
+def occupancy_to_labels(grid_cfg: GridConfig, log_odds: np.ndarray,
+                        inflate_cells: int = 3) -> np.ndarray:
+    """Best-particle log-odds → D* planning labels: occupied cells become
+    OBSTACLE, dilated by the robot radius (the reference's C-space
+    inflation, planner/src/planner/grid_map.cpp:225-437)."""
+    occ = np.asarray(log_odds >= grid_cfg.l_occ)
+    if inflate_cells > 0:
+        h, w = occ.shape
+        pad = np.zeros((h + 2 * inflate_cells, w + 2 * inflate_cells),
+                       bool)
+        pad[inflate_cells:-inflate_cells, inflate_cells:-inflate_cells] = occ
+        acc = np.zeros_like(occ)
+        for dy in range(2 * inflate_cells + 1):
+            for dx in range(2 * inflate_cells + 1):
+                acc |= pad[dy:dy + h, dx:dx + w]
+        occ = acc
+    labels = np.full(occ.shape, FREE, np.int8)
+    labels[occ] = OBSTACLE
+    return labels
+
+
+def _xyt(p):
+    return torch.stack([p[1], p[2], p[0]])
+
+
+def _txy(p):
+    return torch.stack([p[2], p[0], p[1]])
+
+
+def configs(num_particles=500, use_fused=True, rollouts=None):
+    """(pf_cfg, mppi_cfg). A wider proposal spread than the exploration
+    demo: the course crosses the whole arena on drifting odometry, so the
+    Gaussian proposal needs cm-scale sample diversity for the scan and
+    pose likelihoods to pull the particle cloud back to the map. K=2,048
+    on the fused solve, 256 on the plain one, unless ``rollouts``."""
+    pf_cfg = PFConfig(num_particles=num_particles, k_samples=50,
+                      sample_range=(3e-5, 3e-4, 3e-4),
+                      motion_noise=(1e-5, 1e-4, 1e-4),
+                      grid=GridConfig(), icp=ICPConfig(max_iter=25))
+    k = rollouts or (2048 if use_fused else 256)
+    return pf_cfg, MPPIConfig(horizon=0.5, dt=0.01, rollouts=k)
+
+
+def build(num_particles=500, ticks_per_scan=12, use_fused=True, seed=5,
+          rollouts=None, device=DEFAULT_DEVICE):
+    """The loop's three stages on ``device``. Returns (pf_cfg, mppi_cfg,
+    control_chunk, sense, slam_update):
+
+    - ``control_chunk(true_pose, odom_pose, slam_pose, u, target, tick,
+      noise=None)``: ``ticks_per_scan`` MPPI ticks chasing ``target``, the
+      controller fed the SLAM pose carried forward by the odometry
+      increment (the reference's map→odom · odom→base chain,
+      slam_node.cpp:306-339). The fused solve seeds K1 with
+      tick · ticks_per_scan + t; the plain one draws from a generator
+      seeded ``seed``. ``noise``: per tick an (N, K, 2) draw in place of
+      either.
+    - ``sense(true_pose, noise=None)``: the 360-beam scan of the world,
+      2 mm range noise from a generator seeded 97 (or ``noise``).
+    - ``slam_update(pf, scan, cur_odom, prev_odom, noise=None)``:
+      ``pf_slam_step`` (``noise``: its ``PFNoise``), then the best
+      particle; returns (pf, pose, grid)."""
+    device = resolve(device)
+    pf_cfg, mppi_cfg = configs(num_particles, use_fused, rollouts)
+    grid = pf_cfg.grid
+    segs = make_world(device=device)
+    wheel_bias = torch.tensor(WHEEL_BIAS, dtype=torch.float32).to(device)
+    seed0 = torch.zeros((), dtype=torch.int32, device=device)
+    mppi_gen = torch.Generator(device=device)
+    mppi_gen.manual_seed(seed)
+    scan_gen = torch.Generator(device=device)
+    scan_gen.manual_seed(SCAN_SEED)
+    f = lambda x, uu: kinematic_cart(MODEL, x, uu)  # noqa: E731
+
+    def control_chunk(true_pose, odom_pose, slam_pose, u, target, tick,
+                      noise=None):
+        for t in range(ticks_per_scan):
+            z = None if noise is None else noise[t]
+            if use_fused:
+                cmd, u = mppi_solve_fused(
+                    mppi_cfg, MODEL, u, seed0 + (tick * ticks_per_scan + t),
+                    _xyt(slam_pose), target, noise=z)
+            else:
+                cmd, u = mppi_solve(mppi_cfg, MODEL, u, mppi_gen,
+                                    _xyt(slam_pose), target,
+                                    noise=None if z is None
+                                    else z.transpose(0, 1))
+            true_pose = _txy(rk4_step(f, _xyt(true_pose), cmd, TICK_DT))
+            biased = cmd * wheel_bias
+            odom_pose = _txy(rk4_step(f, _xyt(odom_pose), biased, TICK_DT))
+            slam_pose = _txy(rk4_step(f, _xyt(slam_pose), biased, TICK_DT))
+        return true_pose, odom_pose, slam_pose, u
+
+    def sense(true_pose, noise=None):
+        return scan_segments(true_pose, segs, num_beams=grid.num_beams,
+                             max_range=grid.range_max, generator=scan_gen,
+                             noise_std=0.002, noise=noise)
+
+    def slam_update(pf, scan, cur_odom, prev_odom, noise=None):
+        pf = pf_slam_step(pf_cfg, pf, scan, body_twist(cur_odom, prev_odom),
+                          cur_odom, prev_odom, noise=noise)
+        pose, grid_best = best_particle(pf)
+        return pf, pose, grid_best
+
+    return pf_cfg, mppi_cfg, control_chunk, sense, slam_update
+
+
+def cell_of(grid_cfg: GridConfig, xy):
+    """(iy, ix) of a world point, clipped to the map."""
+    h, w = grid_cfg.height, grid_cfg.width
+    ix = int(np.clip((xy[0] - grid_cfg.xmin) / grid_cfg.resolution, 0, w - 1))
+    iy = int(np.clip((xy[1] - grid_cfg.ymin) / grid_cfg.resolution, 0, h - 1))
+    return (iy, ix)
+
+
+def lookahead_target(grid_cfg: GridConfig, path):
+    """The world point LOOKAHEAD cells along the D* path (the goal where
+    the path is a single cell)."""
+    if len(path) > 1:
+        cell = path[min(LOOKAHEAD, len(path) - 1)]
+        return (grid_cfg.xmin + (cell[1] + 0.5) * grid_cfg.resolution,
+                grid_cfg.ymin + (cell[0] + 0.5) * grid_cfg.resolution)
+    return GOAL_XY
+
+
+def run(num_particles=500, max_scans=220, ticks_per_scan=12,
+        use_fused=None, seed=5, verbose=True, rollouts=None,
+        device=DEFAULT_DEVICE):
+    """The closed loop from the start pose until the SLAM pose is within
+    0.15 m of the goal, or ``max_scans``. ``use_fused`` defaults to True on
+    the card (K1 at K=2,048) and False on the CPU (the plain solver at
+    K=256). Returns ``tpunav``'s dict (reached, scans, wall_s,
+    final_goal_err_m, slam_vs_true_m, trails, grid, planner, stream) and
+    ``ms_per_scan``: the control chunk and the SLAM update on the device's
+    clock, D* (``observe`` + ``path_to_goal``) on the host's."""
+    device = resolve(device)
+    if use_fused is None:
+        use_fused = device.type == "cuda"
+    pf_cfg, mppi_cfg, control_chunk, sense, slam_update = build(
+        num_particles, ticks_per_scan, use_fused, seed, rollouts, device)
+    grid_cfg = pf_cfg.grid
+    h, w = grid_cfg.height, grid_cfg.width
+
+    pose0 = torch.tensor([0.8, START_XY[0], START_XY[1]],
+                         dtype=torch.float32).to(device)
+    true_pose = odom_pose = slam_pose = pose0
+    pf = pf_init(pf_cfg, pose=pose0, seed=seed, device=device)
+    u = init_controls(mppi_cfg, device=device)
+
+    planner = dstar_from_labels(np.full((h, w), FREE, np.int8),
+                                cell_of(grid_cfg, START_XY),
+                                cell_of(grid_cfg, GOAL_XY))
+    planner.compute_shortest_path()
+
+    marks = Marks(device)
+    scan_marks, dstar_s = [], 0.0
+    trail_true, trail_slam = [], []
+    stream = []       # per-scan metrics (goal dist, SLAM err, plan len)
+    slam_np, true_np = pose0.cpu().numpy(), pose0.cpu().numpy()
+    synchronize(device)
+    t0 = time.perf_counter()
+    reached = False
+    for tick in range(max_scans):
+        # D* belief ← live SLAM map; replan; lookahead target.
+        planner.pos = cell_of(grid_cfg, (slam_np[1], slam_np[2]))
+        if planner.pos == planner.goal or (
+                np.hypot(slam_np[1] - GOAL_XY[0],
+                         slam_np[2] - GOAL_XY[1]) < 0.15):
+            reached = True
+            break
+        t_d = time.perf_counter()
+        path = planner.path_to_goal()
+        dstar_s += time.perf_counter() - t_d
+        tx, ty = lookahead_target(grid_cfg, path)
+        target = torch.tensor([tx, ty, 0.0], dtype=torch.float32).to(
+            device, non_blocking=True)
+
+        prev_odom = odom_pose
+        m0 = marks.mark()
+        true_pose, odom_pose, slam_pose, u = control_chunk(
+            true_pose, odom_pose, slam_pose, u, target, tick)
+        m1 = marks.mark()
+        pf, slam_pose, grid_best = slam_update(pf, sense(true_pose),
+                                               odom_pose, prev_odom)
+        m2 = marks.mark()
+        scan_marks.append((m0, m1, m2))
+        # The one copy to the host per scan: both poses and the grid.
+        flat = torch.cat([slam_pose, true_pose, grid_best.reshape(-1)]).cpu()
+        slam_np, true_np = flat[:3].numpy(), flat[3:6].numpy()
+        grid_np = flat[6:].reshape(h, w).numpy()
+
+        # Feed the planner the fresh map (host-side labels diff).
+        t_d = time.perf_counter()
+        labels = occupancy_to_labels(grid_cfg, grid_np)
+        labels[planner.goal] = FREE   # goal itself never inflated shut
+        planner.observe(labels)
+        dstar_s += time.perf_counter() - t_d
+
+        trail_true.append(true_np)
+        trail_slam.append(slam_np)
+        stream.append((np.hypot(true_np[1] - GOAL_XY[0],
+                                true_np[2] - GOAL_XY[1]),
+                       np.hypot(*(slam_np[1:] - true_np[1:])),
+                       len(path)))
+        if verbose and tick % 20 == 0:
+            print(f"scan {tick:3d}: slam=({slam_np[1]:+.2f},"
+                  f"{slam_np[2]:+.2f}) target=({tx:+.2f},{ty:+.2f})",
+                  flush=True)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    n = max(len(scan_marks), 1)
+    final_err = np.hypot(true_np[1] - GOAL_XY[0], true_np[2] - GOAL_XY[1])
+    return {
+        "reached": reached, "scans": tick + 1, "wall_s": wall,
+        "final_goal_err_m": float(final_err),
+        "slam_vs_true_m": float(np.hypot(*(slam_np[1:] - true_np[1:]))),
+        "trail_true": np.asarray(trail_true),
+        "trail_slam": np.asarray(trail_slam),
+        "grid": best_particle(pf)[1].cpu().numpy(),
+        "planner": planner,
+        "stream": np.asarray(stream),
+        "updates": len(scan_marks),
+        "ms_per_scan": {
+            "control_chunk": sum(marks.ms(a, b) for a, b, _ in scan_marks)
+            / n,
+            "slam_update": sum(marks.ms(b, c) for _, b, c in scan_marks) / n,
+            "dstar_host": 1e3 * dstar_s / n,
+            "whole": 1e3 * wall / n},
+        "rollouts": mppi_cfg.rollouts,
+    }
+
+
+def plot(out, grid_cfg=GridConfig(), path=None):
+    """The best particle's map with the true and SLAM trails."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from tpunav_torch.viz import draw_robot
+
+    path = path or out_path("full_stack_demo.png")
+    fig, ax = plt.subplots(figsize=(6, 6))
+    occ = out["grid"] >= grid_cfg.l_occ
+    ax.imshow(occ, origin="lower", cmap="Greys",
+              extent=[grid_cfg.xmin, grid_cfg.xmax, grid_cfg.ymin,
+                      grid_cfg.ymax], alpha=0.8)
+    tt, ts = out["trail_true"], out["trail_slam"]
+    ax.plot(tt[:, 1], tt[:, 2], "g-", lw=1.5, label="true path")
+    ax.plot(ts[:, 1], ts[:, 2], "b--", lw=1.0, label="SLAM estimate")
+    draw_robot(tt[-1], ax=ax)
+    ax.plot([START_XY[0]], [START_XY[1]], "go", ms=8)
+    ax.plot([GOAL_XY[0]], [GOAL_XY[1]], "r*", ms=14, label="goal")
+    ax.legend(loc="upper left", fontsize=8)
+    ax.set_title("RBPF map -> D* Lite replanning -> MPPI (one loop)")
+    fig.savefig(path, dpi=110)
+    plt.close(fig)
+    print(f"wrote {path}")
+
+
+def plot_stream(out):
+    """The per-scan observability stream (the rqt_plot analog)."""
+    from tpunav_torch.viz import plot_series
+
+    s = out["stream"]
+    path = plot_series(
+        {"distance to goal [m]": s[:, 0],
+         "SLAM-vs-true |xy| err [cm]": s[:, 1] * 100,
+         "D* path length [cells]": s[:, 2]},
+        [("m", ["distance to goal [m]"]),
+         ("cm", ["SLAM-vs-true |xy| err [cm]"]),
+         ("cells", ["D* path length [cells]"])],
+        out_path("full_stack_timeseries.png"),
+        title="full stack: RBPF map → D* Lite → MPPI", xlabel="scan")
+    print(f"wrote {path}", flush=True)
+
+
+def main():
+    args = device_parser(__doc__.splitlines()[0]).parse_args()
+    out = run(device=args.device)
+    ms = out["ms_per_scan"]
+    print(f"reached={out['reached']} in {out['scans']} scans "
+          f"({out['wall_s']:.1f}s wall); final goal error "
+          f"{out['final_goal_err_m'] * 100:.1f} cm; SLAM-vs-true "
+          f"{out['slam_vs_true_m'] * 100:.1f} cm; per scan: control "
+          f"{ms['control_chunk']:.1f} ms, SLAM {ms['slam_update']:.1f} ms, "
+          f"D* {ms['dstar_host']:.1f} ms (host)", flush=True)
+    assert out["reached"], "goal not reached"
+    assert out["final_goal_err_m"] < 0.3
+    draw(plot, out)
+    draw(plot_stream, out)
+
+
+if __name__ == "__main__":
+    main()

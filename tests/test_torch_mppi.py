@@ -253,8 +253,8 @@ def test_set_initial_controls():
 # ------------------------------------------------------------ guards ----
 
 def test_port_imports_no_jax():
-    """Every module of the package, and the port's demos, import without
-    jax or tpunav."""
+    """Every module of the package, and every demo of the port, import
+    without jax, tpunav, or tpunav's demos and results script."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tpunav_torch\n"
@@ -262,9 +262,21 @@ def test_port_imports_no_jax():
         "    tpunav_torch.__path__, 'tpunav_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "for name in ('examples_torch', 'examples_torch.mppi_two_process',\n"
-        "             'examples_torch.rbpf_two_process'):\n"
+        "import examples_torch\n"
+        "demos = [m.name for m in pkgutil.iter_modules(\n"
+        "    examples_torch.__path__, 'examples_torch.')]\n"
+        "for name in demos:\n"
         "    importlib.import_module(name)\n"
+        "want = {'examples_torch.' + d for d in (\n"
+        "    'rbpf_explore_demo', 'full_stack_demo', 'lidar_ekf_slam_demo',\n"
+        "    'dense_world_slam_demo', 'slam_mppi_closed_loop_demo',\n"
+        "    'mppi_waypoints_demo', 'obstacle_mppi_demo', 'ekf_slam_demo',\n"
+        "    'rbpf_slam_demo', 'planners_demo', 'rigid2d_frames_demo',\n"
+        "    'live_view_demo', 'full_stack_two_process',\n"
+        "    'profile_rbpf_stages', 'make_results', 'mppi_two_process',\n"
+        "    'rbpf_two_process')}\n"
+        "assert want <= set(demos), want - set(demos)\n"
+        "importlib.import_module('chip_smoke')\n"
         "need = {'tpunav_torch.interop', 'tpunav_torch.ops.fused_mppi',\n"
         "        'tpunav_torch.ops.likelihood', 'tpunav_torch.ops.map_update',\n"
         "        'tpunav_torch.estimation.rbpf.particle_filter',\n"
@@ -286,7 +298,8 @@ def test_port_imports_no_jax():
         "        'tpunav_torch.parallel.rbpf_sharded'}\n"
         "assert need <= set(names), need - set(names)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpunav'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpunav',\n"
+        "                                    'examples', 'make_results'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,8 +1,8 @@
 """The port's TCP bus (``runtime/net.py``, a copy of ``tpunav``'s with the
 accept-loop repair) and the node graph across two OS processes.
 
-The two-process graph is ``chip_smoke.py``'s counterpart of
-examples/full_stack_two_process.py, run here on the CPU: the robot
+The two-process graph is ``examples_torch.full_stack_two_process``, the
+counterpart of examples/full_stack_two_process.py, run here on the CPU: the robot
 (plant, turtle_interface, odometer, landmark sensor) in one process and
 the laptop (PRM + Theta*, EKF SLAM, the MPPI driver through K1's plain
 version at K=128) in another, lockstep over the bus, against the same
@@ -14,7 +14,7 @@ import time
 
 import numpy as np
 
-import chip_smoke
+from examples_torch import full_stack_two_process as fstp
 from tpunav_torch.runtime.net import BusClient, BusServer, wait_for_new
 
 
@@ -124,9 +124,9 @@ def test_two_process_lockstep_matches_single_process(tmp_path):
     """80 lockstep cycles across two processes equal the single-process run
     of the same graph within 1e-9 (tests/test_net.py:114-115's bar), and
     the robot moves more than 5 cm."""
-    truth2, slam2, steady = chip_smoke.fs_run_two_process(
-        str(tmp_path), 80, 128, "cpu")
-    truth1, slam1 = chip_smoke.fs_run_single(80, 128, "cpu")
+    truth2, slam2, steady = fstp.run_two_process(str(tmp_path), 80, 128,
+                                                 "cpu")
+    truth1, slam1 = fstp.run_single(80, 128, "cpu")
     assert truth2.shape == truth1.shape == (80, 3)
     assert np.max(np.abs(truth2 - truth1)) < 1e-9
     assert np.max(np.abs(slam2 - slam1)) < 1e-9

@@ -470,6 +470,7 @@ def _entry_points():
         "pf_init_sharded": lambda: pf_init_sharded(
             pcfg, rollout_mesh(device="cpu")),
         **_node_entry_points(pcfg),
+        **_demo_entry_points(),
     }
 
 
@@ -500,6 +501,62 @@ def _node_entry_points(pcfg):
         "TurtleWay": lambda: TurtleWay([(0.0, 0.0), (1.0, 0.0)], 1.0, 0.5,
                                        60.0, *ch(2)),
     }
+
+
+def _demo_entry_points():
+    """The demos' run-style functions (``examples_torch/``)."""
+    from examples_torch import (dense_world_slam_demo, ekf_slam_demo,
+                                full_stack_demo, lidar_ekf_slam_demo,
+                                live_view_demo, make_results,
+                                mppi_waypoints_demo, obstacle_mppi_demo,
+                                planners_demo, profile_rbpf_stages,
+                                rbpf_explore_demo, rbpf_slam_demo,
+                                slam_mppi_closed_loop_demo)
+
+    ex, fs, le = rbpf_explore_demo, full_stack_demo, lidar_ekf_slam_demo
+    step, known, ekf_cfg = le.CONFIGS["known"]
+    return {f"examples_torch.{name}": fn for name, fn in {
+        "rbpf_explore_demo.build": lambda: ex.build(2, 1, 32),
+        "rbpf_explore_demo.init_state": lambda: ex.init_state(
+            *ex.configs(2, 32)),
+        "rbpf_explore_demo.run_experiment": lambda: ex.run_experiment(2, 1,
+                                                                      32),
+        "rbpf_explore_demo.seed_sweep": lambda: ex.seed_sweep((0,), 2),
+        "full_stack_demo.make_world": lambda: fs.make_world(),
+        "full_stack_demo.build": lambda: fs.build(2),
+        "full_stack_demo.run": lambda: fs.run(2, max_scans=1),
+        "lidar_ekf_slam_demo.make_sim": lambda: le.make_sim(step, ekf_cfg,
+                                                            known, 1),
+        "lidar_ekf_slam_demo.run": lambda: le.run(step, ekf_cfg, known, 1),
+        "lidar_ekf_slam_demo.run_many": lambda: le.run_many(
+            step, ekf_cfg, known, [0], 1),
+        "dense_world_slam_demo.build": lambda: dense_world_slam_demo.build(1),
+        "dense_world_slam_demo.run": lambda: dense_world_slam_demo.run(
+            steps=1),
+        "dense_world_slam_demo.run_batch":
+            lambda: dense_world_slam_demo.run_batch([0], 1),
+        "slam_mppi_closed_loop_demo.run":
+            lambda: slam_mppi_closed_loop_demo.run(
+                "x", slam_mppi_closed_loop_demo.block_world(), True, 12),
+        "mppi_waypoints_demo.run": lambda: mppi_waypoints_demo.run(True, 32),
+        "obstacle_mppi_demo.run": lambda: obstacle_mppi_demo.run(32),
+        "ekf_slam_demo.run": lambda: ekf_slam_demo.run(
+            *ekf_slam_demo.CONFIGS["known-DA "], steps=1),
+        "rbpf_slam_demo.course_inputs": lambda: rbpf_slam_demo.course_inputs(
+            GridConfig(**SMALL), 1),
+        "rbpf_slam_demo.run": lambda: rbpf_slam_demo.run(2, 1),
+        "planners_demo.run_dstar": lambda: planners_demo.run_dstar(),
+        "planners_demo.run_potential_field":
+            lambda: planners_demo.run_potential_field(),
+        "live_view_demo.build": lambda: live_view_demo.build("x.png"),
+        "live_view_demo.build_rbpf": lambda: live_view_demo.build_rbpf(
+            "x.png"),
+        "profile_rbpf_stages.stage_times":
+            lambda: profile_rbpf_stages.stage_times(2),
+        "profile_rbpf_stages.profile_closed_loop":
+            lambda: profile_rbpf_stages.profile_closed_loop(2, 1, 32),
+        "make_results.main": lambda: make_results.main(["--rows", "1"]),
+    }.items()}
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))

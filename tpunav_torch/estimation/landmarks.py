@@ -39,6 +39,11 @@ import torch
 
 from ..device import full_precision_matmul
 
+# The circle fit's dtype (see the module's docstring). float64 always in
+# the package; tools/detector_fit_precision.py sets float32 to measure
+# what the float64 fit is worth on a course.
+FIT_DTYPE = torch.float64
+
 _SIGMA4_EPS = 1e-12   # small-singular-value branch (ref: landmarks.cpp:168)
 
 
@@ -204,7 +209,7 @@ def fit_circles(cfg: LandmarkConfig, pts, ids, valid):
     featureDetection landmarks.cpp:269-276): centroid → centroid shift →
     moment accumulation → 4x4 algebraic fit."""
     dtype = pts.dtype
-    pts = pts.to(torch.float64)
+    pts = pts.to(FIT_DTYPE)
     with full_precision_matmul():
         onehot, slot = _segments(cfg, ids, valid, pts.dtype)
         count = onehot.sum(dim=1)
