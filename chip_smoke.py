@@ -40,6 +40,16 @@ drives the port's paths:
   NCCL rank and in two gloo ranks sharing the card (``sharded_mppi``),
   and P-sharded RBPF at config 5 through K2–K4 in two gloo ranks
   (``sharded_rbpf``), each held against the unsharded path;
+- the loops as CUDA graphs (``tpunav_torch/capture.py``, the
+  :class:`CudaGraphs` phases), each held to its eager path bit for bit:
+  the flagship and obstacle courses through ``run_course`` and
+  ``run_course_chunked`` (``graph_course``), ``bench.py``'s 100 chained
+  solves in one graph at K=49,152 and 4,096 (``graph_solves``), config 5's
+  120 RBPF updates through ``PFStepper`` (``graph_rbpf``), and config 3
+  through ``run_slam_loop`` with the EKF update alone through
+  ``EKFStepper`` (``graph_ekf``); the ``course``, ``obstacle_course`` and
+  ``ekf_course`` phases replay graphs too, and the launch counters count a
+  graph's launches on every replay;
 - the closed-loop demos (``examples_torch/``, the :class:`Demos` phases):
   the RBPF exploration under K1 at config 5 with its checkpoint and
   resume (``explore``), the full stack — RBPF map → D* Lite → K1, all four
@@ -341,8 +351,10 @@ class Smoke:
         if launches != ticks:
             raise AssertionError(f"{launches} kernel solves for {ticks} "
                                  "ticks: the course did not run on K1")
-        steady = ((ticks - chunk) / (marks[-1] - marks[0])
-                  if len(marks) > 1 else None)
+        # The first chunk runs eagerly (the graph's warm-up) and the second
+        # is captured: the steady rate is the replays'.
+        steady = ((ticks - 2 * chunk) / (marks[-1] - marks[1])
+                  if len(marks) > 2 else None)
         self.course_launches = launches
         self.steady = steady
         emit("course", seconds=wall, K=cfg.rollouts, N=cfg.steps,
@@ -354,7 +366,7 @@ class Smoke:
     def times(self):
         t0 = time.perf_counter()
         rows = []
-        for k in (4096, 49152):
+        for k in (4096, 49152, 196608):
             cfg = self.cfg(k)
             u, pose, xd, _ = self.tensors(cfg)
             seed = torch.tensor(5, dtype=torch.int32, device=self.dev)
@@ -374,9 +386,10 @@ class Smoke:
              card=self.card, rows=rows)
 
     def profile(self):
-        """Device time by kernel (torch.profiler) per tick of the flagship
-        course, with the device's idle share against the unprofiled steady
-        tick time of the course (K1 alone: ``kernel_times``)."""
+        """Device time by kernel (torch.profiler) per eager tick of the
+        flagship course, with the device's idle share against the same
+        ticks' unprofiled time (K1 alone: ``kernel_times``; the course's
+        graph: ``graph_course``)."""
         from tpunav_torch.control.waypoint_loop import course_tick
 
         t0 = time.perf_counter()
@@ -386,18 +399,15 @@ class Smoke:
         def tick():
             box[0] = course_tick(cfg, course, self.model, wpts, box[0])
 
-        for _ in range(10):
-            tick()
         ticks = 120
+        tick_us = wall_us(tick, ticks, warmup=10)
         kern = kernel_profile(tick, ticks)
         busy = sum(us for us, _ in kern.values()) / ticks
-        tick_us = 1e6 / self.steady if self.steady else None
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
         emit("profile", seconds=time.perf_counter() - t0,
              card=self.card, course_ticks=ticks, device_us_per_tick=busy,
              kernels_per_tick=sum(c for _, c in kern.values()) / ticks,
-             unprofiled_tick_us=tick_us,
-             device_idle_share=None if tick_us is None else 1 - busy / tick_us,
+             unprofiled_tick_us=tick_us, device_idle_share=1 - busy / tick_us,
              top_kernels_us_per_tick={name[:60]: us / ticks
                                       for name, (us, _) in top})
 
@@ -902,8 +912,10 @@ class Obstacle:
                       "K4": 0}:
             raise AssertionError(f"launches {counts} for {ticks} ticks: the "
                                  "course did not run on K1's obstacle mode")
-        steady = ((ticks - chunk) / (marks[-1] - marks[0])
-                  if len(marks) > 1 else None)
+        # The first chunk runs eagerly (the graph's warm-up) and the second
+        # is captured: the steady rate is the replays'.
+        steady = ((ticks - 2 * chunk) / (marks[-1] - marks[1])
+                  if len(marks) > 2 else None)
         self.course_cfg = (cfg, course, waypoints, segs)
         self.launches, self.steady = counts["K1"], steady
         emit("obstacle_course", seconds=wall, K=cfg.rollouts, N=cfg.steps,
@@ -992,9 +1004,10 @@ class Obstacle:
              card=self.card, rows=rows)
 
     def profile(self):
-        """torch.profiler over 120 steady ticks of the obstacle course:
+        """torch.profiler over 120 eager ticks of the obstacle course:
         device µs and launches per tick, and the device's idle share
-        against the course's unprofiled steady tick time."""
+        against the same ticks' unprofiled time (the course's graph:
+        ``graph_course``)."""
         from tpunav_torch.control.waypoint_loop import (_tick, course_init)
 
         t0 = time.perf_counter()
@@ -1007,18 +1020,15 @@ class Obstacle:
             box[0] = _tick(cfg, course, self.s.model, wpts, box[0], None,
                            table)
 
-        for _ in range(10):
-            tick()
         ticks = 120
+        tick_us = wall_us(tick, ticks, warmup=10)
         kern = kernel_profile(tick, ticks)
         busy = sum(us for us, _ in kern.values()) / ticks
-        tick_us = 1e6 / self.steady if self.steady else None
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
         emit("obstacle_profile", seconds=time.perf_counter() - t0,
              card=self.card, course_ticks=ticks, device_us_per_tick=busy,
              kernels_per_tick=sum(c for _, c in kern.values()) / ticks,
-             unprofiled_tick_us=tick_us,
-             device_idle_share=None if tick_us is None else 1 - busy / tick_us,
+             unprofiled_tick_us=tick_us, device_idle_share=1 - busy / tick_us,
              top_kernels_us_per_tick={name[:60]: us / ticks
                                       for name, (us, _) in top})
 
@@ -1067,40 +1077,6 @@ def launches(fn, reps: int = 3) -> float:
     call."""
     fn()
     return launches_per_call(fn, reps)
-
-
-def masked_slam(ekff, cfg, st, meas, u, known: bool):
-    """The graph-safe alternative to the filter's dynamic trip count: a
-    fixed trip over all M rows, each invalid row an exact no-op through
-    ``torch.where``, and no host read. Timed beside the filter in
-    ``Ekf.times``; the package keeps the faster one."""
-    from tpunav_torch.device import full_precision_matmul
-
-    with full_precision_matmul():
-        like = st.state
-        w, v = ekff._noise_draws(cfg, None, meas.shape[0], like)
-        state = ekff.motion_update(cfg, st.state, u, w)
-        cov = ekff.uncertainty_update(cfg, st.state,
-                                      ekff._repair(cfg, st.cov), u)
-        valid = torch.isfinite(meas).all(dim=-1)
-        r, b = ekff._polar(torch.where(valid[:, None],
-                                       torch.nan_to_num(meas), 0.0))
-        b_norm = ekff.normalize_angle_pi(b)
-        k = ekff._update_consts(cfg, like)
-        rows = torch.arange(meas.shape[0], device=like.device)
-        carry = ((state, cov, st.active) if known else
-                 (state, cov, st.active, st.count))
-        for i in range(meas.shape[0]):
-            row = (r[i], b[i], b_norm[i], v[i])
-            new = (ekff._known_row(cfg, k, carry, rows[i:i + 1], row)
-                   if known else ekff._unknown_row(cfg, k, carry, row))
-            carry = tuple(torch.where(valid[i], a, c)
-                          for a, c in zip(new, carry))
-    if known:
-        state, cov, active = carry
-        return ekff.EKFState(state, cov, active,
-                             active.sum(dtype=torch.int32))
-    return ekff.EKFState(*carry)
 
 
 class Ekf:
@@ -1324,8 +1300,11 @@ class Ekf:
     def course(self):
         """BASELINE config 3 as the demo runs it
         (examples_torch.slam_mppi_closed_loop_demo: run_slam_loop to done
-        or 6,000 ticks from seed 1); the demo's gates (done, EKF error <
-        odometry error) and one K1 launch per tick."""
+        or 6,000 ticks from seed 1, which replays chunks of held ticks as
+        CUDA graphs); the demo's gates (done, EKF error < odometry error)
+        and one K1 launch per tick run, the held ticks of the last chunk
+        included (the launch counters count a graph's launches on every
+        replay)."""
         demo = self.c3_demo
         torch.cuda.synchronize()
         reset_counts()
@@ -1339,19 +1318,23 @@ class Ekf:
         if not ekf_err < odo_err:
             raise AssertionError(f"config 3: EKF error {ekf_err} m not below "
                                  f"odometry's {odo_err} m")
-        if counts != {"K1": ticks, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0}:
-            raise AssertionError(f"launches {counts} for {ticks} ticks: the "
-                                 "loop did not solve on K1 once per tick")
         mppi, ekf, loop = demo.configs(True, 12)
-        self.k1_course, self.c3_tick_us = counts["K1"], 1e6 * wall / ticks
+        chunk = self.sl.default_chunk(loop.sensor_every)
+        ran = chunk * -(-ticks // chunk)
+        if counts != {"K1": ran, "K1_obstacle": 0, "K2": 0, "K3": 0,
+                      "K4": 0}:
+            raise AssertionError(f"launches {counts} for {ran} ticks run "
+                                 f"({ticks} to done): the loop did not solve "
+                                 "on K1 once per tick")
+        self.k1_course, self.c3_state = counts["K1"], st
         emit("ekf_course", seconds=wall, K=mppi.rollouts, N=mppi.steps,
              landmarks=len(demo.block_world()), slots=ekf.num_landmarks,
              known_da=True, sensor_every=loop.sensor_every, ticks=ticks,
              visits=out["visits"], done=True, ekf_error_m=ekf_err,
              odometry_error_m=odo_err,
              landmarks_tracked=int(st.ekf.count), kernel_launches=counts,
-             ticks_per_s=ticks / wall, card=self.card)
+             ticks_run=ran, chunk=chunk, ticks_per_s=ticks / wall,
+             card=self.card)
 
     def dense(self, ticks=5000):
         """BASELINE config 4 at its stated scale
@@ -1478,10 +1461,12 @@ class Ekf:
                 ("config 4: 32 rows, unknown DA", c4, st4.ekf, m4, False),
                 ("bench_ekf: 50 rows, known DA", cfg, self.final_bench,
                  meas[-1], True)]:
-            step = (ekff.known_correspondence_slam if known
-                    else ekff.slam_unknown_da)
+            step, masked = ((ekff.known_correspondence_slam,
+                             ekff.known_correspondence_slam_masked) if known
+                            else (ekff.slam_unknown_da,
+                                  ekff.slam_unknown_da_masked))
             a = step(c, st_, m, u4)
-            b = masked_slam(ekff, c, st_, m, u4, known)
+            b = masked(c, st_, m, u4)
             same = all(torch.equal(x, y) for x, y in zip(a, b))
             if not same:
                 raise AssertionError(f"masked trip count differs ({shape})")
@@ -1489,14 +1474,12 @@ class Ekf:
                 "shape": shape, "valid_rows": int(torch.isfinite(m).all(
                     -1).sum()), "rows": int(m.shape[0]),
                 "dynamic_us": wall_us(lambda: step(c, st_, m, u4), 10),
-                "masked_us": wall_us(lambda: masked_slam(ekff, c, st_, m, u4,
-                                                         known), 10),
+                "masked_us": wall_us(lambda: masked(c, st_, m, u4), 10),
                 "dynamic_launches": launches(lambda: step(c, st_, m, u4)),
-                "masked_launches": launches(lambda: masked_slam(
-                    ekff, c, st_, m, u4, known)),
+                "masked_launches": launches(lambda: masked(c, st_, m, u4)),
                 "dynamic_syncs": syncs_per_call(lambda: step(c, st_, m, u4), 5),
-                "masked_syncs": syncs_per_call(lambda: masked_slam(
-                    ekff, c, st_, m, u4, known), 5),
+                "masked_syncs": syncs_per_call(lambda: masked(c, st_, m, u4),
+                                               5),
                 "bit_identical": same})
         # The SPD repair of an (S, S) = (103, 103) float32 covariance, as
         # a host branch (the package's) or a torch.where over both.
@@ -1541,8 +1524,10 @@ class Ekf:
         """torch.profiler over config 3's and config 4's ticks (a window
         holding a whole number of sensing periods, after warm-up): launches
         per tick and per sensing update, device busy µs and idle share
-        against the course's unprofiled tick time, host syncs per tick, the
-        top device operations."""
+        against the eager ticks' unprofiled time (config 3: the same window
+        timed; config 4: ``dense_world``'s ticks), host syncs per tick, the
+        top device operations. The graph of config 3's ticks:
+        ``graph_ekf``."""
         t0 = time.perf_counter()
         out = {}
         mppi, ekf, loop, wpts, lms = self.config3()
@@ -1552,8 +1537,7 @@ class Ekf:
             box[0] = self.sl.slam_loop_tick(mppi, ekf, loop, self.s.model,
                                             wpts, lms, box[0])
 
-        for _ in range(60):
-            tick3()
+        tick_us = wall_us(tick3, 60, warmup=60)
 
         def sense3():
             st = box[0]
@@ -1563,8 +1547,7 @@ class Ekf:
             self.ekff.known_correspondence_slam(ekf, st.ekf, m,
                                                 self.t([0.01, 0.02]))
 
-        out["config3"] = self.profile_window(tick3, 60, sense3,
-                                             self.c3_tick_us)
+        out["config3"] = self.profile_window(tick3, 60, sense3, tick_us)
         mppi, ekf, loop, ring, world, meas_fn = self.config4()
         box4 = [self.sl.slam_loop_init(mppi, ekf, pose_xyt=[1.42, 0.0,
                                                             math.pi / 2],
@@ -2539,6 +2522,407 @@ class Demos:
              kernel_launches=self.launches["rbpf_stages"], card=self.card)
 
 
+# ── The loops as CUDA graphs: tpunav_torch/capture.py on the card ──
+
+def trace_window(fn, reps: int):
+    """torch.profiler over ``reps`` calls of ``fn``: ({device kernel or copy:
+    (device µs, count)}, {host CUDA API call: count}, {kernel: launch
+    counter's change}) over those calls, the window's closing synchronize
+    left out. The window opens on 32 spin kernels, which are left out too:
+    a window opened straight on a course chunk's replay came out 28 device
+    records and one K1 launch short, while the profiler's warm-up step
+    (``schedule``) inflated the device times 2–4×."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        before = read_counts()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        after = read_counts()
+    kern, api = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.self_device_time_total > 0 and "spin" not in e.key:
+                kern[e.key] = (e.self_device_time_total, e.count)
+        elif e.key.startswith("cu"):
+            api[e.key] = e.count
+    api["cudaLaunchKernel"] = api.get("cudaLaunchKernel", 32) - 32
+    api["cudaDeviceSynchronize"] = api.get("cudaDeviceSynchronize", 2) - 2
+    return (kern, {k: v for k, v in api.items() if v},
+            {k: after[k] - before[k] for k in after})
+
+
+def graph_window(step, reps: int, per: int, step_us: float,
+                 attempts: int = 3) -> dict:
+    """A replayed window of ``reps`` steps of ``per`` ticks or updates each:
+    device µs, device operations and host CUDA API calls per tick, the idle
+    share against the unprofiled ``step_us``, the top kernels, and each
+    kernel's count beside its launch counter's change, which must agree.
+    A window that disagrees is reported and profiled again, up to
+    ``attempts`` windows: a counter that is wrong disagrees every time."""
+    misses = []
+    for _ in range(attempts):
+        kern, api, counts = trace_window(step, reps)
+        profiled = {key: sum(c for name, (_, c) in kern.items()
+                             if tag in name)
+                    for key, tag in [("K1", "mppi_rollout_partials"),
+                                     ("K2", "likelihood_"),
+                                     ("K3", "map_update_kernel"),
+                                     ("K4", "edt_kernel")]}
+        counted = {key: counts[key] for key in profiled}
+        if profiled == counted:
+            break
+        misses.append({"counters": counted, "profiler": profiled,
+                       "device_ops": sum(c for _, c in kern.values())})
+    else:
+        raise AssertionError(f"launch counters against the profiler's "
+                             f"kernels in {attempts} windows: {misses}")
+    n = reps * per
+    busy = sum(us for us, _ in kern.values()) / n
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"per_window": reps, "ticks_or_updates": n,
+            "device_us": busy, "device_ops": sum(c for _, c in
+                                                 kern.values()) / n,
+            "host_api_calls": sum(api.values()) / n,
+            "host_api_calls_by_name": {k: v / n for k, v in api.items()},
+            "graph_launches": api.get("cudaGraphLaunch", 0) / n,
+            "unprofiled_us": step_us / per,
+            "device_idle_share": 1 - busy * per / step_us,
+            "counters_equal_profiler": counted, "windows_that_disagreed": misses,
+            "top_device_us": {k[:60]: us / n for k, (us, _) in top}}
+
+
+def same_bits(a, b, names) -> dict:
+    """{name: equal bits} of the named fields of two states."""
+    return {n: bool(torch.equal(getattr(a, n), getattr(b, n)))
+            for n in names}
+
+
+class CudaGraphs:
+    """The loops as CUDA graphs (``tpunav_torch/capture.py``), each held to
+    its eager path bit for bit: the MPPI courses (``run_course``,
+    ``run_course_chunked``), ``bench.py``'s chained solves, the RBPF
+    stepper at config 5, config 3's slam loop (``run_slam_loop``) and the
+    EKF stepper at ``bench_ekf``'s shape. Each reports its rate eager and
+    replayed, and a replayed window's device operations, host API calls
+    and idle share; a kernel's launch counter must equal the profiler's
+    count of its kernel over the window."""
+
+    COURSE_FIELDS = ("pose", "u", "wpt_idx", "visits", "ticks", "done",
+                     "wheel_vel")
+
+    def __init__(self, smoke: Smoke, rbpf: Rbpf, obst: Obstacle, ekf: Ekf):
+        self.s, self.r, self.o, self.e = smoke, rbpf, obst, ekf
+        self.dev, self.card = smoke.dev, smoke.card
+        self.launches = {}
+
+    def course_case(self, cfg, course, wpts, st0, segs, obs_cfg, chunk=240):
+        """One course: the eager per-tick loop (one host read per tick, the
+        obstacle table packed once), on past done to the chunk boundary;
+        run_course (held ticks, chunks of 120) against its state at done;
+        run_course_chunked against its chunks' states and telemetry; a
+        replayed window of 120-tick chunks."""
+        from tpunav_torch.control import waypoint_loop as wl
+
+        model, fm = self.s.model, self.s.fm
+        table = fm.pack_obstacles(segs, obs_cfg, self.dev)
+        kw = {} if segs is None else {"obstacles": segs, "obs_cfg": obs_cfg}
+        states, st = [], st0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while not bool(st.done):
+            states.append(st)
+            st = wl._tick(cfg, course, model, wpts, st, None, table)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        at_done, ticks = st, len(states)
+        while len(states) % chunk:
+            states.append(st)
+            st = wl._tick(cfg, course, model, wpts, st, None, table)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        held = wl.run_course(cfg, course, model, wpts, st0, **kw)
+        torch.cuda.synchronize()
+        held_s = time.perf_counter() - t0
+        held_counts = read_counts()
+        seen, marks = [], []
+
+        def on_chunk(s, tel):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            seen.append((s, tel))
+
+        chunked = wl.run_course_chunked(cfg, course, model, wpts, st0,
+                                        chunk=chunk, on_chunk=on_chunk, **kw)
+        same = {"run_course": same_bits(held, at_done, self.COURSE_FIELDS),
+                "run_course_chunked": same_bits(chunked, st,
+                                                self.COURSE_FIELDS)}
+        tel_same = len(seen) * chunk == len(states)
+        for i, (s, tel) in enumerate(seen):
+            rows = states[i * chunk:(i + 1) * chunk]
+            want = {"pose": torch.stack([r.pose for r in rows]),
+                    "wpt_idx": torch.stack([r.wpt_idx for r in rows]),
+                    "d2g": torch.stack([wl._dist_to_goal(
+                        r.pose, wl._active_waypoint(wpts, r.wpt_idx))
+                        for r in rows])}
+            tel_same &= all(torch.equal(tel[k], want[k]) for k in want)
+            tel_same &= all(same_bits(s, states[(i + 1) * chunk] if
+                                      (i + 1) * chunk < len(states) else st,
+                                      self.COURSE_FIELDS).values())
+        if not (all(same["run_course"].values()) and
+                all(same["run_course_chunked"].values()) and tel_same):
+            raise AssertionError(f"course graph differs from eager: {same}, "
+                                 f"telemetry and chunk states {tel_same}")
+        if held_counts["K1"] != -(-ticks // 120) * 120:
+            raise AssertionError(f"run_course: {held_counts} launches for "
+                                 f"{ticks} ticks in chunks of 120")
+        steady = ((len(seen) - 2) * chunk / (marks[-1] - marks[1])
+                  if len(marks) > 2 else None)
+        window = wl._Chunks(cfg, course, model, wpts, st0, None, table, 120,
+                            held=False, telemetry=True)
+        window.step(course.max_ticks)           # the warm-up
+        window.step(course.max_ticks)           # the capture
+        step_us = wall_us(lambda: window.step(course.max_ticks), 5, warmup=0)
+        prof = graph_window(lambda: window.step(course.max_ticks), 1, 120,
+                            step_us)
+        return {"ticks": ticks, "chunked_ticks": int(chunked.ticks),
+                "eager_us_per_tick": 1e6 * eager_s / ticks,
+                "run_course_us_per_tick": 1e6 * held_s / ticks,
+                "run_course_launches": held_counts,
+                "chunked_steady_solves_per_s": steady,
+                "replayed_us_per_tick": step_us / 120,
+                "replayed_solves_per_s": 120e6 / step_us,
+                "bit_identical": same, "telemetry_bit_identical": tel_same,
+                "replayed_window": prof}
+
+    def course(self):
+        """``graph_course``: the flagship pentagon and config 2's obstacle
+        course, graph against the eager per-tick run."""
+        from tpunav_torch.control.waypoint_loop import course_init
+
+        t0 = time.perf_counter()
+        cfg, course, wpts, st0 = self.s.flagship()
+        flagship = self.course_case(cfg, course, wpts, st0, None, None)
+        cfg2, course2, wpts2, segs = self.o.course_cfg
+        st2 = course_init(cfg2, torch.tensor(self.o.demo_mod.START + [0.0]),
+                          seed=0, device=self.dev)
+        config2 = self.course_case(cfg2, course2, wpts2, st2, segs,
+                                   self.o.demo)
+        self.launches["course"] = {
+            "flagship": flagship["run_course_launches"]["K1"],
+            "config2": config2["run_course_launches"]["K1"]}
+        self.launches["obstacle"] = config2["run_course_launches"][
+            "K1_obstacle"]
+        emit("graph_course", seconds=time.perf_counter() - t0,
+             card=self.card, K=cfg.rollouts, N=cfg.steps,
+             flagship=flagship, config2=config2)
+
+    def solves(self, solves=100, replays=8, trials=4):
+        """``graph_solves``: bench.py's many_solves (bench.py:65-113) on the
+        port — ``solves`` chained fused solves (each one's u feeds the
+        next, seeds seed0 + i) in one graph, ``replays`` replays per trial
+        and ``trials`` trials, at K=49,152 and 4,096 with N=50; one replay
+        against the same chain run eagerly, bit for bit."""
+        from tpunav_torch.capture import Graph
+        from tpunav_torch.models.cart import CartParams
+
+        t0 = time.perf_counter()
+        fm, mppi = self.s.fm, self.s.mppi
+        model = CartParams(0.033, 0.160)
+        rows = []
+        for k in (49152, 4096):
+            cfg = self.s.cfg(k)
+            pose = torch.zeros(3, device=self.dev)
+            xd = torch.tensor([1.0, 1.0, 0.0], device=self.dev)
+            u = mppi.init_controls(cfg, device=self.dev)
+            seed = torch.zeros((), dtype=torch.int32, device=self.dev)
+            cmds = torch.empty((solves, 2), device=self.dev)
+
+            def chain(u0, s0):
+                out = []
+                for i in range(solves):
+                    cmd, u0 = fm.mppi_solve_fused(cfg, model, u0, s0 + i,
+                                                  pose, xd)
+                    out.append(cmd)
+                return u0, torch.stack(out)
+
+            def body():
+                u_new, c = chain(u, seed)
+                u.copy_(u_new)
+                cmds.copy_(c)
+                seed.add_(solves)
+
+            graph = Graph(body, self.dev)
+            graph()                                  # the warm-up (seed 0)
+            want_u, want_cmds = chain(u.clone(), seed.clone())
+            reset_counts()
+            graph()                                  # the capture, seed 100
+            per_replay = read_counts()["K1"]
+            same = bool(torch.equal(u, want_u) and
+                        torch.equal(cmds, want_cmds))
+            if not same or per_replay != solves:
+                raise AssertionError(f"K={k}: chained solves graph vs eager "
+                                     f"bits {same}, {per_replay} K1 launches "
+                                     f"per replay")
+            times = [wall_us(lambda: [graph() for _ in range(replays)], 1,
+                             warmup=0) / 1e6
+                     for _ in range(trials)]
+            n = solves * replays
+            best = n * k / min(times)
+            rows.append({
+                "metric": f"mppi_rollouts_per_sec_per_chip (K={k}, H="
+                          f"{cfg.steps} steps, {n / min(times):.1f} solves/s,"
+                          " fused CUDA graph)",
+                "value": best, "unit": "rollouts/s",
+                "vs_baseline": best / 2500.0,
+                "median": n * k / statistics.median(times),
+                "trial_seconds": times, "us_per_solve": 1e6 * min(times) / n,
+                "K1_per_replay": per_replay, "bit_identical": same})
+        self.launches["solves"] = {r["metric"]: r["K1_per_replay"]
+                                   for r in rows}
+        emit("graph_solves", seconds=time.perf_counter() - t0,
+             card=self.card, solves_per_replay=solves, replays=replays,
+             trials=trials, rows=rows)
+
+    def rbpf(self):
+        """``graph_rbpf``: config 5's 120 updates through ``PFStepper`` from
+        ``rbpf_course``'s start (filter seed 0, the same scans), against
+        that course's eager final state bit for bit, with one K2 and one
+        K3 per update; a replayed window of a second stepper."""
+        pf, r = self.r.pf, self.r
+        t0 = time.perf_counter()
+        u, scans, odoms, prevs = r.inputs
+        stepper = pf.PFStepper(r.cfg, pf.pf_init(r.cfg, seed=0,
+                                                 device=self.dev))
+        torch.cuda.synchronize()
+        reset_counts()
+        for i in range(r.UPDATES):
+            st = stepper.step(scans[i], u, odoms[i], prevs[i])
+            if i == r.WARM - 1:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+        torch.cuda.synchronize()
+        steady_ms = 1e3 * (time.perf_counter() - t_warm) / (r.UPDATES -
+                                                          r.WARM)
+        counts = read_counts()
+        same = same_bits(st, r.state, ("poses", "log_weights", "grids",
+                                       "dists", "prev_poses"))
+        want = {"K1": 0, "K1_obstacle": 0, "K2": r.UPDATES,
+                "K3": r.UPDATES, "K4": 0}
+        if not all(same.values()) or counts != want:
+            raise AssertionError(f"RBPF stepper vs eager: {same}, launches "
+                                 f"{counts} (want {want})")
+        e = (pf.best_particle(st)[0] - odoms[-1]).cpu()
+        k = [0]
+        window = pf.PFStepper(r.cfg, pf.pf_init(r.cfg, seed=1,
+                                                device=self.dev))
+
+        def update():
+            i = k[0] % r.UPDATES
+            window.step(scans[i], u, odoms[i], prevs[i])
+            k[0] += 1
+
+        update()
+        update()
+        step_us = wall_us(update, 10, warmup=0)
+        prof = graph_window(update, 5, 1, step_us)
+        self.launches["rbpf"] = counts
+        emit("graph_rbpf", seconds=time.perf_counter() - t0, card=self.card,
+             P=r.P, updates=r.UPDATES, bit_identical=same, launches=counts,
+             eager_ms_per_update=r.ms_per_update,
+             graph_ms_per_update=steady_ms,
+             graph_updates_per_s=1e3 / steady_ms,
+             pose_error_cm=100 * float(torch.hypot(e[1], e[2])),
+             replayed_window=prof)
+
+    def ekf(self):
+        """``graph_ekf``: config 3 through ``run_slam_loop`` (``ekf_course``'s
+        graph run) against the eager per-tick loop from the same start, bit
+        for bit, the generator included; a replayed window of 60-tick
+        chunks; the EKF update alone at ``bench_ekf``'s shape (n=50, 12
+        visible of 50 rows, float32, ``spd_repair=False``: the repair's
+        ``eigh`` cannot be captured), eager and through ``EKFStepper``."""
+        sl, ekff = self.e.sl, self.e.ekff
+        t0 = time.perf_counter()
+        mppi, ekf, loop, wpts, lms = self.e.config3()
+        model = self.e.c3_demo.MODEL
+        st = sl.slam_loop_init(mppi, ekf, seed=1, device=self.dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        while st.host_ticks < 6000 and not bool(st.done):
+            st = sl.slam_loop_tick(mppi, ekf, loop, model, wpts, lms, st)
+        torch.cuda.synchronize()
+        eager_us = 1e6 * (time.perf_counter() - t1) / st.host_ticks
+        g = self.e.c3_state
+        same = same_bits(g, st, ("true_pose", "odom", "u", "wpt_idx",
+                                 "visits", "ticks", "done"))
+        same.update({f"ekf.{k}": v for k, v in same_bits(
+            g.ekf, st.ekf, ekff.EKFState._fields).items()})
+        same["generator"] = bool(torch.equal(g.generator.get_state(),
+                                             st.generator.get_state()))
+        if not all(same.values()) or g.host_ticks != st.host_ticks:
+            raise AssertionError(f"config 3 graph vs eager: {same}")
+        chunk = sl.default_chunk(loop.sensor_every)
+        window = sl._Chunks(mppi, ekf, loop, model, wpts, lms,
+                            sl.slam_loop_init(mppi, ekf, seed=2,
+                                              device=self.dev), chunk, 10**9)
+        window.step()
+        window.step()
+        chunk_us = wall_us(window.step, 5, warmup=0)
+        prof = graph_window(window.step, 3, chunk, chunk_us)
+        update = {}
+        cfg = dataclasses.replace(self.e.bench_cfg(), spd_repair=False)
+        meas = [self.e.t(m) for m in bench_ekf_course()]
+        u = self.e.t([0.02, 0.01])
+        for known in (True, False):
+            fn = (ekff.known_correspondence_slam if known
+                  else ekff.slam_unknown_da)
+            a = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
+            stepper = ekff.EKFStepper(cfg, a, 50, known)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i, m in enumerate(meas):
+                a = fn(cfg, a, m, u)
+                if i == 19:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            eager_ms = 1e3 * (time.perf_counter() - t1) / (len(meas) - 20)
+            for i, m in enumerate(meas):
+                b = stepper.step(m, u)
+                if i == 19:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            graph_ms = 1e3 * (time.perf_counter() - t1) / (len(meas) - 20)
+            bits = same_bits(b, a, ekff.EKFState._fields)
+            if not all(bits.values()):
+                raise AssertionError(f"EKF stepper vs eager: {bits}")
+            step_us = wall_us(lambda: stepper.step(meas[-1], u), 5,
+                              warmup=0)
+            update["known" if known else "unknown"] = {
+                "eager_ms_per_update": eager_ms,
+                "graph_ms_per_update": graph_ms,
+                "graph_updates_per_s": 1e3 / graph_ms, "bit_identical": bits,
+                "replayed_window": graph_window(
+                    lambda: stepper.step(meas[-1], u), 3, 1, step_us)}
+        self.launches["ekf"] = self.e.k1_course
+        emit("graph_ekf", seconds=time.perf_counter() - t0, card=self.card,
+             ticks=st.host_ticks, bit_identical=same,
+             eager_us_per_tick=eager_us,
+             eager_ticks_per_s=1e6 / eager_us,
+             graph_us_per_tick=chunk_us / chunk,
+             graph_ticks_per_s=1e6 * chunk / chunk_us,
+             replayed_window=prof, update_alone=update)
+
+
 def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
     """Device µs per call (torch.profiler over 50 calls, after 5) of K1 with
     in-kernel Philox at K=4,096 and 49,152, N=50, without obstacles, with
@@ -2722,24 +3106,17 @@ def smem_limit() -> int:
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
-    from tpunav_torch.ops import fused_mppi, likelihood, map_update
+    from tpunav_torch import capture
 
-    fused_mppi.KERNEL_LAUNCHES = 0
-    fused_mppi.OBSTACLE_LAUNCHES = 0
-    likelihood.LIK_LAUNCHES = 0
-    map_update.MAP_LAUNCHES = 0
-    map_update.EDT_LAUNCHES = 0
+    capture.add_counts({k: -v for k, v in capture.read_counts().items()})
 
 
 def read_counts() -> dict:
     """Every kernel's launch count; "K1_obstacle" counts K1's solves in
     obstacle mode (also counted under "K1")."""
-    from tpunav_torch.ops import fused_mppi, likelihood, map_update
+    from tpunav_torch import capture
 
-    return {"K1": fused_mppi.KERNEL_LAUNCHES,
-            "K1_obstacle": fused_mppi.OBSTACLE_LAUNCHES,
-            "K2": likelihood.LIK_LAUNCHES, "K3": map_update.MAP_LAUNCHES,
-            "K4": map_update.EDT_LAUNCHES}
+    return capture.read_counts()
 
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes/s
@@ -2780,6 +3157,21 @@ def demo_launches(demos: Demos, key: str) -> dict:
                 if name not in ("explore", "full_stack")}}
 
 
+def graph_launches(cuda_graphs: CudaGraphs, key: str) -> dict:
+    """One kernel's measured launches in the CUDA-graph phases, for the
+    ``kernels`` line (a graph's launches counted on every replay)."""
+    g = cuda_graphs.launches
+    if key == "K1":
+        return {"launches_graph_course": g["course"],
+                "launches_graph_solves": g["solves"],
+                "launches_graph_ekf": g["ekf"],
+                "launches_graph_rbpf": g["rbpf"]["K1"]}
+    if key == "K1_obstacle":
+        return {"launches_graph_course": {"config2": g["obstacle"]},
+                "launches_graph_rbpf": g["rbpf"]["K1_obstacle"]}
+    return {"launches_graph_rbpf": g["rbpf"][key]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's card path cannot "
@@ -2818,6 +3210,11 @@ def main() -> int:
     ekf.dense()
     ekf.times()
     ekf.profile()
+    cuda_graphs = CudaGraphs(smoke, rbpf, obst, ekf)
+    cuda_graphs.course()
+    cuda_graphs.solves()
+    cuda_graphs.rbpf()
+    cuda_graphs.ekf()
     graphs = Graphs(smoke, rbpf, ekf)
     graphs.node_course()
     graphs.slam_nodes()
@@ -2851,6 +3248,7 @@ def main() -> int:
         "launches_slam_nodes": graphs.slam_counts["K1"],
         "launches_sharded": sharded.launches["K1"],
         **demo_launches(demos, "K1"),
+        **graph_launches(cuda_graphs, "K1"),
     }]
     for key, name, source, replaces in [
             ("K2", "likelihood_field (K2)", "likelihood.cu",
@@ -2869,7 +3267,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None,
             "launches_slam_nodes": graphs.slam_counts[key],
             "launches_sharded": sharded.launches[key],
-            **demo_launches(demos, key)})
+            **demo_launches(demos, key),
+            **graph_launches(cuda_graphs, key)})
     obst_row = obst.timing[0]                  # K=4,096, O=4: the course's
     ob_ms, ob_by = bound(*k1_work(obst_row["K"], obst_row["N"],
                                   obst_row["O"]))
@@ -2881,7 +3280,8 @@ def main() -> int:
         "ms": obst_row["kernel_ms"], "plain_ms": obst_row["plain_ms"],
         "bound_ms": ob_ms, "bound_by": ob_by, "library_ms": None,
         "launches_sharded": sharded.launches["K1_obstacle"],
-        **demo_launches(demos, "K1_obstacle")})
+        **demo_launches(demos, "K1_obstacle"),
+        **graph_launches(cuda_graphs, "K1_obstacle")})
     print(json.dumps({"kernels": kernels}))
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {

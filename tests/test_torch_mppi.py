@@ -278,6 +278,7 @@ def test_port_imports_no_jax():
         "assert want <= set(demos), want - set(demos)\n"
         "importlib.import_module('chip_smoke')\n"
         "need = {'tpunav_torch.interop', 'tpunav_torch.ops.fused_mppi',\n"
+        "        'tpunav_torch.capture',\n"
         "        'tpunav_torch.ops.likelihood', 'tpunav_torch.ops.map_update',\n"
         "        'tpunav_torch.estimation.rbpf.particle_filter',\n"
         "        'tpunav_torch.estimation.rbpf.icp', 'tpunav_torch.core.se2',\n"

@@ -469,8 +469,25 @@ def _entry_points():
         "rollout_mesh": lambda: rollout_mesh(),
         "pf_init_sharded": lambda: pf_init_sharded(
             pcfg, rollout_mesh(device="cpu")),
+        **_graph_entry_points(pcfg),
         **_node_entry_points(pcfg),
         **_demo_entry_points(),
+    }
+
+
+def _graph_entry_points(pcfg):
+    """The constructors of the CUDA-graph paths (``tpunav_torch.capture``):
+    each defaults to the card, even given a state on the CPU."""
+    from tpunav_torch import capture
+    from tpunav_torch.estimation.ekf import filter as ekf
+
+    ecfg = ekf.EKFConfig(num_landmarks=2, spd_repair=False)
+    return {
+        "capture.Graph": lambda: capture.Graph(lambda: None),
+        "PFStepper": lambda: tpf.PFStepper(pcfg, pf_init(pcfg,
+                                                         device="cpu")),
+        "EKFStepper": lambda: ekf.EKFStepper(
+            ecfg, ekf.ekf_init(ecfg, device="cpu"), 2),
     }
 
 

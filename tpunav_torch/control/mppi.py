@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..device import DEFAULT_DEVICE, resolve
+from ..device import DEFAULT_DEVICE, constant, resolve
 from ..models.cart import CartParams, kinematic_cart
 from ..ops.rk4 import rk4_solve
 
@@ -48,9 +48,10 @@ class MPPIConfig:
 
 
 def _const(values, dtype, device):
-    """A small constant on ``device``, copied without waiting for the
-    device's queue (``torch.tensor(..., device=cuda)`` would block)."""
-    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
+    """A configuration's small constant on ``device``, built once per
+    (values, dtype, device) (``device.constant``): a solve makes no
+    host-to-device copy, so the course's chunk can be captured."""
+    return constant(tuple(values), dtype, device)
 
 
 def init_controls(cfg: MPPIConfig, dtype=torch.float32,

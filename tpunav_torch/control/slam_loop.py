@@ -14,8 +14,21 @@ the tick count (``SlamLoopState.host_ticks``, no sync), runs the sensor
 (and the lidar → detector chain of a ``meas_fn``) only on sensing ticks,
 and runs the filter's prediction alone on the others, which equals the
 filter's step on all-NaN rows. The waypoint index, visit count and done
-flag stay on the device; ``run_slam_loop`` reads ``done`` once per tick so
-it stops on the same tick as ``tpunav``'s ``while_loop``.
+flag stay on the device.
+
+``run_slam_loop`` on the fused backend replays a chunk of ticks captured as
+one CUDA graph (``capture.Graph``), the counterpart of ``tpunav``'s one
+device program, with one host read per chunk. The chunk is a multiple of
+the sensing period and starts on a sensing tick, so the schedule inside it
+is fixed; its sensing ticks take the filter's masked form (no host read)
+and the sensor's normals, drawn eagerly from the state's generator into a
+static tensor before each replay with the eager loop's calls. A tick whose
+incoming state is done or at ``max_ticks`` keeps every field (such ticks
+still launch K1), and the generator is set back to where the eager loop
+leaves it, so the run ends in the eager loop's state, which stops on the
+tick of ``tpunav``'s ``while_loop``. The plain backend draws its MPPI
+perturbations from the same generator and runs eager ticks, reading
+``done`` once per tick.
 """
 
 from __future__ import annotations
@@ -25,11 +38,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import capture
 from ..device import DEFAULT_DEVICE, resolve
 from ..estimation.ekf import filter as ekff
 from ..estimation.ekf.filter import (EKFConfig, EKFState, ekf_init,
-                                     known_correspondence_slam, robot_pose,
-                                     slam_unknown_da)
+                                     known_correspondence_slam,
+                                     known_correspondence_slam_masked,
+                                     robot_pose, slam_unknown_da,
+                                     slam_unknown_da_masked)
 from ..models.cart import CartParams, kinematic_cart
 # A module import: ops.fused_mppi imports control.mppi, so a name import
 # here would fail when ops.fused_mppi is imported first.
@@ -118,6 +134,15 @@ def slam_loop_tick(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     generator)."""
     slam_step = (known_correspondence_slam if cfg.known_da
                  else slam_unknown_da)
+    return _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st,
+                 st.host_ticks % cfg.sensor_every == 0, slam_step, meas_fn,
+                 noise, meas_noise)
+
+
+def _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st, sense,
+          slam_step, meas_fn=None, noise=None, meas_noise=None):
+    """:func:`slam_loop_tick` with the schedule (``sense``, a host bool)
+    and the filter's step given."""
     n_wpts = waypoints.shape[0]
 
     # The controller sees the FILTER's pose (ref: mppi_waypoints consumes
@@ -158,7 +183,7 @@ def slam_loop_tick(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
                               torch.zeros_like(st.odom))
 
     # Landmark frame on schedule; the prediction alone off schedule.
-    if st.host_ticks % cfg.sensor_every == 0:
+    if sense:
         true_txy = torch.stack([true_pose[2], true_pose[0], true_pose[1]])
         if meas_fn is None:
             meas = landmark_measurements(
@@ -175,17 +200,134 @@ def slam_loop_tick(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
                        done=done, host_ticks=st.host_ticks + 1)
 
 
+# The fields a tick advances on the device.
+_FIELDS = ("true_pose", "odom", "ekf", "u", "wpt_idx", "visits", "ticks",
+           "done")
+
+
+def _clone(st: SlamLoopState) -> SlamLoopState:
+    """``st`` with every tensor copied (the generator shared)."""
+    return st._replace(
+        **{f: getattr(st, f).clone() for f in _FIELDS if f != "ekf"},
+        ekf=EKFState(*(t.clone() for t in st.ekf)))
+
+
+def _held(st: SlamLoopState, new: SlamLoopState, hold) -> SlamLoopState:
+    """``new``, or every field of ``st`` where ``hold`` (a bool tensor)."""
+    keep = {f: torch.where(hold, getattr(st, f), getattr(new, f))
+            for f in _FIELDS if f != "ekf"}
+    ekf = EKFState(*(torch.where(hold, a, b) for a, b in zip(st.ekf,
+                                                              new.ekf)))
+    return new._replace(ekf=ekf, **keep)
+
+
+class _Chunks:
+    """``chunk`` held ticks of the fused loop with the landmark sensor on
+    static state buffers (a copy of ``st``'s), as one ``capture.Graph``
+    step; ``chunk`` is a multiple of ``sensor_every`` and each chunk starts
+    on a sensing tick. A tick holds once the incoming state is done or its
+    device tick count reaches ``bound``. ``status`` holds [done, ticks]
+    after a step: the one host read per chunk."""
+
+    def __init__(self, mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
+                 st, chunk: int, bound: int):
+        dev = st.true_pose.device
+        every = cfg.sensor_every
+        self.bound = bound
+        # The body holds the buffers, not self: a graph whose runner is
+        # dropped is freed at once, not by the cyclic collector.
+        state = self.state = _clone(st)
+        # One (M, 2) draw per sensing tick, as landmark_measurements draws.
+        draws = chunk // every if cfg.meas_noise_std > 0.0 else 0
+        normals = self.normals = torch.zeros(
+            (draws, *landmarks.shape), dtype=landmarks.dtype, device=dev)
+        status = self.status = torch.empty(2, dtype=torch.int32, device=dev)
+        slam_step = (known_correspondence_slam_masked if cfg.known_da
+                     else slam_unknown_da_masked)
+
+        def body():
+            s = state
+            for i in range(chunk):
+                sense = i % every == 0
+                new = _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
+                            landmarks, s, sense, slam_step,
+                            meas_noise=(normals[i // every]
+                                        if sense and draws else None))
+                s = _held(s, new, torch.logical_or(s.done, s.ticks >= bound))
+            for f in _FIELDS:
+                if f != "ekf":
+                    getattr(state, f).copy_(getattr(s, f))
+            for buf, val in zip(state.ekf, s.ekf):
+                buf.copy_(val)
+            status.copy_(torch.stack([s.done.to(torch.int32), s.ticks]))
+
+        self.graph = capture.Graph(body, dev)
+
+    def draw(self, n: int) -> None:
+        """The sensor's first ``n`` draws of a chunk from the generator."""
+        for i in range(n):
+            torch.randn(self.normals.shape[1:],
+                        generator=self.state.generator,
+                        dtype=self.normals.dtype, device=self.normals.device,
+                        out=self.normals[i])
+
+    def step(self):
+        """Draw the chunk's normals and run it: (stop, ticks after it)."""
+        self.draw(self.normals.shape[0])
+        self.graph()
+        done, ticks = self.status.tolist()
+        return bool(done) or ticks >= self.bound, ticks
+
+
+def default_chunk(sensor_every: int) -> int:
+    """:func:`run_slam_loop`'s chunk: the multiple of ``sensor_every``
+    nearest at or above 60 ticks (one second at 60 Hz)."""
+    return -(-60 // sensor_every) * sensor_every
+
+
 def run_slam_loop(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
                   cfg: SlamLoopConfig, model: CartParams, waypoints,
-                  landmarks, st: SlamLoopState,
-                  max_ticks: int) -> SlamLoopState:
-    """Run the closed loop until the course completes or ``max_ticks``;
-    stops on the same tick as ``tpunav``'s ``while_loop`` (one host read
-    of ``done`` per tick)."""
+                  landmarks, st: SlamLoopState, max_ticks: int,
+                  chunk: Optional[int] = None) -> SlamLoopState:
+    """Run the closed loop until the course completes or ``max_ticks``,
+    ending in the state of ``tpunav``'s ``while_loop``. The fused backend
+    replays ``chunk`` ticks per host read (default
+    :func:`default_chunk`; see the module's docstring); the plain backend
+    reads ``done`` once per tick."""
     dev = st.true_pose.device
     waypoints = torch.as_tensor(waypoints, dtype=torch.float32).to(dev)
     landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
-    while st.host_ticks < max_ticks and not bool(st.done):
-        st = slam_loop_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
-                            landmarks, st)
-    return st
+    every = cfg.sensor_every
+    chunk = default_chunk(every) if chunk is None else chunk
+    if chunk < 1 or chunk % every:
+        raise ValueError(f"chunk {chunk} must be a positive multiple of "
+                         f"sensor_every ({every})")
+
+    def eager(until_aligned: bool):
+        nonlocal st
+        while st.host_ticks < max_ticks and not bool(st.done) and not (
+                until_aligned and st.host_ticks % every == 0):
+            st = slam_loop_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
+                                landmarks, st)
+
+    if not cfg.use_fused:
+        eager(False)
+        return st
+    eager(True)                       # to the next sensing tick
+    if st.host_ticks >= max_ticks or bool(st.done):
+        return st
+    ticks0 = int(st.ticks)
+    chunks = _Chunks(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
+                     st, chunk, max_ticks - st.host_ticks + ticks0)
+    start = ticks0
+    while True:
+        before = st.generator.get_state()
+        stop, ticks = chunks.step()
+        if stop:
+            break
+        start = ticks
+    # The eager loop draws on live sensing ticks only: the last chunk's
+    # draws again from where it began, as many as it had live.
+    st.generator.set_state(before)
+    chunks.draw(min(-(-(ticks - start) // every), chunks.normals.shape[0]))
+    return chunks.state._replace(host_ticks=st.host_ticks + ticks - ticks0)

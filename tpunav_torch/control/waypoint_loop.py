@@ -4,9 +4,17 @@ Port of ``tpunav/control/waypoint_loop.py``. The waypoint index, visit
 counter and done flag are tensors advanced with tensor ops inside the
 tick (``torch.where``, a device index), so a tick makes no host sync on
 either backend: the plain solver (``control/mppi.py``) or the fused CUDA
-kernel (``ops/fused_mppi.py``). ``run_course_chunked`` syncs once per
-chunk; ``run_course`` reads ``done`` once per tick so it stops on the same
-tick as ``tpunav``'s ``while_loop``.
+kernel (``ops/fused_mppi.py``).
+
+On the fused backend both runners replay a chunk of ticks captured as one
+CUDA graph (``capture.Graph``), the counterpart of ``tpunav``'s one device
+program per course or per chunk, and read the host once per chunk.
+``run_course_chunked``'s chunk is ``tpunav``'s scan: ticks go on past
+``done``. ``run_course``'s chunk is of held ticks: a tick whose incoming
+state is done or at ``max_ticks`` keeps every field, so the run ends in
+the state of ``tpunav``'s ``while_loop``; such ticks still launch K1. The
+plain backend draws from the state's generator and runs eager ticks:
+``run_course`` reads ``done`` once per tick.
 
 Obstacles (BASELINE config 2) enter as in ``tpunav``: the plain backend
 takes an ``extra_cost`` (``control/obstacle_cost.py``), the fused backend
@@ -22,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import capture
 from ..device import DEFAULT_DEVICE, resolve
 from ..models.cart import CartParams, kinematic_cart
 # A module import: ops.fused_mppi imports control.mppi, so a name import
@@ -158,33 +167,126 @@ def _waypoints_on(st: CourseState, waypoints):
                            device=st.pose.device)
 
 
+# The fields a tick advances.
+_FIELDS = ("pose", "u", "wpt_idx", "visits", "ticks", "done", "wheel_vel")
+
+
+def _held_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
+               waypoints, st: CourseState, extra_cost, table) -> CourseState:
+    """:func:`_tick`, except that a tick whose incoming state is done or at
+    ``max_ticks`` keeps every field (``tpunav``'s ``while_loop`` runs no
+    such tick)."""
+    new = _tick(cfg, course, model, waypoints, st, extra_cost, table)
+    hold = torch.logical_or(st.done, st.ticks >= course.max_ticks)
+    return new._replace(**{f: torch.where(hold, getattr(st, f),
+                                          getattr(new, f))
+                           for f in _FIELDS})
+
+
+class _Chunks:
+    """``chunk`` ticks of the fused backend on static state buffers (a copy
+    of ``st``'s), with per-tick telemetry where asked, as one
+    ``capture.Graph`` step. ``status`` holds [done, ticks] after a step:
+    the one host read per chunk."""
+
+    def __init__(self, cfg, course, model, waypoints, st, extra_cost, table,
+                 chunk: int, held: bool, telemetry: bool):
+        dev = st.pose.device
+        # The body holds the buffers, not self: a graph whose runner is
+        # dropped is freed at once, not by the cyclic collector.
+        state = self.state = st._replace(**{f: getattr(st, f).clone()
+                                            for f in _FIELDS})
+        f32 = dict(dtype=st.pose.dtype, device=dev)
+        tel = self.tel = {
+            "pose": torch.empty((chunk, 3), **f32),
+            "wpt_idx": torch.empty(chunk, dtype=torch.int32, device=dev),
+            "d2g": torch.empty(chunk, **f32)} if telemetry else None
+        status = self.status = torch.empty(2, dtype=torch.int32, device=dev)
+        tick = _held_tick if held else _tick
+
+        def body():
+            s = state
+            rows = {"pose": [], "wpt_idx": [], "d2g": []}
+            for _ in range(chunk):
+                if telemetry:
+                    rows["pose"].append(s.pose)
+                    rows["wpt_idx"].append(s.wpt_idx)
+                    rows["d2g"].append(_dist_to_goal(
+                        s.pose, _active_waypoint(waypoints, s.wpt_idx)))
+                s = tick(cfg, course, model, waypoints, s, extra_cost, table)
+            # Row 0 is the state buffer itself: stack before it is written.
+            if telemetry:
+                for name, buf in tel.items():
+                    buf.copy_(torch.stack(rows[name]))
+            for f in _FIELDS:
+                getattr(state, f).copy_(getattr(s, f))
+            status.copy_(torch.stack([s.done.to(torch.int32), s.ticks]))
+
+        self.graph = capture.Graph(body, dev)
+
+    def step(self, max_ticks: int) -> bool:
+        """Run one chunk; True once the course is done or at
+        ``max_ticks``."""
+        self.graph()
+        done, ticks = self.status.tolist()
+        return bool(done) or ticks >= max_ticks
+
+    def copies(self):
+        """The state and telemetry as copies that outlive the next chunk."""
+        return (self.state._replace(**{f: getattr(self.state, f).clone()
+                                       for f in _FIELDS}),
+                {name: buf.clone() for name, buf in self.tel.items()})
+
+
 def run_course(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
                waypoints, st: CourseState, extra_cost=None, obstacles=None,
-               obs_cfg=None) -> CourseState:
-    """Run ticks until the course completes or ``max_ticks``; stops on the
-    same tick as ``tpunav``'s ``while_loop`` (one host read per tick)."""
+               obs_cfg=None, chunk: int = 120) -> CourseState:
+    """Run ticks until the course completes or ``max_ticks``, ending in the
+    state of ``tpunav``'s ``while_loop``. The fused backend replays
+    ``chunk`` held ticks per host read (see the module's docstring); the
+    plain backend reads ``done`` once per tick."""
     table = _obstacle_table(course, st, extra_cost, obstacles, obs_cfg)
     waypoints = _waypoints_on(st, waypoints)
     ticks = int(st.ticks)
-    while ticks < course.max_ticks and not bool(st.done):
-        st = _tick(cfg, course, model, waypoints, st, extra_cost, table)
-        ticks += 1
-    return st
+    if not course.use_fused:
+        while ticks < course.max_ticks and not bool(st.done):
+            st = _tick(cfg, course, model, waypoints, st, extra_cost, table)
+            ticks += 1
+        return st
+    if ticks >= course.max_ticks or bool(st.done):
+        return st
+    chunks = _Chunks(cfg, course, model, waypoints, st, extra_cost, table,
+                     chunk, held=True, telemetry=False)
+    while not chunks.step(course.max_ticks):
+        pass
+    return chunks.state
 
 
 def run_course_chunked(cfg: MPPIConfig, course: CourseConfig,
                        model: CartParams, waypoints, st: CourseState,
                        chunk: int = 120, extra_cost=None, obstacles=None,
                        obs_cfg=None, on_chunk=None) -> CourseState:
-    """Like :func:`run_course` but syncs to the host every ``chunk`` ticks.
+    """Like :func:`run_course` but syncs to the host every ``chunk`` ticks,
+    and ticks go on past ``done`` to the chunk's end (``tpunav``'s scan).
 
     ``on_chunk(state, telemetry)`` is called with each chunk's end state;
     ``telemetry`` is a dict of per-tick tensors {"pose": (chunk, 3),
     "wpt_idx": (chunk,), "d2g": (chunk,)}. Rows are PRE-tick samples:
     row i is the state tick i saw, so the stream starts at the initial
-    state and the final post-tick pose is only in the returned state."""
+    state and the final post-tick pose is only in the returned state.
+    On the fused backend both are copies, which later chunks leave as
+    they are."""
     table = _obstacle_table(course, st, extra_cost, obstacles, obs_cfg)
     waypoints = _waypoints_on(st, waypoints)
+    if course.use_fused:
+        chunks = _Chunks(cfg, course, model, waypoints, st, extra_cost,
+                         table, chunk, held=False, telemetry=True)
+        while True:
+            stop = chunks.step(course.max_ticks)
+            if on_chunk is not None:
+                on_chunk(*chunks.copies())
+            if stop:
+                return chunks.state
     while True:
         tel = {"pose": [], "wpt_idx": [], "d2g": []}
         for _ in range(chunk):

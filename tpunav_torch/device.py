@@ -12,6 +12,7 @@ as the CPU tests do.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -27,6 +28,18 @@ def resolve(device) -> torch.device:
             "tpunav_torch defaults to the CUDA card, but CUDA is not "
             "available here; pass device='cpu' to run on the CPU")
     return device
+
+
+@functools.cache
+def constant(values, dtype, device) -> torch.Tensor:
+    """``values`` (a number or a tuple of them, hashable) as a tensor of
+    ``dtype`` on ``device``, built once per (values, dtype, device) and
+    the same tensor on every later call. A step reads its configuration's
+    constants without a host-to-device copy, which under CUDA graph
+    capture is refused or recorded from a freed host buffer. The cache
+    holds one small tensor per configuration triple seen in the process;
+    callers must not write to it."""
+    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
 
 
 @contextlib.contextmanager

@@ -11,11 +11,14 @@ kernel of its own.
 - Measurements are compacted (valid rows to the front, in their order),
   and the sequential update runs once per valid row: the number of valid
   rows is the one host read of an update. An update with no measurement
-  rows (the slam loop's off-schedule ticks) makes none. A fixed trip over
-  all rows, the invalid ones exact no-ops through ``torch.where``, would
-  need no host read, but each row costs ~190 launches: at config 4's
-  shape (32 rows, ~13 valid) it took 2.4–3.6× as long on the card
-  (``chip_smoke.py``'s ``ekf_times``, two runs).
+  rows (the slam loop's off-schedule ticks) makes none. The masked form
+  (:func:`known_correspondence_slam_masked`, :func:`slam_unknown_da_masked`)
+  takes a fixed trip over all rows, the invalid ones exact no-ops through
+  ``torch.where``, with the same bits and no host read, so it can be
+  captured as a CUDA graph (:class:`EKFStepper`, the slam loop's chunks).
+  Eager, each row costs ~190 launches: at config 4's shape (32 rows, ~13
+  valid) it took 2.4–3.6× as long on the card (``chip_smoke.py``'s
+  ``ekf_times``, two runs), so the eager path keeps the dynamic form.
 - Every read and write of landmark slot j goes through a one-element
   device index (``index_select``, ``index_copy``), so no slot access reads
   j on the host. The sparse measurement Jacobian H, whose only nonzero
@@ -43,9 +46,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ... import capture
 from ...core.angles import normalize_angle_pi
-from ...device import DEFAULT_DEVICE, full_precision_matmul, resolve
-from .spd import repair_if_needed
+from ...device import DEFAULT_DEVICE, constant, full_precision_matmul, resolve
+from .spd import is_spd, nearest_spd, repair_if_needed
 
 _W_EPS = 1e-12  # almost_equal epsilon (ref: rigid2d.hpp:24-27)
 
@@ -82,10 +86,10 @@ class EKFState(NamedTuple):
 
 
 def _const(values, like):
-    """A small constant on ``like``'s device and dtype, copied without
-    waiting for the device's queue."""
-    return torch.tensor(values, dtype=like.dtype).to(like.device,
-                                                    non_blocking=True)
+    """A configuration's small constant on ``like``'s device and dtype,
+    built once per (values, dtype, device) (``device.constant``): an
+    update makes no host-to-device copy, so it can be captured."""
+    return constant(tuple(values), like.dtype, like.device)
 
 
 def ekf_init(cfg: EKFConfig, dtype=torch.float64,
@@ -179,17 +183,25 @@ class _Update(NamedTuple):
 
 
 def _update_consts(cfg: EKFConfig, like) -> _Update:
-    n, dev = cfg.num_landmarks, like.device
+    """The update's constants on ``like``'s device and dtype, built once
+    per (configuration, dtype, device) and shared by every later update:
+    no step makes a host-to-device copy or rebuilds them."""
+    return _update_consts_on(cfg, like.dtype, like.device)
+
+
+@functools.cache
+def _update_consts_on(cfg: EKFConfig, dtype, dev) -> _Update:
+    n = cfg.num_landmarks
     j = torch.arange(n, device=dev)[:, None]
     h_table = torch.cat([torch.arange(3, device=dev).expand(n, 3),
                          2 * j + 3, 2 * j + 4], dim=1)
-    r_diag = _const(cfg.measurement_noise, like)
+    r_diag = constant(tuple(cfg.measurement_noise), dtype, dev)
     return _Update(
-        eye=torch.eye(cfg.state_size, dtype=like.dtype, device=dev),
+        eye=torch.eye(cfg.state_size, dtype=dtype, device=dev),
         r_diag=r_diag, R=torch.diag(r_diag), h_table=h_table,
-        block_index=torch.tensor(_BLOCK_INDEX).to(dev, non_blocking=True),
-        block_sign=_const(_BLOCK_SIGN, like),
-        block_offset=_const(_BLOCK_OFFSET, like))
+        block_index=constant(_BLOCK_INDEX, torch.int64, dev),
+        block_sign=constant(_BLOCK_SIGN, dtype, dev),
+        block_offset=constant(_BLOCK_OFFSET, dtype, dev))
 
 
 def _h_terms(state, idx):
@@ -377,26 +389,49 @@ def _repair(cfg: EKFConfig, c):
     return repair_if_needed(c) if cfg.spd_repair else 0.5 * (c + c.T)
 
 
-def _prepare(cfg: EKFConfig, st: EKFState, meas_xy, u, generator):
-    """The motion and uncertainty update (on the repaired covariance) and
-    the valid measurement rows compacted to the front in their order.
-    Measurements take the filter's dtype: a float64 measurement would
-    otherwise promote the state through K @ δz."""
+def _repair_where(cfg: EKFConfig, c):
+    """:func:`_repair` without its host branch: both branches of
+    ``repair_if_needed`` and a ``torch.where``, the same bits. The
+    ``eigh`` of ``nearest_spd`` then runs on every call, and on the card
+    it reads its error code on the host, so a capture takes
+    ``spd_repair=False``."""
+    if not cfg.spd_repair:
+        return 0.5 * (c + c.T)
+    return torch.where(is_spd(c), c, nearest_spd(c))
+
+
+def _predict(cfg: EKFConfig, st: EKFState, meas_xy, u, generator, repair):
+    """The measurements in the filter's dtype (a float64 measurement would
+    otherwise promote the state through K @ δz), the measurement noise,
+    and the motion and uncertainty update on the covariance that
+    ``repair`` (:func:`_repair` or :func:`_repair_where`) gives."""
     like = st.state
     meas_xy = torch.as_tensor(meas_xy).to(like.device, like.dtype)
     u = torch.as_tensor(u).to(like.device, like.dtype)
-    n_meas = meas_xy.shape[0]
-    w, v = _noise_draws(cfg, generator, n_meas, like)
+    w, v = _noise_draws(cfg, generator, meas_xy.shape[0], like)
     state_bar = motion_update(cfg, st.state, u, w)
     # The motion Jacobian is evaluated at the PRIOR state (ref: :536-565).
-    sigma_bar = uncertainty_update(cfg, st.state, _repair(cfg, st.cov), u)
-    if n_meas == 0:
+    sigma_bar = uncertainty_update(cfg, st.state, repair(cfg, st.cov), u)
+    return meas_xy, v, state_bar, sigma_bar
+
+
+def _polar_rows(meas_xy):
+    """Each row's validity (finite) and (r, b), invalid rows at (0, 0)."""
+    valid = torch.isfinite(meas_xy).all(dim=-1)
+    meas_safe = torch.where(valid[:, None], torch.nan_to_num(meas_xy), 0.0)
+    return (valid, *_polar(meas_safe))
+
+
+def _prepare(cfg: EKFConfig, st: EKFState, meas_xy, u, generator):
+    """The prediction (:func:`_predict`) and the valid measurement rows
+    compacted to the front in their order."""
+    meas_xy, v, state_bar, sigma_bar = _predict(cfg, st, meas_xy, u,
+                                                generator, _repair)
+    if meas_xy.shape[0] == 0:
         empty = meas_xy[:, 0]
         return _Prepared(state_bar, sigma_bar, empty, empty, empty, v,
                          empty.long(), 0)
-    valid = torch.isfinite(meas_xy).all(dim=-1)
-    meas_safe = torch.where(valid[:, None], torch.nan_to_num(meas_xy), 0.0)
-    r_all, b_all = _polar(meas_safe)
+    valid, r_all, b_all = _polar_rows(meas_xy)
     order = torch.argsort((~valid).to(torch.uint8), stable=True)
     n_valid = int(valid.sum())
     b = b_all[order]
@@ -404,14 +439,14 @@ def _prepare(cfg: EKFConfig, st: EKFState, meas_xy, u, generator):
                      normalize_angle_pi(b), v[order], order, n_valid)
 
 
-def _known_row(cfg: EKFConfig, k: _Update, carry, j, row):
+def _known_row(cfg: EKFConfig, k: _Update, carry, j, row, repair=_repair):
     """One measurement ``row`` = (r, b, normalized b, v) of the known-DA
     chain (ref: :341-398) at landmark slot ``j`` (a one-element long
-    device index)."""
+    device index); ``repair``: :func:`_repair` or :func:`_repair_where`."""
     r, b, b_norm, v_i = row
     state, cov, active = carry
     if cfg.spd_repair and cfg.spd_repair_per_meas:
-        cov = repair_if_needed(cov)
+        cov = repair(cfg, cov)
     else:
         cov = 0.5 * (cov + cov.T)
     idx = k.h_table.index_select(0, j).view(5)
@@ -424,15 +459,15 @@ def _known_row(cfg: EKFConfig, k: _Update, carry, j, row):
     return state, cov, active
 
 
-def _unknown_row(cfg: EKFConfig, k: _Update, carry, row):
+def _unknown_row(cfg: EKFConfig, k: _Update, carry, row, repair=_repair):
     """One measurement ``row`` = (r, b, normalized b, v) of the unknown-DA
     chain (ref: :163-244): distances to every slot; d* ≤ dmin updates the
     nearest, d* ≥ dmax adds a landmark (with capacity left), anything
-    between is ignored."""
+    between is ignored. ``repair`` as in :func:`_known_row`."""
     r, b, b_norm, v_i = row
     state, cov, active, count = carry
     if cfg.spd_repair and cfg.spd_repair_per_meas:
-        cov = _repair(cfg, cov)
+        cov = repair(cfg, cov)
     else:
         cov = 0.5 * (cov + cov.T)
     # A new landmark leaves the heading as it is: one heading serves both.
@@ -510,6 +545,104 @@ def slam_unknown_da(cfg: EKFConfig, st: EKFState, meas_xy, u,
         carry = _unknown_row(cfg, k, carry, p.row(i))
     state, cov, active, count = carry
     return EKFState(state=state, cov=cov, active=active, count=count)
+
+
+def _masked(cfg: EKFConfig, st: EKFState, meas_xy, u, generator, known):
+    """The masked form of :func:`_prepare` and the row loop: every row in
+    its order, each invalid one an exact no-op through ``torch.where``,
+    and the where-form SPD repair; no host read."""
+    meas_xy, v, state, cov = _predict(cfg, st, meas_xy, u, generator,
+                                      _repair_where)
+    n_meas = meas_xy.shape[0]
+    valid, r, b = _polar_rows(meas_xy)
+    b_norm = normalize_angle_pi(b)
+    k = _update_consts(cfg, state)
+    slots = torch.arange(n_meas, device=state.device)  # known DA: row i is j
+    carry = (state, cov, st.active) if known else (state, cov, st.active,
+                                                   st.count)
+    for i in range(n_meas):
+        row = (r[i], b[i], b_norm[i], v[i])
+        new = (_known_row(cfg, k, carry, slots[i:i + 1], row, _repair_where)
+               if known else _unknown_row(cfg, k, carry, row, _repair_where))
+        carry = tuple(torch.where(valid[i], a, c) for a, c in zip(new, carry))
+    return carry
+
+
+@_full_precision
+def known_correspondence_slam_masked(cfg: EKFConfig, st: EKFState, meas_xy,
+                                     u, generator: Optional[torch.Generator]
+                                     = None) -> EKFState:
+    """:func:`known_correspondence_slam` in the masked form: a fixed trip
+    over all M rows, the same bits, no host read (capturable where
+    ``spd_repair`` is False)."""
+    meas_xy = torch.as_tensor(meas_xy)
+    _check_meas(meas_xy)
+    if meas_xy.shape[0] > cfg.num_landmarks:
+        raise ValueError(f"known DA takes at most one row per landmark "
+                         f"slot ({cfg.num_landmarks}), got "
+                         f"{meas_xy.shape[0]}")
+    state, cov, active = _masked(cfg, st, meas_xy, u, generator, True)
+    return EKFState(state=state, cov=cov, active=active,
+                    count=active.sum(dtype=torch.int32))
+
+
+@_full_precision
+def slam_unknown_da_masked(cfg: EKFConfig, st: EKFState, meas_xy, u,
+                           generator: Optional[torch.Generator] = None
+                           ) -> EKFState:
+    """:func:`slam_unknown_da` in the masked form: a fixed trip over all M
+    rows, the same bits, no host read (capturable where ``spd_repair`` is
+    False)."""
+    meas_xy = torch.as_tensor(meas_xy)
+    _check_meas(meas_xy)
+    return EKFState(*_masked(cfg, st, meas_xy, u, generator, False))
+
+
+class EKFStepper:
+    """The EKF update captured as one CUDA graph and replayed once per
+    update (``capture.Graph``), the counterpart of ``tpunav``'s jitted
+    update: the masked form over ``n_meas`` measurement rows, known or
+    unknown DA, without noise draws (the parity mode).
+
+    ``st`` is copied once into the stepper's buffers on ``device`` (default
+    the card; raises without CUDA; ``st`` must lie there). From then on the
+    state lives in place: each :meth:`step` overwrites the buffers and
+    returns them, so the state a step returned is consumed by the next, as
+    ``tpunav``'s callers donate theirs. On the card ``spd_repair`` must be
+    False: ``nearest_spd``'s ``eigh`` reads its error code on the host,
+    which a capture refuses."""
+
+    def __init__(self, cfg: EKFConfig, st: EKFState, n_meas: int,
+                 known_da: bool = True, device=DEFAULT_DEVICE):
+        dev = capture.state_device(st.state, device)
+        if dev.type == "cuda" and cfg.spd_repair:
+            raise ValueError("the SPD repair's eigh reads its error code on "
+                             "the host and cannot be captured: pass "
+                             "spd_repair=False on the card")
+        self.cfg = cfg
+        # The body holds the buffers, not self: a graph whose stepper is
+        # dropped is freed at once, not by the cyclic collector.
+        state = self.state = EKFState(*(t.clone() for t in st))
+        like = dict(dtype=st.state.dtype, device=dev)
+        meas = self._meas = torch.zeros((n_meas, 2), **like)
+        u = self._u = torch.zeros(2, **like)
+        update = (known_correspondence_slam_masked if known_da
+                  else slam_unknown_da_masked)
+
+        def body():
+            new = update(cfg, state, meas, u)
+            for buf, val in zip(state, new):
+                buf.copy_(val)
+
+        self.graph = capture.Graph(body, dev)
+
+    def step(self, meas_xy, u) -> EKFState:
+        """One update from (n_meas, 2) robot-frame measurements (NaN rows
+        skipped) and the (2,) twist [w, vx]; returns the state in place."""
+        self._meas.copy_(meas_xy)
+        self._u.copy_(u)
+        self.graph()
+        return self.state
 
 
 def robot_pose(st: EKFState):

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from ...device import DEFAULT_DEVICE, resolve
+from ...device import DEFAULT_DEVICE, constant, resolve
 from ...ops import beams
 from ...ops.beams import beam_table, beams_per_revolution, cell_beams
 from ...ops.distance_transform import euclidean_distance_field
@@ -167,12 +167,13 @@ def integrate_scan(cfg: GridConfig, log_odds, ranges, pose):
     free = in_fov & (r_c < r_beam - res) & (emd < 0.5)
     # A true division (torch takes scalar / tensor as a reciprocal times
     # the scalar, which rounds differently from tpunav's division).
-    m = torch.clamp(r_c.new_tensor(res) / (torch.clamp(r_c, min=0.5 * res)
-                                           * cfg.beam_delta),
+    m = torch.clamp(constant(res, r_c.dtype, r_c.device) /
+                    (torch.clamp(r_c, min=0.5 * res) * cfg.beam_delta),
                     max=float(cfg.num_beams))
-    kw = dict(dtype=log_odds.dtype, device=log_odds.device)
-    d_free = torch.tensor(cfg.l_free - cfg.l_prior, **kw)
-    d_occ = torch.tensor(cfg.l_occ - cfg.l_prior, **kw)
+    # The configuration's constants, built once per (value, dtype, device).
+    d_free = constant(cfg.l_free - cfg.l_prior, log_odds.dtype,
+                      log_odds.device)
+    d_occ = constant(cfg.l_occ - cfg.l_prior, log_odds.dtype, log_odds.device)
     out = log_odds + torch.where(free, m * d_free, 0.0)
     out = out.reshape(-1).clone()
     offs = torch.arange(p, device=out.device)[:, None] * (h * w)

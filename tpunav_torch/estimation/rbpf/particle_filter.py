@@ -25,16 +25,23 @@ Randomness: ``PFState.generator`` (a ``torch.Generator`` on the state's
 device) replaces ``tpunav``'s key. ``noise=`` (a :class:`PFNoise` of
 standard normals) replaces the draws, so a test can feed the normals that
 ``tpunav``'s key splits produce.
+
+:class:`PFStepper` is the counterpart of ``tpunav``'s callers, which
+dispatch one jitted ``pf_slam_step`` per scan with the state donated
+(``bench.py:bench_rbpf``, ``runtime/slam_nodes.py``): the whole update
+captured once as a CUDA graph and replayed per scan.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ... import capture
 from ...core import se2
 from ...core.angles import normalize_angle_pi
 from ...device import DEFAULT_DEVICE, resolve
@@ -131,11 +138,16 @@ def draw_noise(cfg: PFConfig, st: PFState) -> PFNoise:
 
 
 def _std(variances, like):
-    """sqrt of a configuration triple, on ``like``'s device and dtype. The
-    copy does not block: a blocking host-to-device copy would wait for the
-    card to drain its queue on every update."""
-    return torch.sqrt(torch.tensor(variances, dtype=like.dtype)).to(
-        like.device, non_blocking=True)
+    """sqrt of a configuration triple, on ``like``'s device and dtype,
+    built once per (triple, dtype, device): an update makes no
+    host-to-device copy, so it can be captured (``PFStepper``)."""
+    return _std_on(tuple(variances), like.dtype, like.device)
+
+
+@functools.cache
+def _std_on(variances, dtype, device):
+    return torch.sqrt(torch.tensor(variances, dtype=dtype)).to(
+        device, non_blocking=True)
 
 
 def _sample_motion_model(cfg: PFConfig, pose, u, normals):
@@ -343,6 +355,60 @@ def pf_slam_step(cfg: PFConfig, st: PFState, ranges, u, cur_odom,
                  prev_scan=ranges, has_prev=torch.ones_like(st.has_prev),
                  generator=st.generator)
     return _gather(st, idx)
+
+
+class PFStepper:
+    """:func:`pf_slam_step` captured as one CUDA graph and replayed once per
+    scan (``capture.Graph``): ICP's iterations, K2, the proposal, K3, the
+    normalisation and the resample gather in one launch.
+
+    ``st`` is copied once into the stepper's buffers on ``device`` (default
+    the card; raises without CUDA; ``st`` must lie there), and its
+    generator is shared. From then on the state lives in place: each
+    :meth:`step` overwrites the buffers and returns them, so the state a
+    step returned is consumed by the next, as ``tpunav``'s callers donate
+    theirs. Each step draws its normals eagerly from the generator (the
+    calls of :func:`draw_noise`, so the eager step's bits), or takes
+    ``noise``, and copies them and the scan's inputs into static tensors
+    before the replay."""
+
+    def __init__(self, cfg: PFConfig, st: PFState, device=DEFAULT_DEVICE):
+        dev = capture.state_device(st.poses, device)
+        self.cfg = cfg
+        # The body holds the buffers, not self: a graph whose stepper is
+        # dropped is freed at once, not by the cyclic collector.
+        state = self.state = PFState(*(t.clone() for t in st[:-1]),
+                                     generator=st.generator)
+        like = dict(dtype=st.poses.dtype, device=dev)
+        p, k = cfg.num_particles, cfg.k_samples
+        inputs = self._inputs = (
+            torch.zeros(cfg.grid.num_beams, **like), torch.zeros(2, **like),
+            torch.zeros(3, **like), torch.zeros(3, **like))
+        noise = self._noise = PFNoise(
+            samples=torch.zeros((p, k, 3), **like),
+            pose=torch.zeros((p, 3), **like),
+            motion=torch.zeros((p, 3), **like),
+            resample=torch.zeros((), **like))
+
+        def body():
+            new = pf_slam_step(cfg, state, *inputs, noise=noise)
+            for buf, val in zip(state[:-1], new[:-1]):
+                buf.copy_(val)
+
+        self.graph = capture.Graph(body, dev)
+
+    def step(self, ranges, u, cur_odom, prev_odom,
+             noise: Optional[PFNoise] = None) -> PFState:
+        """One update from the (B,) scan, the (2,) twist and the (3,)
+        odometry poses, as :func:`pf_slam_step` takes them; returns the
+        state in place."""
+        if noise is None:
+            noise = draw_noise(self.cfg, self.state)
+        for buf, val in zip((*self._inputs, *self._noise),
+                            (ranges, u, cur_odom, prev_odom, *noise)):
+            buf.copy_(val)
+        self.graph()
+        return self.state
 
 
 def best_particle(st: PFState):
