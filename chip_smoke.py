@@ -5,8 +5,10 @@
 Builds the port's kernels (``tpunav_torch/ops/csrc/``) from source with
 nvcc: K1 the fused MPPI solve (with its obstacle mode), K2 the likelihood
 field, K3 the map update with its distance field, K4 the distance field
-alone. Checks each against its plain PyTorch version on the card, then
-drives the port's paths:
+alone, and the port's own batched Jacobi eigensolver (``sym_eig.cu``,
+where ``tpunav`` calls XLA's ``eigh``: the circle detector's fit and the
+EKF's SPD repair). Checks each against its plain PyTorch version on the
+card, then drives the port's paths:
 
 - the MPPI waypoint course (the demo's flagship configuration:
   configs/mppi_params.yaml at horizon 0.5 s and K=4,096, the pentagon of
@@ -25,8 +27,10 @@ drives the port's paths:
   configs/block_world_landmarks.yaml, known data association, K=1,024) and
   config 4 at its stated scale (examples/dense_world_slam_demo.py: 44
   cylinders, the lidar → circle detector → unknown data association chain
-  at capacity 50, K=2,048, 5,000 ticks), with the filter held against its
-  CPU run and the detector against its CPU run and itself;
+  at capacity 50, K=2,048, 5,000 ticks, eager and as the demo runs it:
+  replayed chunks of its scan, through K1 and the eigensolver), with the
+  filter held against its CPU run and the detector against its CPU run
+  and itself;
 - the reference's node graph (tpunav_torch/runtime/, the :class:`Graphs`
   phases): the mppi_waypoints.launch graph on the virtual-time scheduler
   through K1 at K=4,096 (``node_course``); the RBPF node at config 5
@@ -45,11 +49,14 @@ drives the port's paths:
   the flagship and obstacle courses through ``run_course`` and
   ``run_course_chunked`` (``graph_course``), ``bench.py``'s 100 chained
   solves in one graph at K=49,152 and 4,096 (``graph_solves``), config 5's
-  120 RBPF updates through ``PFStepper`` (``graph_rbpf``), and config 3
+  120 RBPF updates through ``PFStepper`` (``graph_rbpf``), config 3
   through ``run_slam_loop`` with the EKF update alone through
-  ``EKFStepper`` (``graph_ekf``); the ``course``, ``obstacle_course`` and
-  ``ekf_course`` phases replay graphs too, and the launch counters count a
-  graph's launches on every replay;
+  ``EKFStepper``, with and without the default SPD repair
+  (``graph_ekf``), and the capture guard against the cyclic collector
+  (``graph_gc``); the ``course``, ``obstacle_course``, ``ekf_course`` and
+  ``dense_world`` phases and the landmarks node replay graphs too, held
+  ticks skip K1's work, and the launch counters count a graph's launches
+  on every replay;
 - the closed-loop demos (``examples_torch/``, the :class:`Demos` phases):
   the RBPF exploration under K1 at config 5 with its checkpoint and
   resume (``explore``), the full stack — RBPF map → D* Lite → K1, all four
@@ -73,6 +80,7 @@ root first on ``sys.path``; equal digests mean bit-identical outputs.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -617,7 +625,7 @@ class Rbpf:
         if not xy_err < 0.2:
             raise AssertionError(f"pose diverged: |xy| error {xy_err} m")
         want = {"K1": 0, "K1_obstacle": 0, "K2": self.UPDATES,
-                "K3": self.UPDATES, "K4": 1}
+                "K3": self.UPDATES, "K4": 1, "EIG": 0}
         if counts != want:
             raise AssertionError(f"launches {counts}, expected {want}: one "
                                  "K2 and one K3 per update, K4 in pf_init")
@@ -909,7 +917,7 @@ class Obstacle:
             raise AssertionError(f"the course scraped the wall: clearance "
                                  f"{clear[0]} m")
         if counts != {"K1": ticks, "K1_obstacle": ticks, "K2": 0, "K3": 0,
-                      "K4": 0}:
+                      "K4": 0, "EIG": 0}:
             raise AssertionError(f"launches {counts} for {ticks} ticks: the "
                                  "course did not run on K1's obstacle mode")
         # The first chunk runs eagerly (the graph's warm-up) and the second
@@ -1281,12 +1289,6 @@ class Ekf:
             raise AssertionError(f"detector card vs CPU: {worst} m > 1e-5")
         scan = self.scans(self.dev)[0]
         self.detector_ms = time_ms(lambda: lmk.feature_detection(cfg, scan))
-        # The fit's two batched 4x4 eigh, alone: (32, 4, 4) float64.
-        a = torch.randn((32, 4, 4), generator=torch.Generator(
-            device=self.dev).manual_seed(0), dtype=torch.float64,
-            device=self.dev)
-        spd4 = a @ a.transpose(1, 2)
-        eigh_ms = time_ms(lambda: torch.linalg.eigh(spd4))
         emit("detector", seconds=time.perf_counter() - t0, scans=8,
              beams=360, max_clusters=32, circles=found,
              max_abs_err_m=worst, bar_m=1e-5, card_runs_bit_identical=True,
@@ -1294,8 +1296,93 @@ class Ekf:
              launches_per_call=launches(lambda: lmk.feature_detection(
                  cfg, scan)),
              syncs_per_call=syncs_per_call(lambda: lmk.feature_detection(
-                 cfg, scan), 3),
-             eigh_32x4x4_f64_ms=eigh_ms)
+                 cfg, scan), 3))
+
+    def sym_eig(self):
+        """``sym_eig``: the eigensolver kernel (ops/csrc/sym_eig.cu)
+        against its plain version and torch.linalg.eigh, at the detector's
+        (32, 4, 4) batches from the dense world's scans (the moment
+        matrices S and the symmetrized Y H⁻¹ Y of the fit, as
+        feature_detection hands them over) and at S = 17, 53, 103 and 203
+        (symmetric indefinite matrices from a numpy seed; at 203 both
+        planes lie in device memory). Gates: eigenvalues within 1e-12 of
+        the largest |eigenvalue| of the plain version's and the library's,
+        V diag(w) Vᵀ within 1e-12 of the input (relative to the same), VᵀV
+        within 1e-12 of I. Times: CUDA-event ms of the kernel, the plain
+        version and torch.linalg.eigh (the library call, timed here and
+        used nowhere in the package), the kernel's device µs (the profiler's,
+        :func:`device_us`, and CUDA events behind a spin kernel,
+        :func:`device_event_us`), and its bound (:func:`eig_work`)."""
+        from tpunav_torch.ops import sym_eig as se
+
+        t0 = time.perf_counter()
+        lmk, cfg = self.lmk, self.lmk.LandmarkConfig(max_clusters=32)
+        seen, real = [], se.eigh
+
+        def spy(a, skip=None):
+            seen.append(a.clone())
+            return real(a, skip)
+
+        se.eigh = spy
+        try:
+            lmk.feature_detection(cfg, self.scans(self.dev)[0])
+        finally:
+            se.eigh = real
+        rng = np.random.default_rng(11)
+        cases = [("detector_S", seen[0]), ("detector_Q", seen[1])]
+        for n in (17, 53, 103, 203):
+            x = rng.standard_normal((n, n))
+            cases.append((f"S={n}", torch.from_numpy(x + x.T).to(self.dev)))
+        rows, self.eig_max_err = [], 0.0
+        for name, a in cases:
+            n = a.shape[-1]
+            w, v = se.eigh(a)
+            wp, vp = se.eigh_reference(a)
+            wl, _ = torch.linalg.eigh(a)
+            scale = wl.abs().amax(-1, keepdim=True).clamp(min=1e-300)
+            errs = {
+                "eigenvalues_vs_plain": float(((w - wp).abs() / scale).max()),
+                "eigenvalues_vs_library": float(((w - wl).abs()
+                                                 / scale).max()),
+                "reconstruction": float(((v @ (w[..., None] * v.transpose(
+                    -1, -2)) - a).abs() / scale[..., None]).max()),
+                "orthogonality": float((v.transpose(-1, -2) @ v - torch.eye(
+                    n, dtype=a.dtype, device=self.dev)).abs().max())}
+            if not all(e <= 1e-12 for e in errs.values()):
+                raise AssertionError(f"sym_eig {name}: {errs} over 1e-12")
+            abs_err = max(float((w - wp).abs().max()),
+                          float((v - vp).abs().max()))
+            self.eig_max_err = max(self.eig_max_err, abs_err)
+            sweeps = jacobi_sweeps(a)
+            big = n > 150
+            nbytes, ops = eig_work(n, a.numel() // (n * n))
+            b_ms, b_by = bound(nbytes, ops, F64_OPS_PER_S)
+            rows.append({
+                "case": name, "shape": list(a.shape),
+                "layout": se.layout(n, smem_limit())[:2],
+                "sweeps": sweeps.tolist() if sweeps.dim() else int(sweeps),
+                "errors": errs, "max_abs_err_vs_plain": abs_err,
+                "bits_equal_plain": bool(torch.equal(w, wp) and
+                                         torch.equal(v, vp)),
+                "ms": time_ms(lambda: se.eigh(a), reps=3 if big else 20,
+                              warmup=1 if big else 3),
+                # The plain version is host-bound, about a second a call at
+                # S >= 53: one timed call after the one above.
+                "plain_ms": time_ms(lambda: se.eigh_reference(a),
+                                    reps=1 if n > 50 else 2,
+                                    warmup=0 if n > 50 else 1),
+                "library_ms": time_ms(lambda: torch.linalg.eigh(a),
+                                      reps=20, warmup=3),
+                "device_us": device_us(lambda: se.eigh(a), ("sym_eig",),
+                                       3 if big else 20)["sym_eig"],
+                "device_event_us": device_event_us(lambda: se.eigh(a),
+                                                   3 if big else 20),
+                "bound_ms": b_ms, "bound_by": b_by, "bound_ops": ops,
+                "bound_bytes": nbytes})
+        self.eig_rows = rows
+        emit("sym_eig", seconds=time.perf_counter() - t0, card=self.card,
+             bar=1e-12, fp64_peak_flops=F64_OPS_PER_S, rows=rows,
+             max_abs_err_vs_plain=self.eig_max_err)
 
     def course(self):
         """BASELINE config 3 as the demo runs it
@@ -1322,7 +1409,7 @@ class Ekf:
         chunk = self.sl.default_chunk(loop.sensor_every)
         ran = chunk * -(-ticks // chunk)
         if counts != {"K1": ran, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0}:
+                      "K4": 0, "EIG": 0}:
             raise AssertionError(f"launches {counts} for {ran} ticks run "
                                  f"({ticks} to done): the loop did not solve "
                                  "on K1 once per tick")
@@ -1340,41 +1427,118 @@ class Ekf:
         """BASELINE config 4 at its stated scale
         (examples_torch.dense_world_slam_demo: 5,000 ticks of the
         44-cylinder world from seed 0, K=2,048, lidar → detector → unknown
-        DA at capacity 50). Gates: final SLAM |xy| error < 0.5 ×
-        odometry's (tests/test_perception_loop.py:143-145), 36-50
-        landmarks tracked, a finite filter, one K1 launch per tick."""
-        course, (mppi, ekf, loop), _, _, _ = self.c4_demo.build(
+        DA at capacity 50), eager per tick (:meth:`dense_eager`: the ticks
+        alone timed, as ``ekf_profile``'s idle share divides the same
+        tick's device time, and the demo's telemetry rows taken from the
+        kept states) and as the demo runs it by default:
+        ``run_slam_course``'s chunks replayed as CUDA graphs (``tpunav``'s
+        one ``lax.scan``) with the demo's per-tick telemetry. Gates: the
+        chunked course's final state, generator and 5,000 telemetry rows
+        equal to the eager course's bit for bit; final SLAM |xy| error <
+        0.5 × odometry's (tests/test_perception_loop.py:143-145), 36-50
+        landmarks tracked, a finite filter; in each run one K1 launch per
+        tick and two eigensolver launches per sensing tick (the counts set
+        to 0 before each run). A replayed window of chunks: µs per tick,
+        device µs, operations, host API calls and idle share, and the host
+        syncs per tick inside the chunks."""
+        sl, demo = self.sl, self.c4_demo
+        course, (mppi, ekf, loop), ring, world, meas_fn = demo.build(
             ticks, device=self.dev)
+        sensing = -(-ticks // loop.sensor_every)
+        want = {"K1": ticks, "K1_obstacle": 0, "K2": 0, "K3": 0, "K4": 0,
+                "EIG": 2 * sensing}
+        runs = {}
+        for name in ("eager", "chunked"):
+            torch.cuda.synchronize()
+            reset_counts()
+            if name == "eager":
+                out = self.dense_eager(mppi, ekf, loop, ring, world, meas_fn,
+                                       ticks)
+            else:
+                out = course(0, chunked=True)
+            counts = read_counts()
+            st = out["state"]
+            e_s, e_o = out["ekf_err"], out["odo_err"]
+            slam_xy = float(np.hypot(*e_s[1:]))
+            odo_xy = float(np.hypot(*e_o[1:]))
+            n_lm = out["count"]
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (st.ekf.state, st.ekf.cov, st.true_pose))
+            if not (finite and slam_xy < 0.5 * odo_xy and 36 <= n_lm <= 50):
+                raise AssertionError(f"config 4 ({name}): SLAM |xy| {slam_xy}"
+                                     f" m, odometry {odo_xy} m, {n_lm} "
+                                     f"landmarks, finite {finite}")
+            if counts != want:
+                raise AssertionError(f"config 4 ({name}): launches {counts} "
+                                     f"for {ticks} ticks, expected {want}")
+            runs[name] = {
+                "out": out, "seconds": out["wall_s"],
+                "us_per_tick": 1e6 * out["wall_s"] / ticks,
+                "ticks_per_s": ticks / out["wall_s"],
+                "slam_xy_error_m": slam_xy,
+                "slam_heading_error_rad": float(e_s[0]),
+                "odometry_xy_error_m": odo_xy, "landmarks_tracked": n_lm,
+                "visits": out["visits"], "kernel_launches": counts}
+        a, b = runs["eager"].pop("out"), runs["chunked"].pop("out")
+        sa, sb = a["state"], b["state"]
+        same = same_bits(sa, sb, ("true_pose", "odom", "u", "wpt_idx",
+                                  "visits", "ticks", "done"))
+        same.update({f"ekf.{k}": v for k, v in same_bits(
+            sa.ekf, sb.ekf, self.ekff.EKFState._fields).items()})
+        same["generator"] = bool(torch.equal(sa.generator.get_state(),
+                                             sb.generator.get_state()))
+        same["telemetry"] = bool(torch.equal(a["tel_t"], b["tel_t"]))
+        if not all(same.values()) or sa.host_ticks != sb.host_ticks:
+            raise AssertionError(f"config 4 chunked vs eager: {same}")
+        self.dense_state = sb
+        self.c4_tick_us = runs["eager"]["us_per_tick"]
+        self.k1_dense = runs["chunked"]["kernel_launches"]["K1"]
+        self.eig_dense = runs["chunked"]["kernel_launches"]["EIG"]
+        chunk = sl.default_chunk(loop.sensor_every)
+        window = sl._Chunks(mppi, ekf, loop, demo.MODEL, ring, world,
+                            sl.slam_loop_init(mppi, ekf, pose_xyt=[
+                                1.42, 0.0, math.pi / 2], seed=2,
+                                device=self.dev), chunk, None, meas_fn,
+                            (360,), demo.telemetry_row)
+        window.run()                            # the warm-up
+        window.run()                            # the capture
+        chunk_us = wall_us(window.run, 5, warmup=0)
+        prof = graph_window(window.run, 2, chunk, chunk_us)
+        prof["host_syncs_per_tick"] = syncs_per_call(window.run, 3) / chunk
+        emit("dense_world", seconds=a["wall_s"] + b["wall_s"],
+             K=mppi.rollouts, N=mppi.steps, cylinders=len(self.world),
+             capacity=ekf.num_landmarks, beams=360, max_clusters=32,
+             sensor_every=loop.sensor_every, ticks=ticks, chunk=chunk,
+             ticks_per_s=runs["eager"]["ticks_per_s"], eager=runs["eager"],
+             chunked=runs["chunked"],
+             bit_identical=same, replayed_window=prof,
+             replayed_us_per_tick=chunk_us / chunk,
+             replayed_ticks_per_s=1e6 * chunk / chunk_us, card=self.card)
+
+    def dense_eager(self, mppi, ekf, loop, ring, world, meas_fn, ticks):
+        """Config 4's eager course as the demo runs it (``course(0,
+        chunked=False)``: ``slam_loop_tick`` per tick from seed 0), the
+        ticks alone timed, as in ``course(0, telemetry=False)``. Each
+        tick's state is kept, and the demo's telemetry rows are taken from
+        those states after the timed loop: the same rows as the demo's
+        loop takes, without their operations in the timed ticks."""
+        sl, demo = self.sl, self.c4_demo
+        st = sl.slam_loop_init(mppi, ekf, pose_xyt=[1.42, 0.0, math.pi / 2],
+                               seed=0, device=self.dev)
+        kept = []
         torch.cuda.synchronize()
-        reset_counts()
-        # The ticks alone are timed, without the demo's per-tick telemetry:
-        # ekf_profile's idle share divides the same tick's device time.
-        out = course(0, telemetry=False)
-        wall = out["wall_s"]
-        counts = read_counts()
-        st = out["state"]
-        e_s, e_o = out["ekf_err"], out["odo_err"]
-        slam_xy, odo_xy = float(np.hypot(*e_s[1:])), float(np.hypot(*e_o[1:]))
-        n_lm = out["count"]
-        finite = all(bool(torch.isfinite(x).all())
-                     for x in (st.ekf.state, st.ekf.cov, st.true_pose))
-        if not (finite and slam_xy < 0.5 * odo_xy and 36 <= n_lm <= 50):
-            raise AssertionError(f"config 4: SLAM |xy| {slam_xy} m, odometry "
-                                 f"{odo_xy} m, {n_lm} landmarks, finite "
-                                 f"{finite}")
-        if counts != {"K1": ticks, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0}:
-            raise AssertionError(f"launches {counts} for {ticks} ticks: the "
-                                 "loop did not solve on K1 once per tick")
-        self.dense_state, self.k1_dense = st, counts["K1"]
-        self.c4_tick_us = 1e6 * wall / ticks
-        emit("dense_world", seconds=wall, K=mppi.rollouts, N=mppi.steps,
-             cylinders=len(self.world), capacity=ekf.num_landmarks,
-             beams=360, max_clusters=32, sensor_every=loop.sensor_every,
-             ticks=ticks, visits=out["visits"], slam_xy_error_m=slam_xy,
-             slam_heading_error_rad=float(e_s[0]), odometry_xy_error_m=odo_xy,
-             landmarks_tracked=n_lm, kernel_launches=counts,
-             ticks_per_s=ticks / wall, card=self.card)
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            st = sl.slam_loop_tick(mppi, ekf, loop, demo.MODEL, ring, world,
+                                   st, meas_fn=meas_fn)
+            kept.append(st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tel = torch.stack([demo.telemetry_row(k) for k in kept])
+        e_s, e_o = demo.errors(st)
+        return {"state": st, "wall_s": wall, "tel_t": tel,
+                "ekf_err": e_s.cpu().numpy(), "odo_err": e_o.cpu().numpy(),
+                "count": int(st.ekf.count), "visits": int(st.visits)}
 
     def loop_rate(self, known, trials=2, ticks=240):
         """bench.py:bench_slam_loop: K=4,096, N=25, capacity 50, the sensor
@@ -1415,9 +1579,10 @@ class Ekf:
     def times(self):
         """bench.py's EKF lines (µs per update and updates/s at n=50, 12
         visible, 200 updates, float32, ≥ 5 trials) for both DAs; the two
-        trip-count candidates at config 4's shape; the two forms of the
-        SPD repair at n=50; the closed-loop rates of configs 3 and 4 at
-        bench_slam_loop's shape; ms per detector call."""
+        trip-count candidates at config 4's shape; the SPD repair at n=50,
+        gated off and repairing, with no host sync; the closed-loop rates
+        of configs 3 and 4 at bench_slam_loop's shape; ms per detector
+        call."""
         t0 = time.perf_counter()
         ekff, cfg = self.ekff, self.bench_cfg()
         meas = [self.t(m) for m in bench_ekf_course()]
@@ -1481,22 +1646,27 @@ class Ekf:
                 "masked_syncs": syncs_per_call(lambda: masked(c, st_, m, u4),
                                                5),
                 "bit_identical": same})
-        # The SPD repair of an (S, S) = (103, 103) float32 covariance, as
-        # a host branch (the package's) or a torch.where over both.
+        # The SPD repair of an (S, S) = (103, 103) float32 covariance, with
+        # no host read: gated off on the bench's SPD covariance (the
+        # eigensolver runs no sweep), and run on the same matrix with one
+        # diagonal entry made negative.
         spd, cov = self.spd, self.final_bench.cov
-        repair = {
-            "host_branch_us": wall_us(lambda: spd.repair_if_needed(cov), 20),
-            "where_us": wall_us(lambda: torch.where(
-                spd.is_spd(cov), cov, spd.nearest_spd(cov)), 20),
-            "host_branch_launches": launches(
-                lambda: spd.repair_if_needed(cov)),
-            "where_launches": launches(lambda: torch.where(
-                spd.is_spd(cov), cov, spd.nearest_spd(cov))),
-            "host_branch_syncs": syncs_per_call(
-                lambda: spd.repair_if_needed(cov), 5),
-            "where_syncs": syncs_per_call(lambda: torch.where(
-                spd.is_spd(cov), cov, spd.nearest_spd(cov)), 5),
-            "is_spd": bool(spd.is_spd(cov))}
+        bad = cov.clone()
+        bad[0, 0] = -1.0
+        from tpunav_torch.ops import sym_eig as se
+
+        repair = {"is_spd": bool(spd.is_spd(cov)),
+                  "bad_is_spd": bool(spd.is_spd(bad)),
+                  "bad_sweeps": int(jacobi_sweeps(
+                      (0.5 * (bad + bad.T)).double()))}
+        for tag, m, reps in (("gated", cov, 20), ("repair", bad, 5)):
+            repair.update({
+                f"{tag}_us": wall_us(lambda: spd.repair_if_needed(m), reps),
+                f"{tag}_launches": launches(lambda: spd.repair_if_needed(m)),
+                f"{tag}_syncs": syncs_per_call(
+                    lambda: spd.repair_if_needed(m), 3)})
+        if repair["gated_syncs"] or repair["repair_syncs"]:
+            raise AssertionError(f"the SPD repair synchronizes: {repair}")
         loops = [self.loop_rate(True), self.loop_rate(False, trials=1)]
         self.timing = {"lines": lines, "trip_count": trips,
                        "spd_repair": repair, "loops": loops}
@@ -1525,9 +1695,9 @@ class Ekf:
         holding a whole number of sensing periods, after warm-up): launches
         per tick and per sensing update, device busy µs and idle share
         against the eager ticks' unprofiled time (config 3: the same window
-        timed; config 4: ``dense_world``'s ticks), host syncs per tick, the
-        top device operations. The graph of config 3's ticks:
-        ``graph_ekf``."""
+        timed; config 4: ``dense_world``'s eager ticks, without telemetry),
+        host syncs per tick, the top device operations. The graphs of the
+        ticks: ``graph_ekf`` (config 3) and ``dense_world`` (config 4)."""
         t0 = time.perf_counter()
         out = {}
         mppi, ekf, loop, wpts, lms = self.config3()
@@ -1677,7 +1847,7 @@ class Graphs:
             raise AssertionError(f"odometry {odom} ends {d_last} m from the "
                                  "last waypoint")
         if counts != {"K1": commands, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0}:
+                      "K4": 0, "EIG": 0}:
             raise AssertionError(f"launches {counts} for {commands} commands:"
                                  " the driver did not solve on K1 once each")
         self.k1_course = counts["K1"]
@@ -1799,7 +1969,7 @@ class Graphs:
             raise AssertionError("RBPF node: no walls or no free cells in "
                                  "the grid, or no map→odom")
         want = {"K1": 0, "K1_obstacle": 0, "K2": updates, "K3": updates,
-                "K4": 1}
+                "K4": 1, "EIG": 0}
         if updates != Rbpf.UPDATES or counts != want:
             raise AssertionError(f"RBPF node: launches {counts} over "
                                  f"{updates} updates, expected {want}")
@@ -1914,7 +2084,7 @@ class Graphs:
             raise AssertionError(f"EKF node: error {ekf_err} m not below "
                                  f"odometry's {odo_err} m")
         if counts != {"K1": commands, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0}:
+                      "K4": 0, "EIG": 0}:
             raise AssertionError(f"EKF node: launches {counts} for {commands}"
                                  " commands")
         return {"seconds": time.perf_counter() - t0, "K": mppi.rollouts,
@@ -1932,8 +2102,11 @@ class Graphs:
         robot circling 1.25 m out, into LandmarksNode (max_clusters 32) and
         EkfSlamNode (unknown DA, capacity 50), 30 s of virtual time. Gates:
         the node's measurements equal feature_detection +
-        circles_to_measurements on the same scans bit for bit, all state
-        finite, at least 20 landmarks tracked."""
+        circles_to_measurements on the same scans bit for bit (the node
+        replays the detector as a CUDA graph), all state finite, at least
+        20 landmarks tracked, two eigensolver launches per scan. The node's
+        tick (the scan in, one replay, one host copy out) timed beside the
+        eager detector call (``detector``'s ms per call)."""
         from tpunav_torch.core import diff_drive as dd
         from tpunav_torch.core import se2
         from tpunav_torch.runtime import Channel, Node, Scheduler
@@ -1969,6 +2142,8 @@ class Graphs:
             lmk.tick(t)
             seen.append((ch["scan"].latest(), ch["landmarks"].latest()))
 
+        torch.cuda.synchronize()
+        reset_counts()
         s = Scheduler()
         s.add(Node("cmd", 20.0, lambda t: ch["cmd_vel"].publish(
             np.array([0.08, 0.1, 0.0]))))
@@ -1977,16 +2152,26 @@ class Graphs:
         s.add(Node("landmarks", 5.0, detect))
         s.add(Node("slam", 20.0, ekf.tick))
         s.run(29.99)
+        torch.cuda.synchronize()
+        counts = read_counts()
         same = all(np.array_equal(
             m, host(self.e.lmk.circles_to_measurements(
                 self.e.lmk.feature_detection(lm_cfg, self.e.t(r)))),
             equal_nan=True) for r, m in seen)
         finite = all(bool(torch.isfinite(x).all()) for x in ekf.ekf[:2])
         count = int(ekf.ekf.count)
-        if not (same and finite and count >= 20 and len(seen) == 150):
+        if not (same and finite and count >= 20 and len(seen) == 150 and
+                counts["EIG"] == 2 * len(seen)):
             raise AssertionError(f"detector chain: measurements equal {same},"
                                  f" finite {finite}, {count} landmarks, "
-                                 f"{len(seen)} scans")
+                                 f"{len(seen)} scans, launches {counts}")
+        last = seen[-1][0]
+
+        def node_tick():
+            ch["scan"].publish(last)
+            lmk.tick(0.0)
+
+        tick_us = wall_us(node_tick, 50)
         est = ch["slam_pose"].latest()
         odo = host(dd.pose(enc.state))
         return {"seconds": time.perf_counter() - t0, "scans": len(seen),
@@ -1994,7 +2179,9 @@ class Graphs:
                 "detections_per_scan": float(np.mean(
                     [np.isfinite(m).all(-1).sum() for _, m in seen])),
                 "measurements_bit_identical": same, "finite": finite,
-                "landmarks_tracked": count,
+                "landmarks_tracked": count, "kernel_launches": counts,
+                "node_tick_us": tick_us,
+                "eager_detector_us": 1e3 * self.e.detector_ms,
                 "slam_xy_error_m": float(np.hypot(est[1] - odo[1],
                                                   est[2] - odo[2]))}
 
@@ -2007,8 +2194,9 @@ class Graphs:
         ekf = self.ekf_node()
         det = self.detector_node()
         self.slam_counts = {k: rbpf["kernel_launches"][k]
-                            + ekf["kernel_launches"][k] for k in
-                            ("K1", "K2", "K3", "K4")}
+                            + ekf["kernel_launches"][k]
+                            + det["kernel_launches"][k] for k in
+                            ("K1", "K2", "K3", "K4", "EIG")}
         emit("slam_nodes", seconds=time.perf_counter() - t0, card=self.card,
              rbpf_config5=rbpf, ekf_config3=ekf, detector_chain=det)
 
@@ -2313,7 +2501,7 @@ class Sharded:
         if ranks[0]["digest"] != ranks[1]["digest"]:
             raise AssertionError("the ranks' gathered states differ")
         want_counts = {"K1": 0, "K1_obstacle": 0, "K2": SHARD_UPDATES,
-                       "K3": SHARD_UPDATES, "K4": SHARD_UPDATES}
+                       "K3": SHARD_UPDATES, "K4": SHARD_UPDATES, "EIG": 0}
         for rk in ranks:
             if rk["launches"] != want_counts:
                 raise AssertionError(f"launches {rk['launches']}, expected "
@@ -2419,7 +2607,7 @@ class Demos:
                                  f"{odo_xy} m")
         scans = r["scans_run"]
         want = {"K1": ex.TICKS_PER_SCAN * scans, "K2": scans, "K3": scans,
-                "K4": r["pf_inits"], "K1_obstacle": 0}
+                "K4": r["pf_inits"], "K1_obstacle": 0, "EIG": 0}
         if counts != want:
             raise AssertionError(f"explore: launches {counts}, expected "
                                  f"{want} for {scans} scans")
@@ -2463,7 +2651,8 @@ class Demos:
                 f"full stack: reached {out['reached']} in {out['scans']} "
                 f"scans, goal error {out['final_goal_err_m']} m, finite "
                 f"{finite}")
-        want = {"K1": 12 * n, "K2": n, "K3": n, "K4": 1, "K1_obstacle": 0}
+        want = {"K1": 12 * n, "K2": n, "K3": n, "K4": 1, "K1_obstacle": 0,
+                "EIG": 0}
         if counts != want:
             raise AssertionError(f"full stack: launches {counts}, expected "
                                  f"{want} for {n} scan updates")
@@ -2574,7 +2763,8 @@ def graph_window(step, reps: int, per: int, step_us: float,
                     for key, tag in [("K1", "mppi_rollout_partials"),
                                      ("K2", "likelihood_"),
                                      ("K3", "map_update_kernel"),
-                                     ("K4", "edt_kernel")]}
+                                     ("K4", "edt_kernel"),
+                                     ("EIG", "sym_eig_kernel")]}
         counted = {key: counts[key] for key in profiled}
         if profiled == counted:
             break
@@ -2586,6 +2776,7 @@ def graph_window(step, reps: int, per: int, step_us: float,
     n = reps * per
     busy = sum(us for us, _ in kern.values()) / n
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
+    k1_us = sum(us for name, (us, _) in kern.items() if "mppi_" in name)
     return {"per_window": reps, "ticks_or_updates": n,
             "device_us": busy, "device_ops": sum(c for _, c in
                                                  kern.values()) / n,
@@ -2595,6 +2786,8 @@ def graph_window(step, reps: int, per: int, step_us: float,
             "unprofiled_us": step_us / per,
             "device_idle_share": 1 - busy * per / step_us,
             "counters_equal_profiler": counted, "windows_that_disagreed": misses,
+            "k1_device_us_per_launch": (k1_us / profiled["K1"]
+                                        if profiled["K1"] else None),
             "top_device_us": {k[:60]: us / n for k, (us, _) in top}}
 
 
@@ -2685,6 +2878,18 @@ class CudaGraphs:
                                  f"{ticks} ticks in chunks of 120")
         steady = ((len(seen) - 2) * chunk / (marks[-1] - marks[1])
                   if len(marks) > 2 else None)
+        # run_course's ticks after done, each held: K1 returns at once.
+        held_win = wl._Chunks(cfg, course, model, wpts, held, None, table,
+                              120, held=True, telemetry=False)
+        held_win.step(course.max_ticks)         # the warm-up
+        held_win.step(course.max_ticks)         # the capture
+        held_us = wall_us(lambda: held_win.step(course.max_ticks), 3,
+                          warmup=0)
+        held_prof = graph_window(lambda: held_win.step(course.max_ticks), 1,
+                                 120, held_us)
+        if not all(same_bits(held_win.state, held,
+                             self.COURSE_FIELDS).values()):
+            raise AssertionError("held ticks moved a finished course")
         window = wl._Chunks(cfg, course, model, wpts, st0, None, table, 120,
                             held=False, telemetry=True)
         window.step(course.max_ticks)           # the warm-up
@@ -2700,7 +2905,7 @@ class CudaGraphs:
                 "replayed_us_per_tick": step_us / 120,
                 "replayed_solves_per_s": 120e6 / step_us,
                 "bit_identical": same, "telemetry_bit_identical": tel_same,
-                "replayed_window": prof}
+                "replayed_window": prof, "held_window": held_prof}
 
     def course(self):
         """``graph_course``: the flagship pentagon and config 2's obstacle
@@ -2815,7 +3020,7 @@ class CudaGraphs:
         same = same_bits(st, r.state, ("poses", "log_weights", "grids",
                                        "dists", "prev_poses"))
         want = {"K1": 0, "K1_obstacle": 0, "K2": r.UPDATES,
-                "K3": r.UPDATES, "K4": 0}
+                "K3": r.UPDATES, "K4": 0, "EIG": 0}
         if not all(same.values()) or counts != want:
             raise AssertionError(f"RBPF stepper vs eager: {same}, launches "
                                  f"{counts} (want {want})")
@@ -2846,9 +3051,10 @@ class CudaGraphs:
         """``graph_ekf``: config 3 through ``run_slam_loop`` (``ekf_course``'s
         graph run) against the eager per-tick loop from the same start, bit
         for bit, the generator included; a replayed window of 60-tick
-        chunks; the EKF update alone at ``bench_ekf``'s shape (n=50, 12
-        visible of 50 rows, float32, ``spd_repair=False``: the repair's
-        ``eigh`` cannot be captured), eager and through ``EKFStepper``."""
+        chunks, and of held chunks from the finished course (K1 returns at
+        once); the EKF update alone at ``bench_ekf``'s shape (n=50, 12
+        visible of 50 rows, float32) through ``EKFStepper`` without and
+        with the default SPD repair (:meth:`update_alone`)."""
         sl, ekff = self.e.sl, self.e.ekff
         t0 = time.perf_counter()
         mppi, ekf, loop, wpts, lms = self.e.config3()
@@ -2877,50 +3083,145 @@ class CudaGraphs:
         window.step()
         chunk_us = wall_us(window.step, 5, warmup=0)
         prof = graph_window(window.step, 3, chunk, chunk_us)
+        # Chunks of held ticks from ekf_course's finished state: K1 returns
+        # at once on each.
+        held = sl._Chunks(mppi, ekf, loop, model, wpts, lms, g, chunk, 10**9)
+        held.step()
+        held.step()
+        held_us = wall_us(held.step, 3, warmup=0)
+        held_prof = graph_window(held.step, 1, chunk, held_us)
         update = {}
-        cfg = dataclasses.replace(self.e.bench_cfg(), spd_repair=False)
         meas = [self.e.t(m) for m in bench_ekf_course()]
         u = self.e.t([0.02, 0.01])
-        for known in (True, False):
-            fn = (ekff.known_correspondence_slam if known
-                  else ekff.slam_unknown_da)
-            a = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
-            stepper = ekff.EKFStepper(cfg, a, 50, known)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for i, m in enumerate(meas):
-                a = fn(cfg, a, m, u)
-                if i == 19:
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            eager_ms = 1e3 * (time.perf_counter() - t1) / (len(meas) - 20)
-            for i, m in enumerate(meas):
-                b = stepper.step(m, u)
-                if i == 19:
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            graph_ms = 1e3 * (time.perf_counter() - t1) / (len(meas) - 20)
-            bits = same_bits(b, a, ekff.EKFState._fields)
-            if not all(bits.values()):
-                raise AssertionError(f"EKF stepper vs eager: {bits}")
-            step_us = wall_us(lambda: stepper.step(meas[-1], u), 5,
-                              warmup=0)
-            update["known" if known else "unknown"] = {
-                "eager_ms_per_update": eager_ms,
-                "graph_ms_per_update": graph_ms,
-                "graph_updates_per_s": 1e3 / graph_ms, "bit_identical": bits,
-                "replayed_window": graph_window(
-                    lambda: stepper.step(meas[-1], u), 3, 1, step_us)}
+        for repair in (False, True):
+            cfg = dataclasses.replace(self.e.bench_cfg(), spd_repair=repair)
+            for known in (True, False):
+                update[f"{'known' if known else 'unknown'}"
+                       f"{'_spd_repair' if repair else ''}"] = \
+                    self.update_alone(cfg, known, meas, u)
         self.launches["ekf"] = self.e.k1_course
+        self.launches["ekf_eig"] = {k: r["launches"]["EIG"]
+                                    for k, r in update.items()}
         emit("graph_ekf", seconds=time.perf_counter() - t0, card=self.card,
              ticks=st.host_ticks, bit_identical=same,
              eager_us_per_tick=eager_us,
              eager_ticks_per_s=1e6 / eager_us,
              graph_us_per_tick=chunk_us / chunk,
              graph_ticks_per_s=1e6 * chunk / chunk_us,
-             replayed_window=prof, update_alone=update)
+             replayed_window=prof, held_window=held_prof,
+             update_alone=update)
+
+    def update_alone(self, cfg, known, meas, u, masked_updates=20,
+                     f64_updates=12):
+        """The EKF update alone through ``EKFStepper`` against the eager
+        update (float32, ``bench_ekf``'s 200 updates): bit for bit the
+        dynamic chain's state and, over the first ``masked_updates``, the
+        eager masked form's; a float64 stepper over ``f64_updates`` within
+        1e-9 of the masked update on the CPU; ms per update both ways and
+        a replayed window; the eigensolver's launches per update (the SPD
+        repair: one, gated off on an SPD covariance)."""
+        ekff = self.e.ekff
+        fn, masked = ((ekff.known_correspondence_slam,
+                       ekff.known_correspondence_slam_masked) if known
+                      else (ekff.slam_unknown_da, ekff.slam_unknown_da_masked))
+        a = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
+        stepper = ekff.EKFStepper(cfg, a, 50, known)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i, m in enumerate(meas):
+            a = fn(cfg, a, m, u)
+            if i == 19:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        eager_ms = 1e3 * (time.perf_counter() - t1) / (len(meas) - 20)
+        reset_counts()
+        for i, m in enumerate(meas):
+            b = stepper.step(m, u)
+            if i == 19:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        graph_ms = 1e3 * (time.perf_counter() - t1) / (len(meas) - 20)
+        counts = read_counts()
+        bits = same_bits(b, a, ekff.EKFState._fields)
+        c = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
+        short = ekff.EKFStepper(cfg, c, 50, known)
+        for m in meas[:masked_updates]:
+            c = masked(cfg, c, m, u)
+            d = short.step(m, u)
+        bits.update({f"masked.{k}": v for k, v in same_bits(
+            d, c, ekff.EKFState._fields).items()})
+        if not all(bits.values()):
+            raise AssertionError(f"EKF stepper vs eager (spd_repair="
+                                 f"{cfg.spd_repair}): {bits}")
+        want_eig = len(meas) if cfg.spd_repair else 0
+        if counts["EIG"] != want_eig:
+            raise AssertionError(f"EKF stepper: {counts} launches over "
+                                 f"{len(meas)} updates")
+        e64 = ekff.ekf_init(cfg, dtype=torch.float64, device=self.dev)
+        c64 = ekff.ekf_init(cfg, dtype=torch.float64, device="cpu")
+        s64 = ekff.EKFStepper(cfg, e64, 50, known)
+        for m in meas[:f64_updates]:
+            got = s64.step(m.double(), u.double())
+            c64 = masked(cfg, c64, m.double().cpu(), u.double().cpu())
+        f64_err = max(float((x.cpu() - y).abs().max())
+                      for x, y in zip(got[:2], c64[:2]))
+        if not (f64_err <= 1e-9 and torch.equal(got.active.cpu(),
+                                                c64.active)):
+            raise AssertionError(f"EKF stepper float64 vs CPU: {f64_err}")
+        step_us = wall_us(lambda: stepper.step(meas[-1], u), 5, warmup=0)
+        return {"spd_repair": cfg.spd_repair,
+                "eager_ms_per_update": eager_ms,
+                "graph_ms_per_update": graph_ms,
+                "graph_updates_per_s": 1e3 / graph_ms, "bit_identical": bits,
+                "launches": counts, "float64_vs_cpu_max_abs_err": f64_err,
+                "float64_updates": f64_updates,
+                "replayed_window": graph_window(
+                    lambda: stepper.step(meas[-1], u), 3, 1, step_us)}
+
+    def collector(self, runners=4, chunk=30, steps=3):
+        """``graph_gc``: the capture guard (``capture.Graph`` collects
+        before a capture and holds the collector off during it) on the
+        card. Course runners are built, warmed, captured, replayed and
+        dropped inside reference cycles, which only the cyclic collector
+        frees: first ``runners`` // 2, then a new runner captures at once
+        (the guard's own collection frees them); then the rest, a forced
+        collection, and another runner. Each new runner's state after
+        ``steps`` chunks equals the eager ticks' bit for bit."""
+        from tpunav_torch.control import waypoint_loop as wl
+
+        t0 = time.perf_counter()
+        cfg, course, wpts, st0 = self.s.flagship()
+        model = self.s.model
+
+        def drop(n):
+            for _ in range(n):
+                r = wl._Chunks(cfg, course, model, wpts, st0, None, None,
+                               chunk, held=False, telemetry=False)
+                r.cycle = r
+                for _ in range(steps):
+                    r.step(course.max_ticks)
+                del r
+
+        st = st0
+        for _ in range(chunk * steps):
+            st = wl._tick(cfg, course, model, wpts, st, None, None)
+        rows = {}
+        for tag in ("guard", "forced"):
+            drop(runners // 2)
+            if tag == "forced":
+                gc.collect()
+            r = wl._Chunks(cfg, course, model, wpts, st0, None, None, chunk,
+                           held=False, telemetry=False)
+            for _ in range(steps):
+                r.step(course.max_ticks)
+            rows[tag] = same_bits(r.state, st, self.COURSE_FIELDS)
+            if not all(rows[tag].values()):
+                raise AssertionError(f"graph_gc ({tag}): {rows[tag]}")
+        emit("graph_gc", seconds=time.perf_counter() - t0, card=self.card,
+             dropped_runners=runners, chunk=chunk, steps=steps,
+             bit_identical=rows)
 
 
 def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
@@ -2958,7 +3259,8 @@ def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
             us = device_us(fn, ("mppi_rollout_partials", "mppi_combine"),
                            reps)
             k1.append({"K": k, "N": cfg.steps, "O": n_obs, "device_us": us,
-                       "total_us": sum(us.values())})
+                       "total_us": None if None in us.values()
+                       else sum(us.values())})
     lik = []
     for gcfg, p, k in [(rbpf.g80, 500, 51), (rbpf.g80, 2000, 51),
                        (rbpf.g160, 40, 50), (rbpf.g80, 40, 51)]:
@@ -2989,14 +3291,68 @@ def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
          k2=lik, maps=maps)
 
 
-def device_us(fn, tags, reps: int) -> dict:
+# The launch counter of the kernels whose names hold each profiler tag.
+TAG_COUNTERS = {"mppi_rollout_partials": "K1", "mppi_combine": "K1",
+                "likelihood_": "K2", "map_update_kernel": "K3",
+                "edt_kernel": "K4", "sym_eig": "EIG"}
+
+
+def device_us(fn, tags, reps: int, attempts: int = 3) -> dict:
     """{tag: device µs per call of the kernels whose names hold tag}, from
-    torch.profiler over ``reps`` calls after 5."""
+    torch.profiler over ``reps`` calls after 5, in :func:`trace_window`
+    (which opens on spin kernels). Late in a process the profiler records
+    only part of a window's kernels (on an H100: 11 of 20 eigensolver
+    launches, 0 of 3 at S = 203; all in a fresh process). A window whose
+    count of a tag's kernels equals its launch counters' change gives the
+    sum; otherwise, after ``attempts`` windows, the calls being alike, each
+    recorded kernel's mean µs times its launches per call (the counter's
+    change split evenly over the tag's kernel names), with the recorded
+    share on stderr; None where no kernel of the tag was recorded (not
+    measured)."""
     for _ in range(5):
         fn()
-    kern = kernel_profile(fn, reps)
-    return {tag: sum(us for key, (us, _) in kern.items() if tag in key)
-            / reps for tag in tags}
+    out, part = dict.fromkeys(tags), {}
+    for _ in range(attempts):
+        kern, _, counts = trace_window(fn, reps)
+        for tag in (t for t in tags if out[t] is None):
+            hits = [(us, c) for key, (us, c) in kern.items() if tag in key]
+            launched = counts[TAG_COUNTERS[tag]]
+            recorded = sum(c for _, c in hits)
+            if hits and recorded == launched:
+                out[tag] = sum(us for us, _ in hits) / reps
+            elif hits and launched:
+                mean = sum(us / c for us, c in hits) * launched / len(hits)
+                part[tag] = (mean / reps, recorded, launched)
+        if all(out[t] is not None for t in tags):
+            break
+    for tag in (t for t in tags if out[t] is None):
+        if tag in part:
+            out[tag], recorded, launched = part[tag]
+            print(f"device_us: {tag}: the mean of {recorded} of {launched} "
+                  "kernels recorded", file=sys.stderr)
+        else:
+            print(f"device_us: {tag}: no kernel recorded", file=sys.stderr)
+    return out
+
+
+def device_event_us(fn, reps: int) -> float:
+    """Median device µs of one call of ``fn``, from CUDA events recorded
+    behind a spin kernel (~1 ms) that keeps the stream busy while the host
+    enqueues them and the call: the interval holds the call's device work
+    and none of its host time. The profiler's cross-check."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(1e3 * a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def digest(*ts) -> str:
@@ -3090,7 +3446,8 @@ def ptxas_summary(report: str) -> dict:
                                      "likelihood_field_kernel",
                                      "likelihood_table_kernel",
                                      "likelihood_lookup_kernel",
-                                     "map_update_kernel", "edt_kernel")
+                                     "map_update_kernel", "edt_kernel",
+                                     "sym_eig_kernel")
                          if k in m.group(1)), m.group(1))
         elif name and ("spill" in line or "Used" in line):
             out[name] = (out.get(name, "") + " " + line.strip()).strip()
@@ -3119,17 +3476,20 @@ def read_counts() -> dict:
     return capture.read_counts()
 
 
-# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes/s
-# and float32 operations/s outside the tensor cores.
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes/s,
+# and float32 and float64 operations/s outside the tensor cores (the
+# eigensolver uses none).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak: float = F32_OPS_PER_S):
     """(bound_ms, bound_by): the least time for ``nbytes`` of traffic and
-    ``ops`` float32 operations at the card's peak rates."""
+    ``ops`` operations at the card's peak rates (``peak`` operations/s:
+    float32 by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / F32_OPS_PER_S
+    t_ops = ops / peak
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -3145,6 +3505,26 @@ def k1_work(k: int, n: int, n_obs: int = 0):
     table = 5 * (n_obs + 1) if n_obs else 0
     ops = 171.0 + (18.0 * n_obs + 8.0 if n_obs else 0.0)
     return 4 * (2 * n + 3 + 3 + 1 + table + 2 * n), ops * k * n
+
+
+def jacobi_sweeps(a):
+    """The sweeps that the eigensolver runs on each matrix of (..., S, S)
+    ``a``, a diagnostic: the plain version's count, which stops by the
+    kernel's rule."""
+    from tpunav_torch.ops import sym_eig as se
+
+    n = a.shape[-1]
+    return se._jacobi(a.reshape(-1, n, n), None)[2].reshape(a.shape[:-2])
+
+
+def eig_work(n: int, batch: int):
+    """The eigendecomposition's bytes (each (n, n) float64 input read once,
+    w and V written once) and the FP64 operations that the function needs,
+    whatever the algorithm: a LAPACK-style solve (dsyevd) reduces A to
+    tridiagonal form (4/3·n³) and carries the tridiagonal's eigenvectors
+    back through the reflectors (2·n³); its tridiagonal solve and the other
+    n² terms are left out, so the count is a floor."""
+    return 8.0 * batch * (2 * n * n + n), batch * (4.0 / 3.0 + 2.0) * n ** 3
 
 
 def demo_launches(demos: Demos, key: str) -> dict:
@@ -3206,6 +3586,7 @@ def main() -> int:
     ekf = Ekf(smoke)
     ekf.parity()
     ekf.detector()
+    ekf.sym_eig()
     ekf.course()
     ekf.dense()
     ekf.times()
@@ -3215,6 +3596,7 @@ def main() -> int:
     cuda_graphs.solves()
     cuda_graphs.rbpf()
     cuda_graphs.ekf()
+    cuda_graphs.collector()
     graphs = Graphs(smoke, rbpf, ekf)
     graphs.node_course()
     graphs.slam_nodes()
@@ -3282,6 +3664,25 @@ def main() -> int:
         "launches_sharded": sharded.launches["K1_obstacle"],
         **demo_launches(demos, "K1_obstacle"),
         **graph_launches(cuda_graphs, "K1_obstacle")})
+    det = ekf.eig_rows[0]                # the detector's (32, 4, 4) batch
+    kernels.append({
+        "name": "sym_eig (batched Jacobi eigensolver)", "route": "cuda",
+        "source": "tpunav_torch/ops/csrc/sym_eig.cu",
+        "replaces": "tpunav/estimation/landmarks.py:130,146 and "
+                    "tpunav/estimation/ekf/spd.py:36 (jnp.linalg.eigh, "
+                    "XLA's; no Pallas kernel)",
+        "launches": ekf.eig_dense, "max_abs_err": ekf.eig_max_err,
+        "ms": det["ms"], "plain_ms": det["plain_ms"],
+        "bound_ms": det["bound_ms"], "bound_by": det["bound_by"],
+        "library_ms": det["library_ms"],
+        "launches_slam_nodes": graphs.slam_counts["EIG"],
+        "launches_graph_ekf_update_alone": cuda_graphs.launches["ekf_eig"],
+        **demo_launches(demos, "EIG"),
+        "by_shape": [{k: r[k] for k in ("case", "shape", "ms", "plain_ms",
+                                        "library_ms", "device_us",
+                                        "device_event_us",
+                                        "bound_ms", "bound_by")}
+                     for r in ekf.eig_rows]})
     print(json.dumps({"kernels": kernels}))
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {

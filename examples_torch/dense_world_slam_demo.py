@@ -13,10 +13,11 @@ gating chain through perception rather than oracle feeds.
 
     python -m examples_torch.dense_world_slam_demo [--device cpu]
 
-``run_batch`` loops over seeds where ``tpunav`` vmaps its course: each EKF
-update reads its count of valid measurements on the host and the
-detector's ``eigh`` reads its error code, so the tick is a host loop that
-``torch.func.vmap`` cannot batch.
+``tpunav`` compiles the course as one ``lax.scan``; here ``course`` replays
+chunks of that scan as CUDA graphs (``control.slam_loop.run_slam_course``,
+the EKF update in its masked form, the detector's eigensolver the port's
+kernel), bit for bit the eager per-tick loop, which ``chunked=False``
+runs. ``run_batch`` loops over seeds where ``tpunav`` vmaps its course.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import torch
 
 from examples_torch import device_parser, draw, out_path, synchronize
 from tpunav_torch.control.mppi import MPPIConfig
-from tpunav_torch.control.slam_loop import (SlamLoopConfig, slam_loop_init,
-                                            slam_loop_tick)
+from tpunav_torch.control.slam_loop import (SlamLoopConfig, run_slam_course,
+                                            slam_loop_init, slam_loop_tick)
 from tpunav_torch.core.angles import normalize_angle_pi
 from tpunav_torch.device import DEFAULT_DEVICE, resolve
 from tpunav_torch.estimation.ekf import EKFConfig, robot_pose
@@ -92,16 +93,42 @@ def configs(rollouts=2048):
     return mppi, ekf, loop
 
 
+def errors(st):
+    """The filter's and odometry's pose errors [θ, x, y] against the
+    plant's truth."""
+    est, tru = robot_pose(st.ekf), st.true_pose
+    e_s = torch.stack([normalize_angle_pi(est[0] - tru[2]),
+                       est[1] - tru[0], est[2] - tru[1]])
+    e_o = torch.stack([normalize_angle_pi(st.odom[0] - tru[2]),
+                       st.odom[1] - tru[0], st.odom[2] - tru[1]])
+    return e_s, e_o
+
+
+def telemetry_row(st):
+    """A tick's telemetry (5,): SLAM |xy| and yaw error, odometry |xy|
+    and yaw error, tracked count (the scan's per-tick output of
+    ``tpunav``'s course)."""
+    e_s, e_o = errors(st)
+    return torch.stack([torch.hypot(e_s[1], e_s[2]), e_s[0],
+                        torch.hypot(e_o[1], e_o[2]), e_o[0],
+                        st.ekf.count.to(torch.float32)])
+
+
 def build(steps=5000, rollouts=2048, device=DEFAULT_DEVICE):
     """Returns (course, configs, waypoints, landmarks, meas_fn):
-    ``course(seed, telemetry=True)`` runs ``steps`` ticks from the ring's
-    first waypoint and returns the final errors [θ, x, y] (SLAM and
-    odometry), the tracked count, the visits, per-tick telemetry (steps,
-    5: SLAM |xy| and yaw error, odometry |xy| and yaw error, tracked
-    count; None without ``telemetry``), the landmark estimates, the
-    filter's active slots, and the seconds the ticks took (``wall_s``,
+    ``course(seed, telemetry=True, chunked=True)`` runs ``steps`` ticks
+    from the ring's first waypoint and returns the final errors [θ, x, y]
+    (SLAM and odometry), the tracked count, the visits, per-tick telemetry
+    (steps, 5: SLAM |xy| and yaw error, odometry |xy| and yaw error,
+    tracked count; None without ``telemetry``; ``tel_t``, the same rows as
+    a tensor on the device), the landmark estimates, the filter's active
+    slots, the final state, and the seconds the ticks took (``wall_s``,
     from a synchronize after the start to one after the last tick, with
-    the telemetry where it is taken)."""
+    the telemetry where it is taken). ``chunked``: through
+    ``run_slam_course`` (graph chunks on the card), else the eager
+    per-tick loop. ``meas_fn(true_txy, generator, noise=None)``: the lidar
+    → detector chain; ``noise``, the scan's (360,) standard normals,
+    replaces the draw from ``generator``."""
     device = resolve(device)
     mppi, ekf, loop = configs(rollouts)
     landmarks = torch.from_numpy(dense_world()).to(device)
@@ -110,39 +137,36 @@ def build(steps=5000, rollouts=2048, device=DEFAULT_DEVICE):
     waypoints = torch.from_numpy(waypoint_ring()).to(device)
     lm_cfg = LandmarkConfig(max_clusters=32)
 
-    def meas_fn(true_txy, generator):
+    def meas_fn(true_txy, generator, noise=None):
         ranges = scan_cylinders(true_txy, landmarks, radii,
-                                generator=generator, noise_std=SCAN_NOISE)
+                                generator=generator, noise_std=SCAN_NOISE,
+                                noise=noise)
         return circles_to_measurements(feature_detection(lm_cfg, ranges))
 
-    def errors(st):
-        est, tru = robot_pose(st.ekf), st.true_pose
-        e_s = torch.stack([normalize_angle_pi(est[0] - tru[2]),
-                           est[1] - tru[0], est[2] - tru[1]])
-        e_o = torch.stack([normalize_angle_pi(st.odom[0] - tru[2]),
-                           st.odom[1] - tru[0], st.odom[2] - tru[1]])
-        return e_s, e_o
-
-    def course(seed, telemetry=True):
+    def course(seed, telemetry=True, chunked=True):
         st = slam_loop_init(mppi, ekf, pose_xyt=[1.42, 0.0, math.pi / 2],
                             seed=int(seed), device=device)
         tel = []
         synchronize(device)
         t0 = time.perf_counter()
-        for _ in range(steps):
-            st = slam_loop_tick(mppi, ekf, loop, MODEL, waypoints, landmarks,
-                                st, meas_fn=meas_fn)
-            if telemetry:
-                e_s, e_o = errors(st)
-                tel.append(torch.stack([torch.hypot(e_s[1], e_s[2]), e_s[0],
-                                        torch.hypot(e_o[1], e_o[2]), e_o[0],
-                                        st.ekf.count.to(torch.float32)]))
+        if chunked:
+            st, tel = run_slam_course(
+                mppi, ekf, loop, MODEL, waypoints, landmarks, st, steps,
+                meas_fn=meas_fn, meas_shape=(360,),
+                telemetry=telemetry_row if telemetry else None)
+        else:
+            for _ in range(steps):
+                st = slam_loop_tick(mppi, ekf, loop, MODEL, waypoints,
+                                    landmarks, st, meas_fn=meas_fn)
+                if telemetry:
+                    tel.append(telemetry_row(st))
+            tel = torch.stack(tel) if telemetry else None
         synchronize(device)
         wall = time.perf_counter() - t0
         e_s, e_o = errors(st)
         return dict(ekf_err=e_s.cpu().numpy(), odo_err=e_o.cpu().numpy(),
                     count=int(st.ekf.count), visits=int(st.visits),
-                    tel=torch.stack(tel).cpu().numpy() if telemetry else None,
+                    tel=tel.cpu().numpy() if telemetry else None, tel_t=tel,
                     wall_s=wall,
                     lms=st.ekf.state[3:].reshape(-1, 2).cpu().numpy(),
                     lm_active=st.ekf.active.cpu().numpy(), state=st)

@@ -22,6 +22,15 @@ buffers, without capture.
 - The repairs that make the bodies capturable: each configuration's
   constants are built once, and a launch counter advances by the captured
   change per replay.
+- The paths this package's eigensolver kernel (``ops/sym_eig.py``) brought
+  under graphs: the EKF stepper with the default SPD repair (once per
+  update and per row) against the eager masked update, bit for bit, and
+  ``tpunav``'s at float64 1e-9, from a covariance the repair must fix;
+  config 4's chunked course (``run_slam_course``: lidar → detector →
+  unknown DA, scan semantics, telemetry) against the eager per-tick
+  course, generator included; the landmarks node's replayed detector
+  against the eager detector. K1's hold flag is a no-op on its plain
+  version.
 """
 
 import dataclasses
@@ -33,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from examples_torch import dense_world_slam_demo as c4
 from examples_torch import slam_mppi_closed_loop_demo as c3
 from tpunav.estimation.ekf import filter as jf
 from tpunav.estimation.rbpf import PFConfig as JPFConfig
@@ -47,11 +57,13 @@ from tpunav_torch.control.obstacle_cost import (SegmentCostParams,
 from tpunav_torch.control.waypoint_loop import (CourseConfig, course_init,
                                                 course_tick, run_course,
                                                 run_course_chunked)
+from tpunav_torch.estimation import landmarks as tl
 from tpunav_torch.estimation.ekf import filter as tf
+from tpunav_torch.estimation.ekf import spd
 from tpunav_torch.estimation.rbpf import grid as tg
 from tpunav_torch.estimation.rbpf import particle_filter as tpf
 from tpunav_torch.models.cart import CartParams
-from tpunav_torch.ops import fused_mppi, likelihood, map_update
+from tpunav_torch.ops import fused_mppi, likelihood, map_update, sym_eig
 from tpunav_torch.sim import lidar as tlidar
 
 torch.set_num_threads(1)
@@ -384,8 +396,7 @@ def test_ekf_stepper_equals_the_dynamic_chain(known):
 
 def test_steppers_take_a_state_on_their_device():
     """A stepper's buffers lie on its device (the card by default), where
-    its state must lie; on the CPU the EKF stepper also takes the
-    where-form SPD repair, which the card's eigh keeps out of a capture."""
+    its state must lie; the EKF stepper takes the default SPD repair."""
     cfg = tf.EKFConfig(num_landmarks=4)            # spd_repair=True
     st = tf.ekf_init(cfg, device="cpu")
     stepper = tf.EKFStepper(cfg, st, 4, device="cpu")
@@ -496,21 +507,24 @@ def test_counters_advance_by_the_captured_change_per_replay(monkeypatch):
                       (fused_mppi, "OBSTACLE_LAUNCHES"),
                       (likelihood, "LIK_LAUNCHES"),
                       (map_update, "MAP_LAUNCHES"),
-                      (map_update, "EDT_LAUNCHES")]:
+                      (map_update, "EDT_LAUNCHES"),
+                      (sym_eig, "EIG_LAUNCHES")]:
         monkeypatch.setattr(mod, attr, 10)
 
     def body():
         fused_mppi.KERNEL_LAUNCHES += 2
         likelihood.LIK_LAUNCHES += 1
         map_update.MAP_LAUNCHES += 1
+        sym_eig.EIG_LAUNCHES += 2
 
     deltas = capture.counted(body)
-    assert deltas == {"K1": 2, "K1_obstacle": 0, "K2": 1, "K3": 1, "K4": 0}
+    assert deltas == {"K1": 2, "K1_obstacle": 0, "K2": 1, "K3": 1, "K4": 0,
+                      "EIG": 2}
     assert set(capture.read_counts().values()) == {10}
     for _ in range(3):
         capture.add_counts(deltas)
     assert capture.read_counts() == {"K1": 16, "K1_obstacle": 10, "K2": 13,
-                                     "K3": 13, "K4": 10}
+                                     "K3": 13, "K4": 10, "EIG": 16}
 
 
 def test_graph_runs_its_body_every_step_on_the_cpu():
@@ -519,3 +533,142 @@ def test_graph_runs_its_body_every_step_on_the_cpu():
     for _ in range(3):
         g()
     assert len(calls) == 3 and g.replays == 0 and g.deltas == {}
+
+
+# ------------------------------------------- the eigensolver's new paths --
+
+@pytest.mark.parametrize("known", [True, False])
+@pytest.mark.parametrize("per_meas", [False, True])
+def test_ekf_stepper_with_the_spd_repair(known, per_meas):
+    """The stepper with ``spd_repair=True`` (the default) from an
+    indefinite covariance, which the first update repairs: bit for bit
+    the eager masked update, and tpunav's float64 update within 1e-9."""
+    kw, course = EKF_CASES["mixed"]
+    kw = dict(kw, spd_repair=True, spd_repair_per_meas=per_meas)
+    cfg, jcfg = tf.EKFConfig(**kw), jf.EKFConfig(**kw)
+    masked, theirs = _ekf_pair(known)[1:]
+    jstep = jax.jit(lambda s, m, u: theirs(jcfg, s, m, u))
+    st = tf.ekf_init(cfg, device="cpu")
+    cov = st.cov.clone()
+    cov[0, 1] = cov[1, 0] = 1e-3
+    st = st._replace(cov=cov)
+    assert not bool(spd.is_spd(cov))
+    jst = jf.EKFState(*(jnp.asarray(t.numpy()) for t in st))
+    stepper = tf.EKFStepper(cfg, st, 8, known, device="cpu")
+    u = torch.tensor([0.02, 0.012], dtype=torch.float64)
+    for meas in course():
+        m = torch.as_tensor(meas, dtype=torch.float64)
+        st = masked(cfg, st, m, u)
+        got = stepper.step(m, u)
+        for name, x, y in zip(tf.EKFState._fields, got, st):
+            assert torch.equal(x, y), name
+        jst = jstep(jst, jnp.asarray(meas), jnp.asarray(u.numpy()))
+        np.testing.assert_allclose(got.state.numpy(), np.asarray(jst.state),
+                                   atol=1e-9)
+        np.testing.assert_allclose(got.cov.numpy(), np.asarray(jst.cov),
+                                   atol=1e-9)
+        np.testing.assert_array_equal(got.active.numpy(),
+                                      np.asarray(jst.active))
+    assert bool(spd.is_spd(got.cov))
+
+
+def _c4_eager(course, st, ticks, meas_fn, row):
+    rows = []
+    for _ in range(ticks):
+        st = sl.slam_loop_tick(*course, st, meas_fn=meas_fn)
+        rows.append(row(st))
+    return st, torch.stack(rows) if rows else None
+
+
+@pytest.mark.parametrize("lead,chunk,ticks", [(0, None, 130), (3, 24, 60)])
+def test_config4_chunked_course_equals_eager(lead, chunk, ticks):
+    """Config 4 at K=64 (the dense world, lidar → detector → unknown DA at
+    capacity 50): ``run_slam_course``'s chunks, from a state ``lead``
+    ticks in, with a last chunk shorter than the rest, give the eager
+    per-tick loop's state, telemetry rows and generator bit for bit."""
+    _, (m, e, loop), wpts, lms, meas_fn = c4.build(steps=ticks, rollouts=64,
+                                                   device="cpu")
+    course = (m, e, loop, c4.MODEL, wpts, lms)
+
+    def row(st):
+        return torch.cat([st.ekf.state[:3], st.true_pose,
+                          st.ekf.count.to(torch.float32)[None]])
+
+    def start():
+        st = sl.slam_loop_init(m, e, pose_xyt=[1.42, 0.0, math.pi / 2],
+                               seed=0, device="cpu")
+        return _c4_eager(course, st, lead, meas_fn, row)[0]
+
+    want, want_rows = _c4_eager(course, start(), ticks, meas_fn, row)
+    got, rows = sl.run_slam_course(*course, start(), ticks, meas_fn=meas_fn,
+                                   meas_shape=(360,), telemetry=row,
+                                   chunk=chunk)
+    assert got.host_ticks == want.host_ticks == lead + ticks
+    for f in ("true_pose", "odom", "u", "wpt_idx", "visits", "ticks",
+              "done"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for name, x, y in zip(tf.EKFState._fields, got.ekf, want.ekf):
+        assert torch.equal(x, y), name
+    assert torch.equal(rows, want_rows)
+    assert torch.equal(got.generator.get_state(), want.generator.get_state())
+    assert int(got.ekf.count) >= 3
+
+
+def test_dense_world_course_chunked_equals_eager():
+    """``examples_torch.dense_world_slam_demo``'s course both ways: the
+    chunked (default) and the eager per-tick form agree in every output."""
+    course = c4.build(steps=64, rollouts=64, device="cpu")[0]
+    a, b = course(0, chunked=False), course(0)
+    for key in ("ekf_err", "odo_err", "tel", "lms", "lm_active"):
+        np.testing.assert_array_equal(a[key], b[key])
+    assert a["count"] == b["count"] and a["visits"] == b["visits"]
+
+
+def test_k1_hold_flag_is_a_no_op_on_the_plain_version():
+    """The held tick's flag tells the card's K1 to return at once; its
+    plain version computes the solve as usual, so the CPU bits stay."""
+    u = mppi.init_controls(CFG, device="cpu") + 0.3
+    args = (CFG, MODEL, u, 7, torch.tensor([0.01, 0.0, 0.1]),
+            torch.tensor([0.08, 0.0, 0.0]))
+    want = fused_mppi.mppi_solve_fused_packed(*args)
+    for flag in (True, False):
+        got = fused_mppi.mppi_solve_fused_packed(*args,
+                                                 hold=torch.tensor(flag))
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    with pytest.raises(ValueError, match="hold"):
+        fused_mppi.mppi_solve_fused_packed(*args, hold=torch.tensor([1, 0]))
+
+
+@pytest.mark.parametrize("turtle_map", [False, True])
+def test_landmarks_node_replays_the_detector(turtle_map):
+    """The landmarks node's graph step publishes the eager detector's
+    measurements (and circles) bit for bit, scan after scan."""
+    from tpunav_torch.runtime.channels import Channel
+    from tpunav_torch.runtime.slam_nodes import LandmarksNode
+
+    cfg = tl.LandmarkConfig(max_clusters=32)
+    world = torch.from_numpy(c4.dense_world())
+    radii = torch.full((world.shape[0],), c4.CYL_RADIUS)
+    ch = {n: Channel(n) for n in ("scan", "landmarks", "map")}
+    node = LandmarksNode(cfg, ch["scan"], ch["landmarks"],
+                         ch["map"] if turtle_map else None, device="cpu")
+    rng = np.random.default_rng(7)
+    for i in range(4):
+        a = 2 * np.pi * i / 4
+        pose = torch.tensor([a + np.pi / 2, 1.2 * np.cos(a),
+                             1.2 * np.sin(a)], dtype=torch.float32)
+        scan = tlidar.scan_cylinders(pose, world, radii, noise_std=1e-3,
+                                     noise=torch.from_numpy(
+                                         rng.standard_normal(360)).float())
+        ch["scan"].publish(scan.numpy())
+        node.tick(0.2 * i)
+        circles = tl.feature_detection(cfg, scan)
+        meas = ch["landmarks"].latest()
+        want = tl.circles_to_measurements(circles).numpy()
+        assert meas.dtype == want.dtype and meas.flags.c_contiguous
+        np.testing.assert_array_equal(meas, want)
+        assert np.isfinite(meas).all(-1).sum() >= 1
+        if turtle_map:
+            for got, exp in zip(ch["map"].latest(), circles):
+                assert got.dtype == exp.numpy().dtype
+                np.testing.assert_array_equal(got, exp.numpy())

@@ -1,5 +1,6 @@
 """The port's TCP bus (``runtime/net.py``, a copy of ``tpunav``'s with the
-accept-loop repair) and the node graph across two OS processes.
+accept-loop repair and a frame-length cap) and the node graph across two
+OS processes.
 
 The two-process graph is ``examples_torch.full_stack_two_process``, the
 counterpart of examples/full_stack_two_process.py, run here on the CPU: the robot
@@ -13,8 +14,10 @@ import socket
 import time
 
 import numpy as np
+import pytest
 
 from examples_torch import full_stack_two_process as fstp
+from tpunav_torch.runtime import net
 from tpunav_torch.runtime.net import BusClient, BusServer, wait_for_new
 
 
@@ -132,3 +135,46 @@ def test_two_process_lockstep_matches_single_process(tmp_path):
     assert np.max(np.abs(slam2 - slam1)) < 1e-9
     assert np.linalg.norm(truth2[-1][1:]) > 0.05
     assert steady > 0
+
+
+def test_frame_over_the_cap_raises_before_its_payload_is_read(monkeypatch):
+    monkeypatch.setattr(net, "MAX_FRAME_BYTES", 1 << 10)
+    a, b = socket.socketpair()
+    try:
+        net._send_frame(a, np.zeros(8))
+        np.testing.assert_array_equal(net._recv_frame(b), np.zeros(8))
+        with pytest.raises(net.FrameTooLarge):
+            net._send_frame(a, np.zeros(1000))
+        # A header that claims more than the cap: no payload follows.
+        a.sendall(net._HDR.pack((1 << 10) + 1))
+        with pytest.raises(net.FrameTooLarge):
+            net._recv_frame(b)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_server_drops_a_client_that_sends_an_oversized_frame(monkeypatch):
+    """The server takes frames up to the cap (64 MiB, far above any frame
+    the node graphs send) and closes the connection of a client whose
+    header claims more; other clients go on."""
+    assert net.MAX_FRAME_BYTES == 64 << 20
+    monkeypatch.setattr(net, "MAX_FRAME_BYTES", 1 << 12)
+    srv = BusServer()
+    try:
+        good = BusClient(srv.host, srv.port)
+        sub = good.subscribe("t")
+        raw = socket.create_connection((srv.host, srv.port))
+        raw.sendall(net._HDR.pack(1 << 20))
+        raw.settimeout(5)
+        assert raw.recv(1) == b""                  # EOF: dropped
+        raw.close()
+        with pytest.raises(net.FrameTooLarge):
+            good.advertise("t").publish(np.zeros(4096))
+        pub = good.advertise("t")
+        pub.publish(np.arange(3.0))
+        val, _ = wait_for_new(sub, 0, timeout=5)
+        np.testing.assert_array_equal(val, np.arange(3.0))
+        good.close()
+    finally:
+        srv.close()

@@ -482,12 +482,18 @@ def _graph_entry_points(pcfg):
     from tpunav_torch.estimation.ekf import filter as ekf
 
     ecfg = ekf.EKFConfig(num_landmarks=2, spd_repair=False)
+    rcfg = ekf.EKFConfig(num_landmarks=2)          # the default SPD repair
+    pcfg_ = ekf.EKFConfig(num_landmarks=2, spd_repair_per_meas=True)
     return {
         "capture.Graph": lambda: capture.Graph(lambda: None),
         "PFStepper": lambda: tpf.PFStepper(pcfg, pf_init(pcfg,
                                                          device="cpu")),
         "EKFStepper": lambda: ekf.EKFStepper(
             ecfg, ekf.ekf_init(ecfg, device="cpu"), 2),
+        "EKFStepper(spd_repair)": lambda: ekf.EKFStepper(
+            rcfg, ekf.ekf_init(rcfg, device="cpu"), 2),
+        "EKFStepper(spd_repair_per_meas)": lambda: ekf.EKFStepper(
+            pcfg_, ekf.ekf_init(pcfg_, device="cpu"), 2, known_da=False),
     }
 
 

@@ -23,12 +23,19 @@ the sensing period and starts on a sensing tick, so the schedule inside it
 is fixed; its sensing ticks take the filter's masked form (no host read)
 and the sensor's normals, drawn eagerly from the state's generator into a
 static tensor before each replay with the eager loop's calls. A tick whose
-incoming state is done or at ``max_ticks`` keeps every field (such ticks
-still launch K1), and the generator is set back to where the eager loop
-leaves it, so the run ends in the eager loop's state, which stops on the
-tick of ``tpunav``'s ``while_loop``. The plain backend draws its MPPI
+incoming state is done or at ``max_ticks`` keeps every field (its hold flag
+makes K1 return at once), and the generator is set back to where the eager
+loop leaves it, so the run ends in the eager loop's state, which stops on
+the tick of ``tpunav``'s ``while_loop``. The plain backend draws its MPPI
 perturbations from the same generator and runs eager ticks, reading
 ``done`` once per tick.
+
+``run_slam_course`` is ``tpunav``'s other form, a ``lax.scan`` of a fixed
+number of ticks with per-tick telemetry and no stop at ``done``
+(``examples/dense_world_slam_demo.py``: config 4, whose ``meas_fn`` is the
+lidar → circle detector chain). On the fused backend it replays chunks of
+that scan with no host read; the ``meas_fn``'s noise is drawn eagerly into
+static tensors through its ``noise=`` seam, with the eager loop's calls.
 """
 
 from __future__ import annotations
@@ -140,9 +147,10 @@ def slam_loop_tick(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
 
 
 def _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st, sense,
-          slam_step, meas_fn=None, noise=None, meas_noise=None):
+          slam_step, meas_fn=None, noise=None, meas_noise=None, hold=None):
     """:func:`slam_loop_tick` with the schedule (``sense``, a host bool)
-    and the filter's step given."""
+    and the filter's step given; ``hold``: a held tick's device bool for
+    K1 (fused backend), or None."""
     n_wpts = waypoints.shape[0]
 
     # The controller sees the FILTER's pose (ref: mppi_waypoints consumes
@@ -161,7 +169,7 @@ def _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st, sense,
     if cfg.use_fused:
         seed = cfg.fused_seed + st.ticks              # int32, on the device
         cmd, u = fused_mppi.mppi_solve_fused_packed(
-            mppi_cfg, model, st.u, seed, est_xyt, wpt, noise)
+            mppi_cfg, model, st.u, seed, est_xyt, wpt, noise, hold=hold)
     else:
         cmd, u = mppi_solve(mppi_cfg, model, st.u, st.generator, est_xyt,
                             wpt, noise=None if noise is None
@@ -222,38 +230,63 @@ def _held(st: SlamLoopState, new: SlamLoopState, hold) -> SlamLoopState:
 
 
 class _Chunks:
-    """``chunk`` held ticks of the fused loop with the landmark sensor on
-    static state buffers (a copy of ``st``'s), as one ``capture.Graph``
-    step; ``chunk`` is a multiple of ``sensor_every`` and each chunk starts
-    on a sensing tick. A tick holds once the incoming state is done or its
-    device tick count reaches ``bound``. ``status`` holds [done, ticks]
-    after a step: the one host read per chunk."""
+    """``chunk`` ticks of the fused loop on static state buffers (a copy
+    of ``st``'s), as one ``capture.Graph`` step; each chunk starts on a
+    sensing tick, so its schedule is fixed. With ``bound`` (an int) the
+    ticks are held: a tick holds once the incoming state is done or its
+    device tick count reaches ``bound``; with None they run on past done
+    (a scan). ``status`` holds [done, ticks] after a step.
+
+    The sensor is the landmark sensor, or ``meas_fn(true_txy, generator,
+    noise=...)``, whose standard normals of shape ``meas_shape`` (None:
+    it draws none) are injected; either's draws are made eagerly before
+    each step, one per sensing tick. ``telemetry(state)`` gives a 1-D row
+    per tick after the tick, stacked into ``tel`` (chunk, F)."""
 
     def __init__(self, mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
-                 st, chunk: int, bound: int):
+                 st, chunk: int, bound: Optional[int], meas_fn=None,
+                 meas_shape=None, telemetry=None):
         dev = st.true_pose.device
         every = cfg.sensor_every
         self.bound = bound
         # The body holds the buffers, not self: a graph whose runner is
         # dropped is freed at once, not by the cyclic collector.
         state = self.state = _clone(st)
-        # One (M, 2) draw per sensing tick, as landmark_measurements draws.
-        draws = chunk // every if cfg.meas_noise_std > 0.0 else 0
+        # One draw per sensing tick, as landmark_measurements (an (M, 2)
+        # draw) or the meas_fn draws.
+        shape = (tuple(landmarks.shape) if meas_fn is None else meas_shape)
+        draws = (-(-chunk // every)
+                 if shape is not None and (meas_fn is not None or
+                                           cfg.meas_noise_std > 0.0) else 0)
         normals = self.normals = torch.zeros(
-            (draws, *landmarks.shape), dtype=landmarks.dtype, device=dev)
+            (draws, *(shape or ())), dtype=landmarks.dtype, device=dev)
         status = self.status = torch.empty(2, dtype=torch.int32, device=dev)
+        tel = self.tel = (None if telemetry is None else torch.empty(
+            (chunk, telemetry(st).numel()), dtype=torch.float32, device=dev))
         slam_step = (known_correspondence_slam_masked if cfg.known_da
                      else slam_unknown_da_masked)
 
+        def sensor(slot):
+            return lambda txy, _: meas_fn(txy, None, noise=slot)
+
         def body():
-            s = state
+            s, rows = state, []
             for i in range(chunk):
                 sense = i % every == 0
+                slot = normals[i // every] if sense and draws else None
+                hold = (None if bound is None else
+                        torch.logical_or(s.done, s.ticks >= bound))
                 new = _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
                             landmarks, s, sense, slam_step,
-                            meas_noise=(normals[i // every]
-                                        if sense and draws else None))
-                s = _held(s, new, torch.logical_or(s.done, s.ticks >= bound))
+                            meas_fn=None if meas_fn is None else sensor(slot),
+                            meas_noise=None if meas_fn is not None else slot,
+                            hold=hold)
+                s = new if hold is None else _held(s, new, hold)
+                if tel is not None:
+                    rows.append(telemetry(s))
+            # Stacked before the state buffers are written.
+            if tel is not None:
+                tel.copy_(torch.stack(rows))
             for f in _FIELDS:
                 if f != "ekf":
                     getattr(state, f).copy_(getattr(s, f))
@@ -271,10 +304,14 @@ class _Chunks:
                         dtype=self.normals.dtype, device=self.normals.device,
                         out=self.normals[i])
 
-    def step(self):
-        """Draw the chunk's normals and run it: (stop, ticks after it)."""
+    def run(self) -> None:
+        """Draw the chunk's normals and run it, with no host read."""
         self.draw(self.normals.shape[0])
         self.graph()
+
+    def step(self):
+        """Draw the chunk's normals and run it: (stop, ticks after it)."""
+        self.run()
         done, ticks = self.status.tolist()
         return bool(done) or ticks >= self.bound, ticks
 
@@ -331,3 +368,51 @@ def run_slam_loop(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     st.generator.set_state(before)
     chunks.draw(min(-(-(ticks - start) // every), chunks.normals.shape[0]))
     return chunks.state._replace(host_ticks=st.host_ticks + ticks - ticks0)
+
+
+def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
+                    cfg: SlamLoopConfig, model: CartParams, waypoints,
+                    landmarks, st: SlamLoopState, ticks: int, meas_fn=None,
+                    meas_shape=None, telemetry=None,
+                    chunk: Optional[int] = None):
+    """``ticks`` ticks of the loop from ``st``, on past ``done``
+    (``tpunav``'s ``lax.scan`` of :func:`slam_loop_tick`), with
+    ``telemetry(state)``'s row after every tick. Returns (state, rows
+    (ticks, F) float32 or None).
+
+    ``meas_fn(true_txy, generator, noise=None)`` replaces the landmark
+    sensor as in :func:`slam_loop_tick`; ``meas_shape`` is the shape of the
+    standard normals it draws from the generator on a sensing tick (None:
+    none), which ``noise=`` replaces. The fused backend runs eager ticks to
+    the next sensing tick, then replays ``chunk`` ticks per graph step
+    (default :func:`default_chunk`) and the rest in one shorter graph, with
+    no host read; the plain backend runs eager ticks. Either gives the
+    eager per-tick loop's state, rows and generator bit for bit."""
+    dev = st.true_pose.device
+    waypoints = torch.as_tensor(waypoints, dtype=torch.float32).to(dev)
+    landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
+    every = cfg.sensor_every
+    chunk = default_chunk(every) if chunk is None else chunk
+    if chunk < 1 or chunk % every:
+        raise ValueError(f"chunk {chunk} must be a positive multiple of "
+                         f"sensor_every ({every})")
+    rows, done = [], 0
+    while done < ticks and (not cfg.use_fused or st.host_ticks % every):
+        st = slam_loop_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
+                            landmarks, st, meas_fn=meas_fn)
+        if telemetry is not None:
+            rows.append(telemetry(st)[None])
+        done += 1
+    for length, count in ((chunk, (ticks - done) // chunk),
+                          ((ticks - done) % chunk, 1)):
+        if not length or not count:
+            continue
+        chunks = _Chunks(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
+                         st, length, None, meas_fn, meas_shape, telemetry)
+        for _ in range(count):
+            chunks.run()
+            if telemetry is not None:
+                rows.append(chunks.tel.clone())
+        st = chunks.state._replace(host_ticks=st.host_ticks + length * count)
+        done += length * count
+    return st, (torch.cat(rows) if rows else None)

@@ -12,7 +12,8 @@ program per course or per chunk, and read the host once per chunk.
 ``run_course_chunked``'s chunk is ``tpunav``'s scan: ticks go on past
 ``done``. ``run_course``'s chunk is of held ticks: a tick whose incoming
 state is done or at ``max_ticks`` keeps every field, so the run ends in
-the state of ``tpunav``'s ``while_loop``; such ticks still launch K1. The
+the state of ``tpunav``'s ``while_loop``; such a tick passes its hold flag
+to K1, whose blocks then return at once (the launch is still counted). The
 plain backend draws from the state's generator and runs eager ticks:
 ``run_course`` reads ``done`` once per tick.
 
@@ -129,8 +130,9 @@ def course_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
 
 def _tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
           waypoints, st: CourseState, extra_cost, table,
-          noise=None) -> CourseState:
-    """:func:`course_tick` with the obstacle table already packed."""
+          noise=None, hold=None) -> CourseState:
+    """:func:`course_tick` with the obstacle table already packed;
+    ``hold``: a held tick's device bool for K1 (fused backend), or None."""
     n_wpts = waypoints.shape[0]
     d2g = _dist_to_goal(st.pose, _active_waypoint(waypoints, st.wpt_idx))
 
@@ -144,7 +146,7 @@ def _tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
     if course.use_fused:
         seed = course.fused_seed + st.ticks          # int32, on the device
         cmd, u = fused_mppi.mppi_solve_fused_packed(
-            cfg, model, st.u, seed, st.pose, wpt, noise, table)
+            cfg, model, st.u, seed, st.pose, wpt, noise, table, hold)
     else:
         cmd, u = mppi_solve(cfg, model, st.u, st.generator, st.pose, wpt,
                             extra_cost, noise=None if noise is None
@@ -175,9 +177,10 @@ def _held_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
                waypoints, st: CourseState, extra_cost, table) -> CourseState:
     """:func:`_tick`, except that a tick whose incoming state is done or at
     ``max_ticks`` keeps every field (``tpunav``'s ``while_loop`` runs no
-    such tick)."""
-    new = _tick(cfg, course, model, waypoints, st, extra_cost, table)
+    such tick), and K1 skips its solve."""
     hold = torch.logical_or(st.done, st.ticks >= course.max_ticks)
+    new = _tick(cfg, course, model, waypoints, st, extra_cost, table,
+                hold=hold if course.use_fused else None)
     return new._replace(**{f: torch.where(hold, getattr(st, f),
                                           getattr(new, f))
                            for f in _FIELDS})

@@ -15,7 +15,9 @@ kernel of its own.
   (:func:`known_correspondence_slam_masked`, :func:`slam_unknown_da_masked`)
   takes a fixed trip over all rows, the invalid ones exact no-ops through
   ``torch.where``, with the same bits and no host read, so it can be
-  captured as a CUDA graph (:class:`EKFStepper`, the slam loop's chunks).
+  captured as a CUDA graph (:class:`EKFStepper`, the slam loop's chunks),
+  the SPD repair included (``spd.py``: a ``torch.where`` whose flag gates
+  the eigensolver kernel).
   Eager, each row costs ~190 launches: at config 4's shape (32 rows, ~13
   valid) it took 2.4–3.6× as long on the card (``chip_smoke.py``'s
   ``ekf_times``, two runs), so the eager path keeps the dynamic form.
@@ -49,7 +51,7 @@ import torch
 from ... import capture
 from ...core.angles import normalize_angle_pi
 from ...device import DEFAULT_DEVICE, constant, full_precision_matmul, resolve
-from .spd import is_spd, nearest_spd, repair_if_needed
+from .spd import repair_if_needed
 
 _W_EPS = 1e-12  # almost_equal epsilon (ref: rigid2d.hpp:24-27)
 
@@ -386,32 +388,21 @@ class _Prepared(NamedTuple):
 
 
 def _repair(cfg: EKFConfig, c):
+    """The SPD repair (no host read), or symmetrization alone."""
     return repair_if_needed(c) if cfg.spd_repair else 0.5 * (c + c.T)
 
 
-def _repair_where(cfg: EKFConfig, c):
-    """:func:`_repair` without its host branch: both branches of
-    ``repair_if_needed`` and a ``torch.where``, the same bits. The
-    ``eigh`` of ``nearest_spd`` then runs on every call, and on the card
-    it reads its error code on the host, so a capture takes
-    ``spd_repair=False``."""
-    if not cfg.spd_repair:
-        return 0.5 * (c + c.T)
-    return torch.where(is_spd(c), c, nearest_spd(c))
-
-
-def _predict(cfg: EKFConfig, st: EKFState, meas_xy, u, generator, repair):
+def _predict(cfg: EKFConfig, st: EKFState, meas_xy, u, generator):
     """The measurements in the filter's dtype (a float64 measurement would
     otherwise promote the state through K @ δz), the measurement noise,
-    and the motion and uncertainty update on the covariance that
-    ``repair`` (:func:`_repair` or :func:`_repair_where`) gives."""
+    and the motion and uncertainty update on the repaired covariance."""
     like = st.state
     meas_xy = torch.as_tensor(meas_xy).to(like.device, like.dtype)
     u = torch.as_tensor(u).to(like.device, like.dtype)
     w, v = _noise_draws(cfg, generator, meas_xy.shape[0], like)
     state_bar = motion_update(cfg, st.state, u, w)
     # The motion Jacobian is evaluated at the PRIOR state (ref: :536-565).
-    sigma_bar = uncertainty_update(cfg, st.state, repair(cfg, st.cov), u)
+    sigma_bar = uncertainty_update(cfg, st.state, _repair(cfg, st.cov), u)
     return meas_xy, v, state_bar, sigma_bar
 
 
@@ -426,7 +417,7 @@ def _prepare(cfg: EKFConfig, st: EKFState, meas_xy, u, generator):
     """The prediction (:func:`_predict`) and the valid measurement rows
     compacted to the front in their order."""
     meas_xy, v, state_bar, sigma_bar = _predict(cfg, st, meas_xy, u,
-                                                generator, _repair)
+                                                generator)
     if meas_xy.shape[0] == 0:
         empty = meas_xy[:, 0]
         return _Prepared(state_bar, sigma_bar, empty, empty, empty, v,
@@ -439,14 +430,14 @@ def _prepare(cfg: EKFConfig, st: EKFState, meas_xy, u, generator):
                      normalize_angle_pi(b), v[order], order, n_valid)
 
 
-def _known_row(cfg: EKFConfig, k: _Update, carry, j, row, repair=_repair):
+def _known_row(cfg: EKFConfig, k: _Update, carry, j, row):
     """One measurement ``row`` = (r, b, normalized b, v) of the known-DA
     chain (ref: :341-398) at landmark slot ``j`` (a one-element long
-    device index); ``repair``: :func:`_repair` or :func:`_repair_where`."""
+    device index)."""
     r, b, b_norm, v_i = row
     state, cov, active = carry
     if cfg.spd_repair and cfg.spd_repair_per_meas:
-        cov = repair(cfg, cov)
+        cov = _repair(cfg, cov)
     else:
         cov = 0.5 * (cov + cov.T)
     idx = k.h_table.index_select(0, j).view(5)
@@ -459,15 +450,15 @@ def _known_row(cfg: EKFConfig, k: _Update, carry, j, row, repair=_repair):
     return state, cov, active
 
 
-def _unknown_row(cfg: EKFConfig, k: _Update, carry, row, repair=_repair):
+def _unknown_row(cfg: EKFConfig, k: _Update, carry, row):
     """One measurement ``row`` = (r, b, normalized b, v) of the unknown-DA
     chain (ref: :163-244): distances to every slot; d* ≤ dmin updates the
     nearest, d* ≥ dmax adds a landmark (with capacity left), anything
-    between is ignored. ``repair`` as in :func:`_known_row`."""
+    between is ignored."""
     r, b, b_norm, v_i = row
     state, cov, active, count = carry
     if cfg.spd_repair and cfg.spd_repair_per_meas:
-        cov = repair(cfg, cov)
+        cov = _repair(cfg, cov)
     else:
         cov = 0.5 * (cov + cov.T)
     # A new landmark leaves the heading as it is: one heading serves both.
@@ -549,10 +540,9 @@ def slam_unknown_da(cfg: EKFConfig, st: EKFState, meas_xy, u,
 
 def _masked(cfg: EKFConfig, st: EKFState, meas_xy, u, generator, known):
     """The masked form of :func:`_prepare` and the row loop: every row in
-    its order, each invalid one an exact no-op through ``torch.where``,
-    and the where-form SPD repair; no host read."""
-    meas_xy, v, state, cov = _predict(cfg, st, meas_xy, u, generator,
-                                      _repair_where)
+    its order, each invalid one an exact no-op through ``torch.where``; no
+    host read."""
+    meas_xy, v, state, cov = _predict(cfg, st, meas_xy, u, generator)
     n_meas = meas_xy.shape[0]
     valid, r, b = _polar_rows(meas_xy)
     b_norm = normalize_angle_pi(b)
@@ -562,8 +552,8 @@ def _masked(cfg: EKFConfig, st: EKFState, meas_xy, u, generator, known):
                                                    st.count)
     for i in range(n_meas):
         row = (r[i], b[i], b_norm[i], v[i])
-        new = (_known_row(cfg, k, carry, slots[i:i + 1], row, _repair_where)
-               if known else _unknown_row(cfg, k, carry, row, _repair_where))
+        new = (_known_row(cfg, k, carry, slots[i:i + 1], row)
+               if known else _unknown_row(cfg, k, carry, row))
         carry = tuple(torch.where(valid[i], a, c) for a, c in zip(new, carry))
     return carry
 
@@ -573,8 +563,7 @@ def known_correspondence_slam_masked(cfg: EKFConfig, st: EKFState, meas_xy,
                                      u, generator: Optional[torch.Generator]
                                      = None) -> EKFState:
     """:func:`known_correspondence_slam` in the masked form: a fixed trip
-    over all M rows, the same bits, no host read (capturable where
-    ``spd_repair`` is False)."""
+    over all M rows, the same bits, no host read (capturable)."""
     meas_xy = torch.as_tensor(meas_xy)
     _check_meas(meas_xy)
     if meas_xy.shape[0] > cfg.num_landmarks:
@@ -591,8 +580,7 @@ def slam_unknown_da_masked(cfg: EKFConfig, st: EKFState, meas_xy, u,
                            generator: Optional[torch.Generator] = None
                            ) -> EKFState:
     """:func:`slam_unknown_da` in the masked form: a fixed trip over all M
-    rows, the same bits, no host read (capturable where ``spd_repair`` is
-    False)."""
+    rows, the same bits, no host read (capturable)."""
     meas_xy = torch.as_tensor(meas_xy)
     _check_meas(meas_xy)
     return EKFState(*_masked(cfg, st, meas_xy, u, generator, False))
@@ -608,17 +596,13 @@ class EKFStepper:
     the card; raises without CUDA; ``st`` must lie there). From then on the
     state lives in place: each :meth:`step` overwrites the buffers and
     returns them, so the state a step returned is consumed by the next, as
-    ``tpunav``'s callers donate theirs. On the card ``spd_repair`` must be
-    False: ``nearest_spd``'s ``eigh`` reads its error code on the host,
-    which a capture refuses."""
+    ``tpunav``'s callers donate theirs. Every configuration is taken, the
+    SPD repair (once per update, or per row with ``spd_repair_per_meas``)
+    included: its eigensolver is a kernel gated by a device flag."""
 
     def __init__(self, cfg: EKFConfig, st: EKFState, n_meas: int,
                  known_da: bool = True, device=DEFAULT_DEVICE):
         dev = capture.state_device(st.state, device)
-        if dev.type == "cuda" and cfg.spd_repair:
-            raise ValueError("the SPD repair's eigh reads its error code on "
-                             "the host and cannot be captured: pass "
-                             "spd_repair=False on the card")
         self.cfg = cfg
         # The body holds the buffers, not self: a graph whose stepper is
         # dropped is freed at once, not by the cyclic collector.

@@ -14,8 +14,11 @@ and no host read of the data:
   the <4-point drop are masks.
 - The "hyper-accurate" algebraic circle fit (ref: composeCircle
   landmarks.cpp:99-237) over the 4x4 moment matrix S = ZᵀZ: two batched
-  4x4 ``eigh`` per scan. The fit runs in float64 whatever the scan's
-  dtype, and its circles round once to that dtype: for a 4 cm cylinder,
+  4x4 eigendecompositions per scan, through the port's Jacobi kernel
+  (``ops/sym_eig.py``; ``torch.linalg.eigh`` on the card reads its error
+  code on the host, so the detector could not be captured in a CUDA
+  graph). The fit runs in float64 whatever the scan's dtype, and its
+  circles round once to that dtype: for a 4 cm cylinder,
   S spans about nine decades, and a float32 fit moves the center by up to
   ~0.5 mm from the float64 one (``tpunav``'s float32 fit as much as any),
   where the points' own float32 rounding moves it by about a micrometre. Its least-squares step A = Y⁻¹A* reuses Y's
@@ -38,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import full_precision_matmul
+from ..ops import sym_eig
 
 # The circle fit's dtype (see the module's docstring). float64 always in
 # the package; tools/detector_fit_precision.py sets float32 to measure
@@ -146,7 +150,7 @@ def _fit_from_moments(S, z_bar):
     (C, 4, 4) moment matrices S = ZᵀZ (ref: composeCircle
     landmarks.cpp:99-237)."""
     # S = V Σ² Vᵀ replaces the reference's SVD of Z.
-    s_eig, V = torch.linalg.eigh(S)            # ascending; S is symmetric
+    s_eig, V = sym_eig.eigh(S)                 # ascending; S is symmetric
     sigma = torch.sqrt(torch.clamp(s_eig, min=0.0))   # singular values of Z
 
     # Branch 1: rank-deficient — the null vector of S (ref: :168-172).
@@ -162,7 +166,7 @@ def _fit_from_moments(S, z_bar):
     hinv[..., 3, 3] = -2.0 * z_bar
     Q = Y @ hinv @ Y
     # Symmetrized first, as jnp.linalg.eigh takes its input.
-    q_eig, W = torch.linalg.eigh(0.5 * (Q + Q.transpose(-1, -2)))
+    q_eig, W = sym_eig.eigh(0.5 * (Q + Q.transpose(-1, -2)))
     # Smallest strictly positive eigenvalue (ref: :196-207).
     pick = torch.argmin(torch.where(q_eig > 0.0, q_eig, float("inf")),
                         dim=-1)
@@ -235,7 +239,7 @@ def fit_circles(cfg: LandmarkConfig, pts, ids, valid):
         z_bar = m_z / cnt_safe
 
         ok = count >= cfg.min_points                         # (ref: :437-445)
-        # Guard degenerate slots so eigh never sees garbage.
+        # Guard degenerate slots so the eigensolver never sees garbage.
         eye = torch.eye(4, dtype=S.dtype, device=S.device)
         S_safe = torch.where(ok[:, None, None], S, eye)
         a, b, r = _fit_from_moments(S_safe, z_bar)

@@ -152,9 +152,10 @@ def load() -> ctypes.CDLL:
         _ptxas_log = _compile(so)
     lib = ctypes.CDLL(str(so))
     vp = ctypes.c_void_p
-    for name, nargs in [("tpunav_mppi_solve", 11),
+    for name, nargs in [("tpunav_mppi_solve", 12),
                         ("tpunav_likelihood_field", 7),
-                        ("tpunav_map_update", 10), ("tpunav_edt", 5)]:
+                        ("tpunav_map_update", 10), ("tpunav_edt", 5),
+                        ("tpunav_sym_eig", 7)]:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [vp] * nargs

@@ -272,7 +272,10 @@ mppi_rollout_partials(MppiParams p, const float* __restrict__ u,
                       const int* __restrict__ seed_ptr,
                       const float* __restrict__ noise,
                       const float* __restrict__ obstacles,
+                      const unsigned char* __restrict__ hold,
                       float* __restrict__ scratch, float* __restrict__ parts) {
+  // A held tick (a device flag): the caller discards the solve.
+  if (hold != nullptr && *hold) return;
   // Dynamic shared memory, in floats: the obstacle table (6·O + 4), the
   // chunk planes TH, X, Y (T·R each), then, with horizon_smem, the
   // horizon planes Z0, Z1, J (N·R each). A plane is [step][rollout], so a
@@ -424,7 +427,9 @@ mppi_rollout_partials(MppiParams p, const float* __restrict__ u,
 __global__ void __launch_bounds__(kCombineThreads)
 mppi_combine(MppiParams p, const float* __restrict__ u,
              const float* __restrict__ parts, int blocks,
+             const unsigned char* __restrict__ hold,
              float* __restrict__ out) {
+  if (hold != nullptr && *hold) return;
   __shared__ float sh_min[kCombineWarps];
   __shared__ float sh_sum[kCombineWarps][5];
 
@@ -492,15 +497,18 @@ extern "C" {
 
 // One fused MPPI solve on `stream`. Pointers are device pointers; `noise`
 // may be null (in-kernel Philox); `obstacles` is the packed (O+1, 5) table
-// with O = params->n_obs, or null when n_obs is 0. `scratch` holds the
+// with O = params->n_obs, or null when n_obs is 0. `hold` is a device
+// bool or null: where it is set, every block of both kernels returns at
+// once and `out` is left as it was (a held tick, whose solve the caller
+// discards). `scratch` holds the
 // (3, N, K) horizon planes when params->horizon_smem is 0, else it may be
 // null; `parts` holds ceil(K/32)·N·6 floats, `out` N·2 floats (N·6 with
 // partial_out). Returns cudaGetLastError() after both launches.
 int tpunav_mppi_solve(const MppiParams* params, const float* u,
                       const float* pose, const float* xd, const int* seed,
                       const float* noise, const float* obstacles,
-                      float* scratch, float* parts, float* out,
-                      void* stream) {
+                      const unsigned char* hold, float* scratch,
+                      float* parts, float* out, void* stream) {
   const MppiParams p = *params;
   const int blocks = (p.rollouts + kRollouts - 1) / kRollouts;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -514,10 +522,11 @@ int tpunav_mppi_solve(const MppiParams* params, const float* u,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   mppi_rollout_partials<<<blocks, kThreads, smem, s>>>(
-      p, u, pose, xd, seed, noise, obstacles, scratch, parts);
+      p, u, pose, xd, seed, noise, obstacles, hold, scratch, parts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mppi_combine<<<p.steps, kCombineThreads, 0, s>>>(p, u, parts, blocks, out);
+  mppi_combine<<<p.steps, kCombineThreads, 0, s>>>(p, u, parts, blocks, hold,
+                                                   out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,6 +20,12 @@ A CPU tensor takes the plain version (``_solve_partials_reference`` then
 launches the kernel, or raises. ``KERNEL_LAUNCHES`` counts kernel solves,
 ``OBSTACLE_LAUNCHES`` those of them in obstacle mode.
 
+Held ticks: a loop's tick whose result it discards (``tpunav``'s
+``while_loop`` runs no such tick) passes its device bool ``hold``. Where it
+is set, every block of both kernels returns at its first instruction and
+the returned controls are undefined; the launch is still counted. The
+plain version computes the solve as usual.
+
 Noise: ``noise=None`` draws in-kernel Philox4x32-10 keyed by the seed (the
 plain version replays the same stream from ``ops/philox.py``); an
 injected ``noise`` is the time-major (N, K, 2) tensor, which is the TPU
@@ -250,7 +256,7 @@ def _combine_reference(cfg: MPPIConfig, u, parts, partial_out: bool):
 
 
 def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
-            noise, table, partial_out: bool):
+            noise, table, partial_out: bool, hold=None):
     global KERNEL_LAUNCHES, OBSTACLE_LAUNCHES
     lib = load()
     n, k = cfg.steps, cfg.rollouts
@@ -271,6 +277,7 @@ def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
             xd.data_ptr(), seed.data_ptr(),
             None if noise is None else noise.data_ptr(),
             table.data_ptr() if n_obs else None,
+            None if hold is None else hold.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             parts.data_ptr(), out.data_ptr(), stream)
     check_launch(lib, err, "fused MPPI")
@@ -280,15 +287,19 @@ def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
 
 
 def _solve_update(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt,
-                  xd, noise=None, table=None, partial_out=False):
+                  xd, noise=None, table=None, partial_out=False, hold=None):
     """One fused solve; returns the updated (N, 2) controls before the
     shift, or the merged (N, 6) partials with ``partial_out``. ``table``:
-    the packed obstacles of :func:`pack_obstacles`, or None."""
+    the packed obstacles of :func:`pack_obstacles`, or None. ``hold``: a
+    held tick's device bool, or None (see the module's docstring)."""
     seed = torch.as_tensor(seed, dtype=torch.int32, device=u.device)
     _check_inputs(cfg, u, seed, pose_xyt, xd, noise, table)
+    if hold is not None and (hold.device != u.device or
+                             hold.dtype != torch.bool or hold.numel() != 1):
+        raise ValueError("hold must be one bool value on u's device")
     if u.is_cuda:
         return _launch(cfg, model, u, seed, pose_xyt, xd, noise, table,
-                       partial_out)
+                       partial_out, hold)
     if u.device.type != "cpu":
         raise ValueError(f"no fused MPPI path for device {u.device}")
     parts = _solve_partials_reference(cfg, model, u, seed, pose_xyt, xd,
@@ -357,8 +368,11 @@ def mppi_solve_fused(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt,
 
 
 def mppi_solve_fused_packed(cfg: MPPIConfig, model: CartParams, u, seed,
-                            pose_xyt, xd, noise=None, table=None):
+                            pose_xyt, xd, noise=None, table=None, hold=None):
     """:func:`mppi_solve_fused` on an obstacle table already packed by
-    :func:`pack_obstacles` (or None), as a course calls it every tick."""
-    u_new = _solve_update(cfg, model, u, seed, pose_xyt, xd, noise, table)
+    :func:`pack_obstacles` (or None), as a course calls it every tick;
+    ``hold``: a held tick's device bool (the kernel then skips the solve
+    and the result is undefined), or None."""
+    u_new = _solve_update(cfg, model, u, seed, pose_xyt, xd, noise, table,
+                          hold=hold)
     return u_new[0], shift_controls(cfg, u_new)

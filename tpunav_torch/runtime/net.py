@@ -1,11 +1,16 @@
 """Network transport for the node graph: Channel semantics over TCP.
 
 Copy of ``tpunav/runtime/net.py`` (sockets, threads and pickle; no
-accelerator code), with one repair in :meth:`BusServer.close`: it shuts
-each accepted connection down before closing it, and the accept loop
-closes a connection it takes after ``close()``. In ``tpunav`` the close
-alone does not wake the server thread blocked in ``recv`` on that socket,
-so no FIN is sent and the client's receiver never sees EOF. Payloads must
+accelerator code), with two repairs. :meth:`BusServer.close` shuts each
+accepted connection down before closing it, and the accept loop closes a
+connection it takes after ``close()``: in ``tpunav`` the close alone does
+not wake the server thread blocked in ``recv`` on that socket, so no FIN
+is sent and the client's receiver never sees EOF. And a frame's length is
+capped at :data:`MAX_FRAME_BYTES`: ``tpunav`` reads a frame of any length
+its header claims and unpickles it. A frame over the cap raises
+:class:`FrameTooLarge` where it would be sent, and where it would be
+received, before its payload is read; the server then drops that
+connection. The wire format is unchanged. Payloads must
 be numpy arrays and Python values, never tensors on a card: a process
 without one could not unpickle them.
 
@@ -57,10 +62,24 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 _HDR = struct.Struct("!I")
+# Far above any frame the node graphs send (a 360-beam scan pickles to
+# ~1.6 KB, an 80×80 float32 map to ~26 KB).
+MAX_FRAME_BYTES = 64 << 20
+
+
+class FrameTooLarge(ConnectionError):
+    """A frame longer than the bus's cap."""
+
+
+def _check_length(n: int) -> None:
+    if n > MAX_FRAME_BYTES:
+        raise FrameTooLarge(f"a {n}-byte frame exceeds the bus's "
+                            f"{MAX_FRAME_BYTES}-byte cap")
 
 
 def _send_frame(sock: socket.socket, obj) -> None:
     data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    _check_length(len(data))
     sock.sendall(_HDR.pack(len(data)) + data)
 
 
@@ -79,6 +98,7 @@ def _recv_frame(sock: socket.socket):
     if hdr is None:
         return None
     (n,) = _HDR.unpack(hdr)
+    _check_length(n)
     data = _recv_exact(sock, n)
     if data is None:
         return None
@@ -195,7 +215,7 @@ class BusServer:
             while self._running:
                 try:
                     msg = _recv_frame(conn)
-                except OSError:
+                except OSError:        # FrameTooLarge included
                     break
                 if msg is None:
                     break

@@ -10,9 +10,10 @@ against ground truth.
 Where ``tpunav`` jits a closure around each filter step, a node here calls
 the port's function on its state, which lives on ``device`` (default the
 CUDA card): the RBPF update there launches kernels K2 and K3 (and K4 once,
-in ``pf_init``). Payloads stay numpy; a message that enters a node is
-copied to its device once, and the estimates it publishes come back
-together in one copy.
+in ``pf_init``). The landmarks node replays its detector as a CUDA graph
+(``capture.Graph``), the counterpart of ``tpunav``'s jitted detector.
+Payloads stay numpy; a message that enters a node is copied to its device
+once, and the estimates it publishes come back together in one copy.
 
 ref: nuslam/src/slam_node.cpp:164-464 (EKF node),
      bmapping/src/turtle_mapping_node.cpp:203-666 (RBPF node).
@@ -22,8 +23,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from .. import capture
 from ..core import diff_drive as dd
 from ..core import se2
 from ..device import DEFAULT_DEVICE, resolve
@@ -60,6 +63,12 @@ class LandmarksNode:
     robot-frame measurement array (the TurtleMap equivalent) for the EKF
     node — plus, optionally, the full (centers, radii, valid) triple for
     map drawing (ref: nuslam/src/draw_map_node.cpp:59-102).
+
+    The detector (``feature_detection`` + ``circles_to_measurements``) is
+    one ``capture.Graph`` step on a static scan buffer, built at the first
+    scan: a tick copies the scan in, replays, and brings the outputs back
+    in one host copy, packed as (C, 2) measurements or, with
+    ``turtle_map``, (C, 6) rows [measurement, center, radius, valid].
     """
 
     def __init__(self, cfg: LandmarkConfig, scan: Channel,
@@ -72,18 +81,42 @@ class LandmarksNode:
         self.dtype = dtype
         self.device = resolve(device)
         self._seen_scan = 0
+        self._ranges = self._out = self._graph = None
+
+    def _build(self, shape) -> None:
+        cfg, full = self.cfg, self.turtle_map is not None
+        # The body holds the buffers, not self: a graph whose node is
+        # dropped is freed at once, not by the cyclic collector.
+        ranges = self._ranges = torch.empty(shape, dtype=self.dtype,
+                                            device=self.device)
+        out = self._out = torch.empty((cfg.max_clusters, 6 if full else 2),
+                                      dtype=self.dtype, device=self.device)
+
+        def body():
+            circles = feature_detection(cfg, ranges)
+            parts = [circles_to_measurements(circles)]
+            if full:
+                parts += [circles.centers, circles.radii[:, None],
+                          circles.valid[:, None].to(out.dtype)]
+            out.copy_(torch.cat(parts, dim=1))
+
+        self._graph = capture.Graph(body, self.device)
 
     def tick(self, t: float) -> None:
         ranges, self._seen_scan = self.scan.take_new(self._seen_scan)
         if ranges is None:
             return
-        circles = feature_detection(self.cfg, to_device(ranges, self.dtype,
-                                                        self.device))
-        self.landmarks.publish(host(circles_to_measurements(circles)))
+        scan = to_device(ranges, self.dtype, self.device)
+        if self._graph is None:
+            self._build(scan.shape)
+        self._ranges.copy_(scan)
+        self._graph()
+        out = host(self._out)
+        self.landmarks.publish(np.ascontiguousarray(out[:, :2]))
         if self.turtle_map is not None:
-            self.turtle_map.publish((host(circles.centers),
-                                     host(circles.radii),
-                                     host(circles.valid)))
+            self.turtle_map.publish((np.ascontiguousarray(out[:, 2:4]),
+                                     np.ascontiguousarray(out[:, 4]),
+                                     out[:, 5] != 0))
 
 
 class EkfSlamNode:
