@@ -409,13 +409,15 @@ class Smoke:
 
         ticks = 120
         tick_us = wall_us(tick, ticks, warmup=10)
-        kern = kernel_profile(tick, ticks)
-        busy = sum(us for us, _ in kern.values()) / ticks
+        kern, held = eager_window(tick, ticks)
+        busy = window_us(kern, held, ticks)
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
         emit("profile", seconds=time.perf_counter() - t0,
              card=self.card, course_ticks=ticks, device_us_per_tick=busy,
              kernels_per_tick=sum(c for _, c in kern.values()) / ticks,
-             unprofiled_tick_us=tick_us, device_idle_share=1 - busy / tick_us,
+             unprofiled_tick_us=tick_us,
+             device_idle_share=None if busy is None else 1 - busy / tick_us,
+             kernel_records=held,
              top_kernels_us_per_tick={name[:60]: us / ticks
                                       for name, (us, _) in top})
 
@@ -699,19 +701,16 @@ class Rbpf:
             "K4": (lambda: self.mu.edt_batch(g, st.grids),
                    lambda: self.mu._edt_reference(g, st.grids)),
         }
-        tags = {"K2": "likelihood_", "K3": "map_update_kernel",
-                "K4": "edt_kernel"}
         work = self.work(scan, k)
         rows = {}
         for name, (kernel, plain) in fns.items():
             bound_ms, bound_by = bound(*work[name])
             # The kernel's own device time (the event time above also holds
             # the wrapper's table-building launches and host gaps).
-            kern = kernel_profile(kernel, 10)
-            device_us = sum(us for key, (us, _) in kern.items()
-                            if tags[name] in key) / 10
+            kern, held = eager_window(kernel, 10)
             rows[name] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
-                          "device_us": device_us,
+                          "device_us": family_us(kern, held, name, 10),
+                          "kernel_records": held,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "bytes": work[name][0], "ops": work[name][1]}
         self.timing = rows
@@ -735,12 +734,10 @@ class Rbpf:
         for _ in range(10):
             update()
         n = 20
-        kern = kernel_profile(update, n)
-        busy = sum(us for us, _ in kern.values()) / n
-        ours = {name: sum(us for key, (us, _) in kern.items() if tag in key)
-                / n for name, tag in [("K2", "likelihood_"),
-                                      ("K3", "map_update_kernel"),
-                                      ("K4", "edt_kernel")]}
+        kern, held = eager_window(update, n)
+        busy = window_us(kern, held, n)
+        ours = {key: family_us(kern, held, key, n)
+                for key in ("K2", "K3", "K4")}
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
         update_us = 1e3 * self.ms_per_update
         # The scan matcher alone, as one update calls it.
@@ -752,8 +749,8 @@ class Rbpf:
         dst, dst_ok = scan_to_points(scans[10], g.range_min, g.range_max,
                                      g.beam_min, g.beam_delta)
         guess = torch.zeros(3, device=self.dev)
-        icp = kernel_profile(lambda: icp_match(self.cfg.icp, src, src_ok, dst,
-                                               dst_ok, guess), 5)
+        icp, icp_held = eager_window(lambda: icp_match(
+            self.cfg.icp, src, src_ok, dst, dst_ok, guess), 5)
         emit("rbpf_profile", seconds=time.perf_counter() - t0,
              card=self.card, updates=n, device_us_per_update=busy,
              kernel_device_us_per_update=ours,
@@ -761,7 +758,8 @@ class Rbpf:
              icp_launches_per_match=sum(c for _, c in icp.values()) / 5,
              icp_device_us_per_match=sum(us for us, _ in icp.values()) / 5,
              unprofiled_update_us=update_us,
-             device_idle_share=1 - busy / update_us,
+             device_idle_share=None if busy is None else 1 - busy / update_us,
+             kernel_records=held, icp_kernel_records=icp_held,
              top_kernels_us_per_update={name[:60]: us / n
                                         for name, (us, _) in top})
 
@@ -1030,13 +1028,15 @@ class Obstacle:
 
         ticks = 120
         tick_us = wall_us(tick, ticks, warmup=10)
-        kern = kernel_profile(tick, ticks)
-        busy = sum(us for us, _ in kern.values()) / ticks
+        kern, held = eager_window(tick, ticks)
+        busy = window_us(kern, held, ticks)
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
         emit("obstacle_profile", seconds=time.perf_counter() - t0,
              card=self.card, course_ticks=ticks, device_us_per_tick=busy,
              kernels_per_tick=sum(c for _, c in kern.values()) / ticks,
-             unprofiled_tick_us=tick_us, device_idle_share=1 - busy / tick_us,
+             unprofiled_tick_us=tick_us,
+             device_idle_share=None if busy is None else 1 - busy / tick_us,
+             kernel_records=held,
              top_kernels_us_per_tick={name[:60]: us / ticks
                                       for name, (us, _) in top})
 
@@ -1299,20 +1299,28 @@ class Ekf:
                  cfg, scan), 3))
 
     def sym_eig(self):
-        """``sym_eig``: the eigensolver kernel (ops/csrc/sym_eig.cu)
-        against its plain version and torch.linalg.eigh, at the detector's
-        (32, 4, 4) batches from the dense world's scans (the moment
-        matrices S and the symmetrized Y H⁻¹ Y of the fit, as
-        feature_detection hands them over) and at S = 17, 53, 103 and 203
-        (symmetric indefinite matrices from a numpy seed; at 203 both
-        planes lie in device memory). Gates: eigenvalues within 1e-12 of
-        the largest |eigenvalue| of the plain version's and the library's,
-        V diag(w) Vᵀ within 1e-12 of the input (relative to the same), VᵀV
-        within 1e-12 of I. Times: CUDA-event ms of the kernel, the plain
-        version and torch.linalg.eigh (the library call, timed here and
-        used nowhere in the package), the kernel's device µs (the profiler's,
-        :func:`device_us`, and CUDA events behind a spin kernel,
-        :func:`device_event_us`), and its bound (:func:`eig_work`)."""
+        """``sym_eig``: the eigensolver's two kernels (ops/csrc/sym_eig.cu:
+        ``sym_eig_small``, one thread per matrix for S ≤ 8, and
+        ``sym_eig_kernel``, one block per matrix) against their plain
+        version and torch.linalg.eigh, at the detector's (32, 4, 4) batches
+        from the dense world's scans (the moment matrices S and the
+        symmetrized Y H⁻¹ Y of the fit, as feature_detection hands them
+        over), at S = 17, 53, 103 and 203 and on both sides of every
+        boundary between layouts (``sym_eig.layout_spans``: the last S of
+        the register kernel, as a batch of 32, and the first of the block
+        kernel; the last S of packed A in shared memory and the first in
+        device memory); symmetric
+        indefinite matrices from a numpy seed. Gates: bit for bit the plain
+        version at every shape; eigenvalues within 1e-12 of the largest
+        |eigenvalue| of the library's, V diag(w) Vᵀ within 1e-12 of the
+        input (relative to the same), VᵀV within 1e-12 of I. Times:
+        CUDA-event ms of the kernel and torch.linalg.eigh (the library call,
+        timed here and used nowhere in the package), the plain version's
+        ms on the host's clock (one call, which also gives its bits), the
+        kernel's device µs (the profiler's, :func:`device_us`, and CUDA
+        events behind a spin kernel, :func:`device_event_us`), its bound
+        (:func:`eig_work`), and at the SPD repair's S = 53 and 103 the
+        device µs of the gated call (the skip flag set: no sweep)."""
         from tpunav_torch.ops import sym_eig as se
 
         t0 = time.perf_counter()
@@ -1329,15 +1337,31 @@ class Ekf:
         finally:
             se.eigh = real
         rng = np.random.default_rng(11)
+        spans = se.layout_spans(smem_limit())
+        edges = sorted({s for _, first, last in spans for s in (first, last)}
+                       - {1, spans[-1][2]})
         cases = [("detector_S", seen[0]), ("detector_Q", seen[1])]
-        for n in (17, 53, 103, 203):
-            x = rng.standard_normal((n, n))
-            cases.append((f"S={n}", torch.from_numpy(x + x.T).to(self.dev)))
+        for n in sorted(set(edges) | {17, 53, 103, 203}):
+            shape = (32, n, n) if n <= se.SMALL_MAX else (n, n)
+            x = rng.standard_normal(shape)
+            cases.append((f"S={n}", torch.from_numpy(
+                x + np.swapaxes(x, -1, -2)).to(self.dev)))
         rows, self.eig_max_err = [], 0.0
+        skip = torch.ones((), dtype=torch.bool, device=self.dev)
         for name, a in cases:
             n = a.shape[-1]
             w, v = se.eigh(a)
-            wp, vp = se.eigh_reference(a)
+            # The plain version once (host-bound, about a second at S >= 53):
+            # its bits, its sweeps (the kernels stop by its rule) and its
+            # time.
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ap, up, sweeps = se._jacobi(a.reshape(-1, n, n), None)
+            wp, vp = se._sorted(ap, up)
+            wp, vp = wp.reshape(w.shape), vp.reshape(v.shape)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t1)
+            sweeps = sweeps.reshape(a.shape[:-2])
             wl, _ = torch.linalg.eigh(a)
             scale = wl.abs().amax(-1, keepdim=True).clamp(min=1e-300)
             errs = {
@@ -1350,39 +1374,47 @@ class Ekf:
                     n, dtype=a.dtype, device=self.dev)).abs().max())}
             if not all(e <= 1e-12 for e in errs.values()):
                 raise AssertionError(f"sym_eig {name}: {errs} over 1e-12")
+            bits = bool(torch.equal(w, wp) and torch.equal(v, vp))
+            if not bits:
+                raise AssertionError(
+                    f"sym_eig {name}: not bit for bit its plain version "
+                    f"(sweeps {sweeps.tolist()})")
             abs_err = max(float((w - wp).abs().max()),
                           float((v - vp).abs().max()))
             self.eig_max_err = max(self.eig_max_err, abs_err)
-            sweeps = jacobi_sweeps(a)
             big = n > 150
+            reps = 5 if big else 20
             nbytes, ops = eig_work(n, a.numel() // (n * n))
             b_ms, b_by = bound(nbytes, ops, F64_OPS_PER_S)
-            rows.append({
-                "case": name, "shape": list(a.shape),
-                "layout": se.layout(n, smem_limit())[:2],
+            kind = se.layout(n, smem_limit())[0]
+            batch = a.numel() // (n * n)
+            row = {
+                "case": name, "shape": list(a.shape), "layout": kind,
+                "threads_per_matrix": (se.small_lanes(n) if n <= se.SMALL_MAX
+                                       else se.BLOCK_THREADS),
+                "v_phase_blocks_threads": (None if n <= se.SMALL_MAX else
+                                           se.vector_blocks(n, batch)[:2]),
                 "sweeps": sweeps.tolist() if sweeps.dim() else int(sweeps),
                 "errors": errs, "max_abs_err_vs_plain": abs_err,
-                "bits_equal_plain": bool(torch.equal(w, wp) and
-                                         torch.equal(v, vp)),
-                "ms": time_ms(lambda: se.eigh(a), reps=3 if big else 20,
+                "bits_equal_plain": bits,
+                "ms": time_ms(lambda: se.eigh(a), reps=reps,
                               warmup=1 if big else 3),
-                # The plain version is host-bound, about a second a call at
-                # S >= 53: one timed call after the one above.
-                "plain_ms": time_ms(lambda: se.eigh_reference(a),
-                                    reps=1 if n > 50 else 2,
-                                    warmup=0 if n > 50 else 1),
+                "plain_ms": plain_ms,
                 "library_ms": time_ms(lambda: torch.linalg.eigh(a),
                                       reps=20, warmup=3),
                 "device_us": device_us(lambda: se.eigh(a), ("sym_eig",),
-                                       3 if big else 20)["sym_eig"],
-                "device_event_us": device_event_us(lambda: se.eigh(a),
-                                                   3 if big else 20),
+                                       reps)["sym_eig"],
+                "device_event_us": device_event_us(lambda: se.eigh(a), reps),
                 "bound_ms": b_ms, "bound_by": b_by, "bound_ops": ops,
-                "bound_bytes": nbytes})
+                "bound_bytes": nbytes}
+            if n in (53, 103):
+                row["gated_off_device_event_us"] = device_event_us(
+                    lambda: se.eigh(a, skip=skip), 20)
+            rows.append(row)
         self.eig_rows = rows
         emit("sym_eig", seconds=time.perf_counter() - t0, card=self.card,
-             bar=1e-12, fp64_peak_flops=F64_OPS_PER_S, rows=rows,
-             max_abs_err_vs_plain=self.eig_max_err)
+             bar=1e-12, fp64_peak_flops=F64_OPS_PER_S, layout_spans=spans,
+             rows=rows, max_abs_err_vs_plain=self.eig_max_err)
 
     def course(self):
         """BASELINE config 3 as the demo runs it
@@ -1653,8 +1685,6 @@ class Ekf:
         spd, cov = self.spd, self.final_bench.cov
         bad = cov.clone()
         bad[0, 0] = -1.0
-        from tpunav_torch.ops import sym_eig as se
-
         repair = {"is_spd": bool(spd.is_spd(cov)),
                   "bad_is_spd": bool(spd.is_spd(bad)),
                   "bad_sweeps": int(jacobi_sweeps(
@@ -1678,15 +1708,17 @@ class Ekf:
     def profile_window(self, tick, ticks, sense_fn, tick_us):
         """Launches and device µs per tick over ``ticks`` ticks, host syncs
         per tick, and the launches of one sensing update alone."""
-        kern = kernel_profile(tick, ticks)
-        busy = sum(us for us, _ in kern.values()) / ticks
+        kern, held = eager_window(tick, ticks)
+        busy = window_us(kern, held, ticks)
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
         return {"ticks": ticks, "device_us_per_tick": busy,
                 "launches_per_tick": sum(c for _, c in kern.values()) / ticks,
                 "launches_per_sensing_update": launches(sense_fn),
                 "host_syncs_per_tick": syncs_per_call(tick, ticks),
                 "unprofiled_tick_us": tick_us,
-                "device_idle_share": 1 - busy / tick_us,
+                "device_idle_share": (None if busy is None
+                                      else 1 - busy / tick_us),
+                "kernel_records": held,
                 "top_device_us_per_tick": {name[:60]: us / ticks
                                            for name, (us, _) in top}}
 
@@ -1862,8 +1894,8 @@ class Graphs:
         run_cycles(120)
         torch.cuda.synchronize()
         cycle_us = 1e6 * (time.perf_counter() - t1) / 120
-        kern = kernel_profile(lambda: run_cycles(120), 1)
-        busy = sum(us for us, _ in kern.values()) / 120
+        kern, held = eager_window(lambda: run_cycles(120), 1)
+        busy = window_us(kern, held, 120)
         syncs = syncs_per_call(lambda: run_cycles(60), 1) / 60
         out = os.path.join(ROOT, "tools", "out", "node_course_trace")
         with trace(out):
@@ -1887,7 +1919,8 @@ class Graphs:
              law_hz=law_rate, window_cycles=120,
              unprofiled_cycle_us=cycle_us, device_us_per_cycle=busy,
              launches_per_cycle=sum(c for _, c in kern.values()) / 120,
-             device_idle_share=1 - busy / cycle_us,
+             device_idle_share=None if busy is None else 1 - busy / cycle_us,
+             kernel_records=held,
              host_syncs_per_cycle=syncs,
              trace=os.path.relpath(newest, ROOT), trace_names_k1=named,
              top_kernels_us_per_cycle={name[:60]: us / 120
@@ -1977,8 +2010,8 @@ class Graphs:
         # Where the node's extra time goes: launches, device time and host
         # syncs per update over 5 more updates (rbpf_profile has the
         # course's).
-        kern = kernel_profile(lambda: run_updates(1), 5)
-        busy = sum(us for us, _ in kern.values()) / 5
+        kern, held = eager_window(lambda: run_updates(1), 5)
+        busy = window_us(kern, held, 5)
         syncs = syncs_per_call(lambda: run_updates(1), 5)
         # Host-bound rates drift within a call, so the overhead is also
         # taken in turns on the same host: 20 bare updates of the course's
@@ -2009,7 +2042,9 @@ class Graphs:
                     - statistics.mean(turns["bare"]),
                 "launches_per_update": sum(c for _, c in kern.values()) / 5,
                 "device_us_per_update": busy,
-                "device_idle_share": 1 - busy / (1e6 / steady),
+                "device_idle_share": (None if busy is None
+                                      else 1 - busy / (1e6 / steady)),
+                "kernel_records": held,
                 "host_syncs_per_update": syncs,
                 "pose_error_cm": 100 * xy,
                 "occupied_cells": int((grid == 100).sum()),
@@ -2747,6 +2782,51 @@ def trace_window(fn, reps: int):
             {k: after[k] - before[k] for k in after})
 
 
+# The launch counter of each kernel family, and the profiler tags of the
+# kernels it counts (K1's combine kernel follows its partials one for one).
+COUNTED = {"K1": "mppi_rollout_partials", "K2": "likelihood_",
+           "K3": "map_update_kernel", "K4": "edt_kernel", "EIG": "sym_eig"}
+
+
+def eager_window(fn, reps: int):
+    """``kernel_profile`` over ``reps`` eager calls of ``fn``, held against
+    the launch counters: ({kernel: (device µs, count)}, held), where
+    ``held`` gives each counted family's launches by the counters and by
+    the profiler, the share of them the profiler recorded, and the families
+    it missed some of (late in a process it drops records; PERF.md §6, PR
+    11)."""
+    before = read_counts()
+    kern = kernel_profile(fn, reps)
+    after = read_counts()
+    counted = {key: after[key] - before[key] for key in COUNTED}
+    profiled = {key: sum(c for name, (_, c) in kern.items() if tag in name)
+                for key, tag in COUNTED.items()}
+    launched = sum(counted.values())
+    return kern, {
+        "counters": counted, "profiler": profiled,
+        "recorded_share": (sum(min(profiled[k], counted[k]) for k in counted)
+                           / launched if launched else None),
+        "missed": [k for k in counted if profiled[k] != counted[k]]}
+
+
+def window_us(kern, held, reps: int):
+    """Device µs per call over an :func:`eager_window`, or None (not
+    measured) where the profiler missed launches of a counted family."""
+    if held["missed"]:
+        return None
+    return sum(us for us, _ in kern.values()) / reps
+
+
+def family_us(kern, held, key: str, reps: int):
+    """One counted family's device µs per call over an
+    :func:`eager_window`, or None where the profiler missed some of its
+    launches."""
+    if key in held["missed"]:
+        return None
+    return sum(us for name, (us, _) in kern.items()
+               if COUNTED[key] in name) / reps
+
+
 def graph_window(step, reps: int, per: int, step_us: float,
                  attempts: int = 3) -> dict:
     """A replayed window of ``reps`` steps of ``per`` ticks or updates each:
@@ -2760,11 +2840,7 @@ def graph_window(step, reps: int, per: int, step_us: float,
         kern, api, counts = trace_window(step, reps)
         profiled = {key: sum(c for name, (_, c) in kern.items()
                              if tag in name)
-                    for key, tag in [("K1", "mppi_rollout_partials"),
-                                     ("K2", "likelihood_"),
-                                     ("K3", "map_update_kernel"),
-                                     ("K4", "edt_kernel"),
-                                     ("EIG", "sym_eig_kernel")]}
+                    for key, tag in COUNTED.items()}
         counted = {key: counts[key] for key in profiled}
         if profiled == counted:
             break
@@ -3119,7 +3195,8 @@ class CudaGraphs:
         eager masked form's; a float64 stepper over ``f64_updates`` within
         1e-9 of the masked update on the CPU; ms per update both ways and
         a replayed window; the eigensolver's launches per update (the SPD
-        repair: one, gated off on an SPD covariance)."""
+        repair at S = 103: its two kernels, gated off on an SPD
+        covariance)."""
         ekff = self.e.ekff
         fn, masked = ((ekff.known_correspondence_slam,
                        ekff.known_correspondence_slam_masked) if known
@@ -3155,7 +3232,10 @@ class CudaGraphs:
         if not all(bits.values()):
             raise AssertionError(f"EKF stepper vs eager (spd_repair="
                                  f"{cfg.spd_repair}): {bits}")
-        want_eig = len(meas) if cfg.spd_repair else 0
+        from tpunav_torch.ops import sym_eig as se
+
+        want_eig = (len(meas) * se.kernels_per_call(a.cov.shape[-1])
+                    if cfg.spd_repair else 0)
         if counts["EIG"] != want_eig:
             raise AssertionError(f"EKF stepper: {counts} launches over "
                                  f"{len(meas)} updates")
@@ -3442,13 +3522,17 @@ def ptxas_summary(report: str) -> dict:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = next((k for k in ("mppi_combine", "mppi_rollout_partials",
-                                     "likelihood_field_kernel",
-                                     "likelihood_table_kernel",
-                                     "likelihood_lookup_kernel",
-                                     "map_update_kernel", "edt_kernel",
-                                     "sym_eig_kernel")
-                         if k in m.group(1)), m.group(1))
+            # The eigensolver's instances: sym_eig_small<S> and
+            # sym_eig_kernel<threads, layout>.
+            t = re.search(r"(sym_eig_(?:kernel|small))ILi(\d+)E(?:Li(\d+)E)?",
+                          m.group(1))
+            name = (f"{t[1]}<{t[2]}{', ' + t[3] if t[3] else ''}>" if t else
+                    next((k for k in ("mppi_combine", "mppi_rollout_partials",
+                                      "likelihood_field_kernel",
+                                      "likelihood_table_kernel",
+                                      "likelihood_lookup_kernel",
+                                      "map_update_kernel", "edt_kernel")
+                          if k in m.group(1)), m.group(1)))
         elif name and ("spill" in line or "Used" in line):
             out[name] = (out.get(name, "") + " " + line.strip()).strip()
     return out
@@ -3678,11 +3762,11 @@ def main() -> int:
         "launches_slam_nodes": graphs.slam_counts["EIG"],
         "launches_graph_ekf_update_alone": cuda_graphs.launches["ekf_eig"],
         **demo_launches(demos, "EIG"),
-        "by_shape": [{k: r[k] for k in ("case", "shape", "ms", "plain_ms",
-                                        "library_ms", "device_us",
-                                        "device_event_us",
-                                        "bound_ms", "bound_by")}
-                     for r in ekf.eig_rows]})
+        "by_shape": [{k: r.get(k) for k in (
+            "case", "shape", "layout", "ms", "plain_ms", "library_ms",
+            "device_us", "device_event_us", "bound_ms", "bound_by",
+            "gated_off_device_event_us")}
+            for r in ekf.eig_rows]})
     print(json.dumps({"kernels": kernels}))
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {

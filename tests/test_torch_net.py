@@ -178,3 +178,97 @@ def test_server_drops_a_client_that_sends_an_oversized_frame(monkeypatch):
         good.close()
     finally:
         srv.close()
+
+
+def test_two_publishers_on_one_topic_get_the_brokers_seqs():
+    """Two publishers on one topic, one client advertising only: each
+    publish takes the seq the broker stamped, so a local consumer whose
+    cursor came from remote messages sees the client's own fresh publish
+    (``tpunav``'s channel stamped ``seq + 1`` locally and saw it as stale)."""
+    srv = BusServer()
+    try:
+        a, b, c = (BusClient(srv.host, srv.port) for _ in range(3))
+        sub = b.subscribe("t")
+        pub_a, pub_c = a.advertise("t"), c.advertise("t")
+        for i in range(3):
+            pub_a.publish(np.array([float(i)]))
+        assert pub_a.seq == 3
+        _, cursor = wait_for_new(sub, 2, timeout=5)
+        assert cursor == 3
+        pub_c.publish(np.array([10.0]))
+        assert pub_c.seq == 4                     # the broker's, not 1
+        val, seq = pub_c.take_new(cursor)         # fresh to the consumer
+        assert seq == 4
+        np.testing.assert_array_equal(val, [10.0])
+        val, seq = wait_for_new(sub, cursor, timeout=5)
+        assert seq == 4
+        np.testing.assert_array_equal(val, [10.0])
+        pub_a.publish(np.array([5.0]))
+        pub_c.publish(np.array([11.0]))
+        assert (pub_a.seq, pub_c.seq) == (5, 6)
+        val, seq = wait_for_new(sub, 5, timeout=5)
+        assert seq == 6
+        np.testing.assert_array_equal(val, [11.0])
+        for cl in (a, b, c):
+            cl.close()
+    finally:
+        srv.close()
+
+
+def test_a_publish_after_the_bus_closed_raises():
+    """With no broker to stamp it, a publish raises instead of taking a
+    seq of its own."""
+    srv = BusServer()
+    a = BusClient(srv.host, srv.port)
+    pub = a.advertise("t")
+    pub.publish(np.zeros(1))
+    assert pub.seq == 1
+    srv.close()
+    a._recv_thread.join(timeout=5.0)
+    with pytest.raises(ConnectionError):
+        pub.publish(np.zeros(1))
+    assert pub.seq == 1
+    a.close()
+
+
+def test_a_late_ack_after_a_timeout_is_not_taken_by_the_next_publish(
+        monkeypatch):
+    """The broker is slow to ack a channel's first publish: that publish
+    times out, its ack arrives afterwards, and the next publish still
+    takes the seq the broker stamped on it, not the late one."""
+    real, acks = net._Outbox.ack, []
+
+    def slow_first(self, topic, seq):
+        acks.append(seq)
+        if len(acks) == 1:
+            time.sleep(0.6)
+        real(self, topic, seq)
+
+    monkeypatch.setattr(net._Outbox, "ack", slow_first)
+    monkeypatch.setattr(net, "ACK_TIMEOUT_S", 0.2)
+    srv = BusServer()
+    try:
+        a, b = BusClient(srv.host, srv.port), BusClient(srv.host, srv.port)
+        sub, pub = b.subscribe("t"), a.advertise("t")
+        with pytest.raises(TimeoutError):
+            pub.publish(np.array([1.0]))
+        assert pub.seq == 0
+        deadline = time.monotonic() + 5.0
+        while pub._acked < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert pub._acked == 1                    # the late ack is in
+        pub.publish(np.array([2.0]))
+        assert pub.seq == 2                       # its own, not the late 1
+        val, seq = pub.take_new(1)
+        assert seq == 2
+        np.testing.assert_array_equal(val, [2.0])
+        val, seq = wait_for_new(sub, 1, timeout=5)
+        assert seq == 2
+        np.testing.assert_array_equal(val, [2.0])
+        pub.publish(np.array([3.0]))
+        assert pub.seq == 3
+        assert acks == [1, 2, 3]
+        for cl in (a, b):
+            cl.close()
+    finally:
+        srv.close()

@@ -16,6 +16,7 @@ applies.
 - No ``torch.linalg.eigh`` call is left in the package.
 """
 
+import functools
 import pathlib
 import re
 
@@ -161,19 +162,339 @@ def test_schedule_pairs_every_index_once_per_sweep(n):
                             for q in range(p + 1, n)]
 
 
+H100_SMEM = 232_448          # the shared memory an H100 block may opt in to
+
+
 def test_layouts_fit_the_cards_shared_memory():
-    """On an H100 (232,448 bytes a block may opt in to): both planes in
-    shared memory at the repair's S = 53 and 103, A alone at S = 150,
-    neither at S = 203; the detector's 4×4 in a warp."""
-    limit = 232_448
-    assert sym_eig.layout(53, limit)[:2] == (True, True)
-    assert sym_eig.layout(103, limit)[:2] == (True, True)
-    assert sym_eig.layout(150, limit)[:2] == (True, False)
-    assert sym_eig.layout(203, limit)[:2] == (False, False)
-    assert all(sym_eig.layout(n, limit)[3] <= limit
-               for n in (4, 53, 103, 150, 203))
-    assert sym_eig.layout(103, limit)[2] % 2 == 1
-    assert sym_eig._threads(4) == 32
+    """On an H100: every S from 2 to 320 gets a layout within the block's
+    232,448 bytes, and so does the V phase's block; the register kernel
+    takes S ≤ 8, A lies packed in shared memory to S = 234, then in device
+    memory, where ``chip_smoke.py`` checks both sides of each boundary
+    (``layout_spans``)."""
+    spans = sym_eig.layout_spans(H100_SMEM)
+    assert spans == [("registers", 1, 8), ("shared_packed", 9, 234),
+                     ("global_packed", 235, 320)]
+    for n in range(2, 321):
+        kind, region, smem = sym_eig.layout(n, H100_SMEM)
+        assert smem <= H100_SMEM
+        if kind == "registers":
+            assert n <= sym_eig.SMALL_MAX and smem == 0
+            assert sym_eig.kernels_per_call(n) == 1
+            continue
+        assert sym_eig.kernels_per_call(n) == 2
+        assert region == {"shared_packed": 4 * n * (n + 1),
+                          "global_packed": 0}[kind]
+        blocks, threads, vsmem = sym_eig.vector_blocks(n, 3)
+        assert blocks == 3 * -(-n // sym_eig.VECTOR_COLUMNS)
+        assert threads % 32 == 0 and threads <= 1024 and vsmem <= H100_SMEM
+    # The repair at capacity 25 and 50, and S = 203.
+    assert sym_eig.layout(53, H100_SMEM)[0] == "shared_packed"
+    assert sym_eig.layout(103, H100_SMEM)[0] == "shared_packed"
+    assert sym_eig.layout(203, H100_SMEM)[0] == "shared_packed"
+    assert sym_eig.layout(4, H100_SMEM)[0] == "registers"
+    # The rotation log ((c, s) of each pair of each round, MAX_SWEEPS deep),
+    # each matrix's rounds and ranking, then packed planes in device memory.
+    assert sym_eig.scratch_doubles(4, 32, "registers") == 0
+    assert (sym_eig.scratch_doubles(103, 1, "shared_packed")
+            == 2 * sym_eig.MAX_SWEEPS * 103 * 52 + 52)
+    assert (sym_eig.scratch_doubles(237, 2, "global_packed")
+            == 2 * 2 * sym_eig.MAX_SWEEPS * 237 * 119 + 238
+            + 2 * 237 * 238 // 2)
+
+
+# ------------------------- a mirror of sym_eig_kernel's index arithmetic --
+# csrc/sym_eig.cu gives a round's work out as flat items (the upper
+# triangle's 2x2 blocks at pair indices i <= j, i-major), each thread a run
+# of them, has the thread that writes the entry of a next-round pair take
+# that pair's rotation, and builds U from the rotation log over (column,
+# pair) threads. The mirror below repeats that arithmetic in numpy.
+
+KFOUND = 4      # next-round pairs a thread holds back a round (kFound)
+
+
+def _wrap(x, k):
+    return np.where(x < 0, x + k, np.where(x >= k, x - k, x))
+
+
+def _pair(r, i, m):
+    """(p, q) of pairs i (array) of round r: pair_lo, pair_hi."""
+    a, b = _wrap(r + i, m - 1), _wrap(r - i, m - 1)
+    lo = np.where(i == 0, r, np.minimum(a, b))
+    hi = np.where(i == 0, m - 1, np.maximum(a, b))
+    return lo, hi
+
+
+def _partner(x, r, m):
+    y = _wrap(2 * r - x, m - 1)
+    return np.where(x == m - 1, r, np.where(y == x, m - 1, y))
+
+
+def _pair_index(x, r, m):
+    k = _wrap(x - r, m - 1)
+    return np.where(k > m // 2 - 1, m - 1 - k, k)
+
+
+@functools.cache
+def _thread_runs(P, threads=sym_eig.BLOCK_THREADS):
+    """Each thread's items as sym_eig_kernel walks them, (thread, e, i, j)
+    rows: thread t takes items e0 = t·per up to e1 (per = ⌈items/threads⌉,
+    both clamped to the items), from row i0 (the first row whose items
+    reach past e0) and column j0, i-major, the column wrapping to
+    (i + 1, i + 1) when it reaches P."""
+    items = P * (P + 1) // 2
+    per = -(-items // threads)
+    rows = []
+    for tid in range(threads):
+        e0 = min(tid * per, items)
+        e1 = min(e0 + per, items)
+        i0 = 0
+        while i0 + 1 < P and (i0 + 1) * P - (i0 + 1) * i0 // 2 <= e0:
+            i0 += 1
+        j0 = i0 + e0 - (i0 * P - i0 * (i0 - 1) // 2)
+        i, j = i0, j0 - 1
+        for e in range(e0, e1):
+            j += 1
+            if j == P:
+                i += 1
+                j = i
+            rows.append((tid, e, i, j))
+    return np.array(rows, dtype=np.int64).reshape(-1, 4)
+
+
+def _items(P):
+    """(i, j) of each item e, in e's order, and the thread that takes it."""
+    runs = _thread_runs(P)
+    order = np.argsort(runs[:, 1], kind="stable")
+    return runs[order, 2], runs[order, 3], runs[order, 0]
+
+
+@pytest.mark.parametrize("n", [5, 17, 53, 103, 203, 235])
+def test_kernel_thread_runs_cover_the_items_once(n):
+    """The runs of the A phase's threads cover a round's P(P+1)/2 items
+    exactly once, each thread's run is consecutive, and item e is block
+    (i, j) of the i-major order: row i begins at item i·P − i(i−1)/2."""
+    P = (n + (n & 1)) // 2
+    items = P * (P + 1) // 2
+    runs = _thread_runs(P)
+    assert sorted(runs[:, 1].tolist()) == list(range(items))
+    for t in np.unique(runs[:, 0]):
+        e = runs[runs[:, 0] == t, 1]
+        assert (np.diff(e) == 1).all()
+    i, j, _ = _items(P)
+    want = [(a, b) for a in range(P) for b in range(a, P)]
+    assert list(zip(i.tolist(), j.tolist())) == want
+    start = i * P - i * (i - 1) // 2
+    assert (start + (j - i) == np.arange(items)).all()
+
+
+def _next_pair(lo, hi, r1, m):
+    """The next round's pair index of entry (lo, hi), else -1."""
+    k = np.where(_wrap(lo + hi, m - 1) == _wrap(2 * r1, m - 1),
+                 _pair_index(lo, r1, m), -1)
+    return np.where(hi == m - 1, np.where(lo == r1, 0, -1), k)
+
+
+def _round_entries(n, r):
+    """Every (item, lo, hi) entry a round's items write, and the entries'
+    4-index block positions (R[u], C[v])."""
+    P = (n + (n & 1)) // 2
+    m = 2 * P
+    i, j, _ = _items(P)
+    pi, qi = _pair(r, i, m)
+    pj, qj = _pair(r, j, m)
+    out = []
+    diag = (i == j) & (qi < n)
+    for a, c in ((pi, pi), (qi, qi), (pi, qi)):
+        out.append((a[diag], c[diag], np.full(diag.sum(), -1)))
+    off = i != j
+    for ra, va in ((pi, True), (qi, qi < n)):
+        for ca, vc in ((pj, True), (qj, qj < n)):
+            live = off & va & vc
+            lo, hi = np.minimum(ra, ca)[live], np.maximum(ra, ca)[live]
+            out.append((lo, hi, np.nonzero(live)[0]))
+    return [np.concatenate(x) for x in zip(*out)]
+
+
+@pytest.mark.parametrize("n", [5, 17, 53, 103, 203])
+def test_kernel_work_items_cover_each_round_once(n):
+    """Per round of ``schedule(n)`` and of the sweep's wrap to round 0:
+    the kernel's pair arithmetic gives the schedule's pairs; its items
+    write every entry of A's upper triangle exactly once (but the
+    diagonal of an index the round leaves unpaired); every pair of
+    the next round gets its rotation from exactly one entry, the pair's
+    own; each index finds its pair (or none) for its new diagonal; and
+    the V phase rotates every (pair, column) of U exactly once."""
+    P = (n + (n & 1)) // 2
+    m = 2 * P
+    rounds = sym_eig.schedule(n)
+    upper = np.triu(np.ones((n, n), dtype=bool))
+    for r in range(m - 1):
+        lo, hi = _pair(r, np.arange(P), m)
+        real = hi < n
+        assert sorted(zip(lo[real].tolist(), hi[real].tolist())) == sorted(
+            rounds[r])
+        a, c, item = _round_entries(n, r)
+        hits = np.zeros((n, n), dtype=np.int64)
+        np.add.at(hits, (a, c), 1)
+        want = upper.astype(np.int64)
+        alone = _partner(np.arange(n), r, m) >= n   # unpaired: diagonal kept
+        want[alone, alone] = 0
+        assert (hits == want).all()
+        r1 = 0 if r + 1 == m - 1 else r + 1
+        # Only the off-diagonal blocks' entries are tested (item >= 0), and
+        # of those only the blocks the kernel tests: (0, 1), (0, 2),
+        # (i, i + 2) and (i, 2P - 3 - i).
+        k = np.where(item >= 0, _next_pair(a, c, r1, m), -1)
+        found = k >= 0
+        nlo, nhi = _pair(r1, k[found], m)
+        assert (nlo == a[found]).all() and (nhi == c[found]).all()
+        bi, bj, bt = _items(P)
+        bi, bj, bt = bi[item[found]], bj[item[found]], bt[item[found]]
+        assert (((bi == 0) & (bj <= 2)) | (bj - bi == 2)
+                | (bi + bj == 2 * P - 3)).all()
+        # Each thread holds its pairs' inputs back to the end of its run; at
+        # these S none finds more than kFound (the rest it would rotate at
+        # once).
+        assert np.bincount(bt).max(initial=0) <= KFOUND
+        want = sorted(i for i, pq in enumerate(zip(*_pair(r1, np.arange(P),
+                                                          m)))
+                      if pq[1] < n)
+        assert sorted(k[found].tolist()) == want
+        x = np.arange(n)
+        y = _partner(x, r, m)
+        for xi, yi in zip(x.tolist(), y.tolist()):
+            if yi >= n:
+                assert all(xi not in pq for pq in rounds[r])
+                continue
+            idx = 0 if xi == m - 1 or yi == m - 1 else int(
+                _pair_index(xi, r, m))
+            assert tuple(sorted((xi, yi))) == tuple(
+                int(v) for v in (lo[idx], hi[idx]))
+        # The V phase: a block per VECTOR_COLUMNS columns; thread t → column
+        # quad t % Q of the block (Q quads), pairs g, g + G, … (g = t // Q,
+        # G = threads // Q).
+        done = np.zeros((P, n + 3), dtype=np.int64)
+        threads = sym_eig.vector_blocks(n, 1)[1]
+        quads = sym_eig.VECTOR_COLUMNS // 4
+        for k0 in range(0, n, sym_eig.VECTOR_COLUMNS):
+            groups = threads // quads
+            t = np.arange(groups * quads)
+            quad, g = t % quads, t // quads
+            for step in range(-(-P // groups)):
+                pair = g + step * groups
+                ok = pair < P
+                for c in range(4):
+                    col = k0 + 4 * quad + c
+                    keep = ok & (col < min(k0 + sym_eig.VECTOR_COLUMNS, n))
+                    np.add.at(done, (pair[keep], col[keep]), 1)
+        assert (done[real, :n] == 1).all() and (done[:, n:] == 0).all()
+
+
+def _mirror_jacobi(a, sweeps):
+    """``sweeps`` sweeps of the kernel's round as its items do them, on one
+    (n, n) float64 matrix: entries from their blocks in their one order,
+    each next round's rotation from the entry of its pair (looked for only
+    in the blocks the kernel looks in) and the new diagonals kept with this
+    round's rotations, U from the log. The rotations' arithmetic is the
+    plain version's ``_rotation``."""
+    n = a.shape[-1]
+    P = (n + (n & 1)) // 2
+    m = 2 * P
+    A = torch.where(torch.ones(n, n, dtype=torch.bool).tril(), a, a.T).clone()
+
+    def rotations(app, aqq, apq):
+        c, s, t = sym_eig._rotation(app, aqq, apq)
+        return torch.stack([c, s, app - t * apq, aqq + t * apq], -1)
+
+    lo, hi = _pair(0, np.arange(P), m)
+    real = torch.from_numpy(hi < n)
+    lo_t, hi_t = torch.from_numpy(lo), torch.from_numpy(np.minimum(hi, n - 1))
+    cur = rotations(A[lo_t, lo_t], A[hi_t, hi_t], A[lo_t, hi_t])
+    log = []
+    i_it, j_it, _ = _items(P)
+    for rho in range(sweeps * (m - 1)):
+        r = rho % (m - 1)
+        r1 = 0 if r + 1 == m - 1 else r + 1
+        log.append((r, cur[:, :2].clone()))
+        nxt = torch.zeros_like(cur)
+        pi, qi = _pair(r, i_it, m)
+        pj, qj = _pair(r, j_it, m)
+        new = A.clone()
+        for e in range(len(i_it)):
+            i, j = int(i_it[e]), int(j_it[e])
+            vi, vj = qi[e] < n, qj[e] < n
+            if i == j:
+                if vi:
+                    new[pi[e], pi[e]] = cur[i, 2]
+                    new[qi[e], qi[e]] = cur[i, 3]
+                    new[pi[e], qi[e]] = 0.0
+                continue
+            R, C = (int(pi[e]), int(qi[e])), (int(pj[e]), int(qj[e]))
+            X = [[A[min(R[u], C[v]), max(R[u], C[v])] if (u == 0 or vi) and
+                  (v == 0 or vj) else torch.zeros((), dtype=A.dtype)
+                  for v in range(2)] for u in range(2)]
+
+            def rot(h, cs, x, y):
+                c, s = cs
+                return s * x + c * y if h else c * x - s * y
+
+            ri, rj = cur[i, :2], cur[j, :2]
+            for u in range(2):
+                for v in range(2):
+                    if (u == 1 and not vi) or (v == 1 and not vj):
+                        continue
+                    if R[u] < C[v]:
+                        g = [rot(u, ri, X[0][k], X[1][k]) if vi else X[u][k]
+                             for k in range(2)]
+                        val = rot(v, rj, g[0], g[1]) if vj else g[0]
+                    else:
+                        g = [rot(v, rj, X[k][0], X[k][1]) if vj else X[k][v]
+                             for k in range(2)]
+                        val = rot(u, ri, g[0], g[1]) if vi else g[0]
+                    x0, x1 = min(R[u], C[v]), max(R[u], C[v])
+                    new[x0, x1] = val
+                    if not ((i == 0 and j <= 2) or j - i == 2
+                            or i + j == 2 * P - 3):
+                        continue                  # no next-round pair here
+                    k = int(_next_pair(np.array(x0), np.array(x1), r1, m))
+                    if k < 0:
+                        continue
+                    dd = []
+                    for y in (x0, x1):
+                        py = int(_partner(np.array(y), r, m))
+                        if py >= n:
+                            dd.append(A[y, y])
+                        else:
+                            iy = 0 if py == m - 1 or y == m - 1 else int(
+                                _pair_index(np.array(y), r, m))
+                            dd.append(cur[iy, 2] if y < py else cur[iy, 3])
+                    nxt[k] = rotations(dd[0].reshape(1), dd[1].reshape(1),
+                                       val.reshape(1))[0]
+        A, cur = new, nxt
+    U = torch.eye(n, dtype=a.dtype)
+    for r, cs in log:
+        lo, hi = _pair(r, np.arange(P), m)
+        for i in np.nonzero(hi < n)[0]:
+            p, q = int(lo[i]), int(hi[i])
+            c, s = cs[i]
+            U[p], U[q] = c * U[p] - s * U[q], s * U[p] + c * U[q]
+    A = torch.where(torch.ones(n, n, dtype=torch.bool).triu(), A, A.T)
+    return sym_eig._sorted(A[None], U[None])
+
+
+@pytest.mark.parametrize("n", [9, 12, 17])
+def test_kernel_round_mirror_gives_the_plain_versions_bits(n):
+    """The kernel's scheme, mirrored item by item (``_mirror_jacobi``): the
+    entries in their one order, the next round's rotation taken by the
+    thread that writes its pair's entry from this round's kept diagonals,
+    and U replayed from the rotation log, gives the plain version's bits
+    after as many sweeps as the plain version runs."""
+    x = np.random.default_rng(n).normal(size=(n, n))
+    a = torch.from_numpy(x + x.T)
+    sweeps = int(sym_eig._jacobi(a[None], None)[2][0])
+    w, v = _mirror_jacobi(a, sweeps)
+    wp, vp = sym_eig.eigh_reference(a)
+    assert torch.equal(w[0], wp) and torch.equal(v[0], vp)
 
 
 # ------------------------------------------------------ the gated repair --

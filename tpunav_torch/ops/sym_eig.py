@@ -46,8 +46,13 @@ costs no sweeps (``tpunav``'s ``lax.cond``).
 A CPU tensor takes the plain version (:func:`eigh_reference`): the same
 rotations, in the same order and with the same rounding of each operation,
 vectorised over each round's pairs and over the batch; only the norm's sum
-runs in another order. A CUDA tensor launches the kernel, or raises.
-``EIG_LAUNCHES`` counts the kernel's launches.
+runs in another order. A CUDA tensor launches the kernels, or raises:
+``sym_eig_small`` for S ≤ 8 (a matrix in registers, one lane per pair of a
+round), and for S > 8 ``sym_eig_kernel`` (A's sweeps, one block per
+matrix, each round's rotations logged to a device scratch) then
+``sym_eig_vectors`` (V from the log, a block per eight columns);
+:func:`layout` places A. ``EIG_LAUNCHES`` counts the kernels' launches
+(:func:`kernels_per_call` per call).
 """
 
 from __future__ import annotations
@@ -70,8 +75,8 @@ class _KernelParams(ctypes.Structure):
     """Mirror of ``SymEigParams`` in csrc/sym_eig.cu."""
 
     _fields_ = [("batch", ctypes.c_int), ("n", ctypes.c_int),
-                ("ld", ctypes.c_int), ("threads", ctypes.c_int),
-                ("a_shared", ctypes.c_int), ("v_shared", ctypes.c_int),
+                ("layout", ctypes.c_int),
+                ("region", ctypes.c_int),
                 ("max_sweeps", ctypes.c_int), ("tol2", ctypes.c_double),
                 ("big_theta", ctypes.c_double)]
 
@@ -186,26 +191,85 @@ def eigh_reference(a, skip: Optional[torch.Tensor] = None):
     return w.reshape(*batch, n), v.reshape(*batch, n, n)
 
 
-# ── The kernel ──
+# ── The kernels ──
+
+SMALL_MAX = 8               # S ≤ 8: one thread per matrix, in registers
+# Where A lies while the sweeps run (SymEigParams.layout in the .cu):
+# registers (S ≤ 8), its upper triangle packed in shared memory, packed in a
+# device scratch.
+LAYOUTS = ("registers", "shared_packed", "global_packed")
 
 
-def _threads(n: int) -> int:
-    """Threads per block: one warp for the detector's 4×4 matrices."""
-    return 32 if n <= 8 else 128 if n <= 24 else 256
+def small_lanes(n: int) -> int:
+    """Threads per matrix of the register kernel (S ≤ 8): one per pair a
+    round rotates, rounded up to a power of two (csrc/sym_eig.cu)."""
+    return 1 if n <= 3 else 2 if n <= 5 else 4
+
+
+BLOCK_THREADS = 512         # threads per block of the A phase (S > 8)
 
 
 def layout(n: int, smem_limit: int):
-    """(a_shared, v_shared, ld, shared bytes): A and V in shared memory
-    where both fit, else A alone (V in a device scratch), else neither.
-    Shared rows are padded to an odd stride in doubles."""
-    ld = n | 1
-    extra = 8 * (7 * _pairs(n) + 32) + 16      # keep in step with the .cu
-    plane = 8 * n * ld
-    if 2 * plane + extra <= smem_limit:
-        return True, True, ld, 2 * plane + extra
-    if plane + extra <= smem_limit:
-        return True, False, ld, plane + extra
-    return False, False, n, extra
+    """(layout, region, shared bytes) of the A phase at size ``n`` on a card
+    whose blocks may opt in to ``smem_limit`` bytes: where A lies
+    (``LAYOUTS``), the bytes of shared memory that hold it, and the block's
+    dynamic shared memory."""
+    if n <= SMALL_MAX:
+        return "registers", 0, 0
+    extras = 40 * 2 * _pairs(n) + 8 * (32 + n)      # keep in step: the .cu
+    packed = 4 * n * (n + 1)
+    if extras + packed <= smem_limit:
+        kind, region = "shared_packed", packed
+    else:
+        kind, region = "global_packed", 0
+    return kind, region, extras + region
+
+
+VECTOR_COLUMNS = 8          # U's columns per block of the V phase
+
+
+def vector_blocks(n: int, batch: int):
+    """(blocks, threads, shared bytes) of the V phase (S > 8): one block per
+    VECTOR_COLUMNS of each matrix's U, a thread per pair and column quad."""
+    pairs = _pairs(n)
+    return (batch * -(-n // VECTOR_COLUMNS),
+            min(1024, -(-pairs * VECTOR_COLUMNS // 4 // 32) * 32),
+            16 * 4 * pairs + 8 * n * VECTOR_COLUMNS)
+
+
+def kernels_per_call(n: int) -> int:
+    """Kernel launches of one :func:`eigh` call on the card (counted in
+    ``EIG_LAUNCHES``): the register kernel, or the A and V phases."""
+    return 1 if n <= SMALL_MAX else 2
+
+
+def layout_spans(smem_limit: int, largest: int = 320):
+    """[(layout, first S, last S)] for S = 1 … ``largest`` on a card whose
+    blocks may opt in to ``smem_limit`` bytes: where each layout begins and
+    ends (``chip_smoke.py`` checks the kernels on both sides of each
+    boundary)."""
+    spans = []
+    for n in range(1, largest + 1):
+        kind = layout(n, smem_limit)[0]
+        if spans and spans[-1][0] == kind:
+            spans[-1][2] = n
+        else:
+            spans.append([kind, n, n])
+    return [tuple(x) for x in spans]
+
+
+def scratch_doubles(n: int, batch: int, kind: str) -> int:
+    """Doubles of device scratch a launch takes: the rotation log (c, s of
+    every pair of every round the sweep cap allows), each matrix's rounds
+    run and ranking, then A's packed planes where they lie in device
+    memory."""
+    if n <= SMALL_MAX:
+        return 0
+    m = n + (n & 1)
+    log = 2 * batch * MAX_SWEEPS * (m - 1) * (m // 2)
+    meta = (batch * (n + 1) + 1) // 2       # rounds run and ranking, ints
+    return log + meta + (batch * n * (n + 1) // 2
+                         if kind == "global_packed" else 0)
 
 
 def _launch(a, skip):
@@ -217,12 +281,15 @@ def _launch(a, skip):
     v = torch.empty(a.shape, dtype=a.dtype, device=a.device)
     if batch == 0:
         return w, v
-    a_sh, v_sh, ld, smem = layout(n, lib.tpunav_max_dynamic_smem())
+    kind, region, smem = layout(n, lib.tpunav_max_dynamic_smem())
     check_shared_memory(lib, smem, f"the eigensolver at S={n}")
-    planes = int(not a_sh) + int(not v_sh)
-    scratch = (torch.empty(planes * batch * n * ld, dtype=a.dtype,
-                           device=a.device) if planes else None)
-    params = _KernelParams(batch, n, ld, _threads(n), int(a_sh), int(v_sh),
+    if n > SMALL_MAX:
+        check_shared_memory(lib, vector_blocks(n, batch)[2],
+                            f"the eigensolver's vectors at S={n}")
+    count = scratch_doubles(n, batch, kind)
+    scratch = (torch.empty(count, dtype=a.dtype, device=a.device)
+               if count else None)
+    params = _KernelParams(batch, n, LAYOUTS.index(kind), region,
                            MAX_SWEEPS, TOL * TOL, BIG_THETA)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -232,7 +299,7 @@ def _launch(a, skip):
             v.data_ptr(), None if scratch is None else scratch.data_ptr(),
             stream)
     check_launch(lib, err, "symmetric eigensolver")
-    EIG_LAUNCHES += 1
+    EIG_LAUNCHES += kernels_per_call(n)
     return w, v
 
 

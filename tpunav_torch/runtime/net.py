@@ -10,7 +10,17 @@ capped at :data:`MAX_FRAME_BYTES`: ``tpunav`` reads a frame of any length
 its header claims and unpickles it. A frame over the cap raises
 :class:`FrameTooLarge` where it would be sent, and where it would be
 received, before its payload is read; the server then drops that
-connection. The wire format is unchanged. Payloads must
+connection. And a publisher's seq is the broker's: ``tpunav``'s
+:meth:`NetChannel.publish` stamps ``seq + 1`` locally while the broker
+stamps each topic's seq itself, so with two publishers on a topic a
+client that advertises without subscribing kept a seq behind the
+broker's, and a consumer whose cursor came from remote messages saw that
+client's fresh publishes as stale. Here the broker answers each publish
+with an ``("ack", topic, seq)`` frame carrying the seq it stamped, and
+``publish`` returns once the channel holds it (acks come back in the
+order of a connection's publishes, so the late ack of a publish that
+timed out is matched to that publish and dropped). With one publisher per
+topic the seqs are those ``tpunav`` stamps. Payloads must
 be numpy arrays and Python values, never tensors on a card: a process
 without one could not unpickle them.
 
@@ -54,7 +64,9 @@ tick order.
 
 from __future__ import annotations
 
+import collections
 import pickle
+import queue
 import socket
 import struct
 import threading
@@ -65,6 +77,8 @@ _HDR = struct.Struct("!I")
 # Far above any frame the node graphs send (a 360-beam scan pickles to
 # ~1.6 KB, an 80×80 float32 map to ~26 KB).
 MAX_FRAME_BYTES = 64 << 20
+# How long a publish waits for the broker's seq before it raises.
+ACK_TIMEOUT_S = 30.0
 
 
 class FrameTooLarge(ConnectionError):
@@ -134,6 +148,7 @@ class _Outbox:
         self._conn = conn
         self._cond = threading.Condition()
         self._slots: Dict[str, Tuple[int, Any]] = {}    # topic → (seq, val)
+        self._acks: collections.deque = collections.deque()  # (topic, seq)
         self._closed = False
         self._thread = threading.Thread(target=self._drain, daemon=True)
         self._thread.start()
@@ -147,17 +162,31 @@ class _Outbox:
                 self._slots[topic] = (seq, val)
                 self._cond.notify()
 
+    def ack(self, topic: str, seq: int) -> None:
+        """Queue the seq the broker stamped on this connection's publish;
+        acks are never coalesced: each publish waits for its own."""
+        with self._cond:
+            if self._closed:
+                return
+            self._acks.append((topic, seq))
+            self._cond.notify()
+
     def _drain(self):
         while True:
             with self._cond:
-                while not self._slots and not self._closed:
+                while (not self._slots and not self._acks
+                       and not self._closed):
                     self._cond.wait()
                 if self._closed:
                     return
-                topic, (seq, val) = next(iter(self._slots.items()))
-                del self._slots[topic]
+                if self._acks:
+                    frame = ("ack", *self._acks.popleft())
+                else:
+                    topic, (seq, val) = next(iter(self._slots.items()))
+                    del self._slots[topic]
+                    frame = ("msg", topic, seq, val)
             try:
-                _send_frame(self._conn, ("msg", topic, seq, val))
+                _send_frame(self._conn, frame)
             except Exception:      # OSError, pickle errors, MemoryError…
                 self.close()       # mark dead → broker prunes on publish
                 return
@@ -250,6 +279,7 @@ class BusServer:
                             subs = []
                     for ob in subs:
                         ob.offer(topic, seq, payload)
+                    outbox.ack(topic, seq)
         finally:
             with self._lock:
                 for subs in self._subs.values():
@@ -272,33 +302,59 @@ class BusServer:
 class NetChannel:
     """Channel API over the bus: publish sends to the broker; the
     client's receiver thread fills (value, seq) for subscriptions.
-    ``seq`` is broker-stamped → take_new freshness is globally
-    consistent across processes.
+    ``seq`` is broker-stamped, for the channel's own publishes too (the
+    broker's ack), so take_new freshness is globally consistent across
+    processes and publishers.
 
     ``_state`` updates are single tuple assignments (atomic under the
     GIL) and MONOTONIC in seq on both the publish and receive paths, so
-    a local publish racing the receiver thread (a channel both
-    advertised and subscribed, or a broker echo) can only move seq
-    forward — take_new never reports stale data as fresh."""
+    a publish racing the receiver thread (a channel both advertised and
+    subscribed) can only move seq forward — take_new never reports stale
+    data as fresh."""
 
     def __init__(self, client: "BusClient", name: str):
         self.name = name
         self._client = client
         self._state: Tuple[int, Any] = (0, None)   # atomic swap under GIL
+        self._state_lock = threading.Lock()
         self._pub_lock = threading.Lock()
+        # The broker acks a connection's publishes in the order it got them,
+        # so the k-th ack of this topic answers this channel's k-th publish:
+        # (k, seq), or None once the connection is gone.
+        self._acks: "queue.Queue[Optional[Tuple[int, int]]]" = queue.Queue()
+        self._sent = 0      # publishes sent (under _pub_lock)
+        self._acked = 0     # acks received (the receiver thread's)
 
     def publish(self, value) -> None:
-        # The wire send sits INSIDE the lock so concurrent local
-        # publishers produce the same order on the wire and in _state —
-        # otherwise the newer seq could locally pair with the older
-        # value and the monotonic echo guard would never correct it.
+        # One publish of this channel at a time, so the broker's acks come
+        # back in the order of the sends; the wait for the ack holds only
+        # _pub_lock, never the lock the receiver thread takes. The late ack
+        # of a publish that timed out is dropped here, not taken as this
+        # publish's seq.
         with self._pub_lock:
             self._client._publish(self.name, value)
-            seq, _ = self._state
-            self._state = (seq + 1, value)
+            self._sent += 1
+            if not self._client._receiving:
+                raise ConnectionError("the bus connection is closed")
+            deadline = time.monotonic() + ACK_TIMEOUT_S
+            while True:
+                try:
+                    ack = self._acks.get(
+                        timeout=max(0.0, deadline - time.monotonic()))
+                except queue.Empty:
+                    raise TimeoutError(
+                        f"no seq from the broker for '{self.name}' after "
+                        f"{ACK_TIMEOUT_S} s") from None
+                if ack is None:
+                    raise ConnectionError(f"the bus closed before "
+                                          f"'{self.name}''s publish was "
+                                          "stamped")
+                if ack[0] == self._sent:
+                    break
+            self._on_message(ack[1], value)
 
     def _on_message(self, seq: int, payload) -> None:
-        with self._pub_lock:       # same lock as publish → no regression
+        with self._state_lock:
             cur, _ = self._state
             if seq > cur:
                 self._state = (seq, payload)
@@ -333,6 +389,7 @@ class BusClient:
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._send_lock = threading.Lock()
         self._channels: Dict[str, NetChannel] = {}
+        self._receiving = True
         self._recv_thread = threading.Thread(target=self._recv_loop,
                                              daemon=True)
         self._recv_thread.start()
@@ -342,6 +399,15 @@ class BusClient:
             _send_frame(self._sock, ("pub", topic, value))
 
     def _recv_loop(self):
+        try:
+            self._receive()
+        finally:
+            # No ack will come: wake the publishes waiting for one.
+            self._receiving = False
+            for ch in list(self._channels.values()):
+                ch._acks.put(None)
+
+    def _receive(self):
         while True:
             try:
                 msg = _recv_frame(self._sock)
@@ -354,6 +420,11 @@ class BusClient:
                 ch = self._channels.get(topic)
                 if ch is not None:
                     ch._on_message(seq, payload)
+            elif msg[0] == "ack":
+                _, topic, seq = msg
+                ch = self._channels[topic]
+                ch._acked += 1
+                ch._acks.put((ch._acked, seq))
 
     def advertise(self, topic: str) -> NetChannel:
         ch = self._channels.setdefault(topic, NetChannel(self, topic))
