@@ -32,13 +32,17 @@ card, then drives the port's paths:
   filter held against its CPU run and the detector against its CPU run
   and itself;
 - the reference's node graph (tpunav_torch/runtime/, the :class:`Graphs`
-  phases): the mppi_waypoints.launch graph on the virtual-time scheduler
-  through K1 at K=4,096 (``node_course``); the RBPF node at config 5
-  through K2–K4, the EKF node in the MPPI loop at config 3 and the
-  detector chain in config 4's world (``slam_nodes``); the robot on the
-  CPU and the laptop on the card in two processes over the TCP bus,
-  lockstep and free-running (``two_process``); and a checkpoint of the
-  RBPF node's state (``checkpoint``);
+  phases), whose jitted steps replay one CUDA graph each, held bit for
+  bit to their eager forms: the mppi_waypoints.launch graph on the
+  virtual-time scheduler through K1 at K=4,096, the law replayed and
+  eager (``node_course``); the RBPF node at config 5 through
+  ``PFStepper`` (K2 and K3 in its graph), the EKF node in the MPPI loop
+  at config 3 and the detector chain in config 4's world through
+  ``EKFStepper`` (``slam_nodes``); ``TurtleWay``, ``MPPIController`` and
+  ``PotentialField`` (``graph_wrappers``); the robot on the CPU and the
+  laptop on the card in two processes over the TCP bus, lockstep and
+  free-running (``two_process``); and a checkpoint of the RBPF node's
+  state loaded into its graph's buffers in place (``checkpoint``);
 - the sharded paths (``tpunav_torch.parallel``, the :class:`Sharded`
   phases) in spawned ranks: K-sharded MPPI through K1's partials in one
   NCCL rank and in two gloo ranks sharing the card (``sharded_mppi``),
@@ -65,8 +69,9 @@ card, then drives the port's paths:
   (``rbpf_stages``);
 
 and times every kernel beside its plain version. Each phase prints one
-JSON line; any failure raises and the script exits non-zero. It needs
-CUDA and has no CPU path. The last line is {"ok": true, "device": {...}}.
+JSON line, and ``run`` the command's seconds; any failure raises and the
+script exits non-zero. It needs CUDA and has no CPU path. The last line
+is {"ok": true, "device": {...}}.
 
 Phase ``kernel_times`` (:func:`kernel_times`) times K1, K2, K3 and K4
 through their public entry points only, at the shapes their designs are
@@ -102,6 +107,19 @@ BAR = 2e-4                 # K1 vs its plain version: max |Δ| on cmd, u_next[:-
 POSE = (0.1, -0.2, 0.3)
 XD = (1.0, 1.0, 0.0)
 NEAR_TIE_ULPS = 16
+# The depths of the eager EKF chains (bench_ekf's course: 200 updates):
+# ekf_parity's card-against-CPU chains, ekf_times' updates per trial, and
+# graph_ekf's eager chain that the stepper is held to.
+PARITY_UPDATES = 100
+TIMES_UPDATES = 60
+GRAPH_EKF_EAGER_UPDATES = 60
+# The EKF nodes' first updates that slam_nodes holds to the eager node.
+EKF_NODE_EAGER = 60
+# ekf_times' closed-loop ticks per trial (bench.py's bench_slam_loop: 240)
+# and rbpf_profile's profiled eager updates: cut to keep the run well inside
+# its time limit.
+LOOP_RATE_TICKS = 100
+RBPF_PROFILE_UPDATES = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -718,9 +736,10 @@ class Rbpf:
              P=self.P, k=k, map=g.height, card=self.card, rows=rows)
 
     def profile(self):
-        """torch.profiler over 20 steady updates of a fresh course: device
-        µs per update by kernel, launches per update, and the device's idle
-        share against the unprofiled ms per update of the course."""
+        """torch.profiler over RBPF_PROFILE_UPDATES steady updates of a
+        fresh course: device µs per update by kernel, launches per update,
+        and the device's idle share against the unprofiled ms per update of
+        the course."""
         t0 = time.perf_counter()
         u, scans, odoms, prevs = self.inputs
         box = [self.pf.pf_init(self.cfg, seed=1, device=self.dev), 0]
@@ -733,7 +752,7 @@ class Rbpf:
 
         for _ in range(10):
             update()
-        n = 20
+        n = RBPF_PROFILE_UPDATES
         kern, held = eager_window(update, n)
         busy = window_us(kern, held, n)
         ours = {key: family_us(kern, held, key, n)
@@ -1157,14 +1176,14 @@ class Ekf:
 
     def parity(self):
         """The known- and unknown-DA updates over bench_ekf's course
-        (n=50, 12 visible, 200 updates) on the card against the same
-        functions on the CPU: float64 to 1e-9; float32 pose 1e-5,
+        (n=50, 12 visible, PARITY_UPDATES updates) on the card against the
+        same functions on the CPU: float64 to 1e-9; float32 pose 1e-5,
         landmarks 1e-4, covariance rtol 1e-3 + 1e-7·max|Σ|; count and
         active equal on every update. The float32 card run again under
         the caller's "high" matmul precision (TF32) must give the same
         bits. K1 against its plain version at the loop's shapes."""
         t0 = time.perf_counter()
-        cfg, meas = self.bench_cfg(), bench_ekf_course()
+        cfg, meas = self.bench_cfg(), bench_ekf_course(updates=PARITY_UPDATES)
         rows = []
         for known in (True, False):
             for dtype in (torch.float64, torch.float32):
@@ -1572,9 +1591,10 @@ class Ekf:
                 "ekf_err": e_s.cpu().numpy(), "odo_err": e_o.cpu().numpy(),
                 "count": int(st.ekf.count), "visits": int(st.visits)}
 
-    def loop_rate(self, known, trials=2, ticks=240):
+    def loop_rate(self, known, trials=2, ticks=LOOP_RATE_TICKS):
         """bench.py:bench_slam_loop: K=4,096, N=25, capacity 50, the sensor
-        every tick, 240 ticks through K1; ticks/s per trial, after a
+        every tick, LOOP_RATE_TICKS ticks through K1 (bench.py: 240);
+        ticks/s per trial, after a
         20-tick warm-up."""
         mppi = self.s.mppi.MPPIConfig(horizon=0.5, dt=0.02, rollouts=4096,
                                       ul_var=4.0, ur_var=4.0)
@@ -1610,14 +1630,15 @@ class Ekf:
 
     def times(self):
         """bench.py's EKF lines (µs per update and updates/s at n=50, 12
-        visible, 200 updates, float32, ≥ 5 trials) for both DAs; the two
+        visible, float32, 5 trials of TIMES_UPDATES updates) for both DAs;
+        the two
         trip-count candidates at config 4's shape; the SPD repair at n=50,
         gated off and repairing, with no host sync; the closed-loop rates
         of configs 3 and 4 at bench_slam_loop's shape; ms per detector
         call."""
         t0 = time.perf_counter()
         ekff, cfg = self.ekff, self.bench_cfg()
-        meas = [self.t(m) for m in bench_ekf_course()]
+        meas = [self.t(m) for m in bench_ekf_course(updates=TIMES_UPDATES)]
         u = self.t([0.02, 0.01])
         lines = {}
         for name, fn in (("known", ekff.known_correspondence_slam),
@@ -1781,8 +1802,11 @@ class Graphs:
     """The reference's node graph on the card (``tpunav_torch/runtime/``):
     the mppi_waypoints.launch graph through K1, the RBPF node at BASELINE
     config 5 through K2–K4, the EKF node in the MPPI loop (config 3), the
-    detector chain (config 4's world), the two-process deployment over the
-    TCP bus, and a checkpoint of the RBPF node's state."""
+    detector chain (config 4's world), the graphed wrappers, the
+    two-process deployment over the TCP bus, and a checkpoint of the RBPF
+    node's state. Each node step, law call and wrapper step that replays
+    a graph is held to its eager form (the same functions called one by
+    one on the same inputs) bit for bit."""
 
     # One scan period (0.2 s) of this twist is rbpf_course's u = (0.03 rad,
     # 0.02 m).
@@ -1797,14 +1821,16 @@ class Graphs:
         self.dev, self.card = smoke.dev, smoke.card
         self.params = smoke.config.load_robot_config(
             os.path.join(CONFIGS, "diff_params.yaml")).diff_drive
-        self.k1_course = self.slam_counts = None
+        self.k1_course = self.slam_counts = self.node_counts = None
 
-    def course_graph(self, cfg, waypoints):
+    def course_graph(self, cfg, waypoints, make_law=None, record=None):
         """mppi_waypoints.launch at 60 Hz: driver → cmd_vel →
         turtle_interface → wheel_cmd → plant → encoder ticks →
-        turtle_interface → joints → odometer → odom → driver. Returns the
-        scheduler, the driver, the law's profiler, the channels and a
-        function that runs n more cycles."""
+        turtle_interface → joints → odometer → odom → driver, the driver on
+        ``make_law`` (default the graphed ``mppi_law``; ``record`` collects
+        each call's (pose, waypoint, twist)). Returns the scheduler, the
+        driver, the law's profiler, the channels and a function that runs
+        n more cycles."""
         from examples_torch.full_stack_two_process import mppi_law
         from tpunav_torch.runtime import Channel, Node, Scheduler, SolveProfiler
         from tpunav_torch.runtime.nodes import (OdometerNode,
@@ -1814,7 +1840,14 @@ class Graphs:
 
         ch = {n: Channel(n) for n in ("cmd_vel", "wheel_cmd", "sensor",
                                       "joints", "odom")}
-        law = SolveProfiler(mppi_law(cfg, self.params, self.dev),
+        inner = (make_law or mppi_law)(cfg, self.params, self.dev)
+
+        def recorded(pose, wpt):
+            out = inner(pose, wpt)
+            record.append((np.array(pose), np.array(wpt), out))
+            return out
+
+        law = SolveProfiler(inner if record is None else recorded,
                             name="mppi_law")
         driver = WaypointDriverNode(ch["odom"], ch["cmd_vel"], waypoints, law,
                                     goal_thresh=0.1)
@@ -1847,11 +1880,15 @@ class Graphs:
     def node_course(self):
         """The mppi_waypoints.launch graph at full width on the virtual-time
         scheduler: K1 at configs/mppi_params.yaml, horizon 0.5 s, K=4,096,
-        N=50, around the real_waypoints.yaml pentagon (goal_thresh 0.1).
-        Gates: one full cycle within 120 s of virtual time, odometry within
-        0.1 m of the last waypoint, one K1 launch per published command.
-        Then on a fresh graph: cycles/s, launches, device idle share and
-        host syncs per cycle, and a Chrome trace of 20 cycles."""
+        N=50, around the real_waypoints.yaml pentagon (goal_thresh 0.1),
+        the waypoint node's law one replayed graph per command. Gates: one full
+        cycle within 120 s of virtual time, odometry within 0.1 m of the
+        last waypoint, one K1 launch per published command, and every
+        command equal bit for bit to the eager law's on the same (pose,
+        waypoint) sequence. Then on fresh graphs: cycles/s, device µs and
+        operations, host API calls, syncs and idle share per cycle with
+        the law replayed, beside the same with the eager law over a
+        shorter window; and a Chrome trace of 20 cycles."""
         from tpunav_torch.runtime import trace
 
         t0 = time.perf_counter()
@@ -1860,7 +1897,8 @@ class Graphs:
             rollouts=4096)
         wpts = self.s.config.load_waypoints(
             os.path.join(CONFIGS, "real_waypoints.yaml"))
-        s, driver, law, ch, _ = self.course_graph(cfg, wpts)
+        calls = []
+        s, driver, law, ch, _ = self.course_graph(cfg, wpts, record=calls)
         torch.cuda.synchronize()
         reset_counts()
         t1 = time.perf_counter()
@@ -1879,24 +1917,47 @@ class Graphs:
             raise AssertionError(f"odometry {odom} ends {d_last} m from the "
                                  "last waypoint")
         if counts != {"K1": commands, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0, "EIG": 0}:
+                      "K4": 0, "EIG": 0} or len(calls) != commands:
             raise AssertionError(f"launches {counts} for {commands} commands:"
                                  " the driver did not solve on K1 once each")
         self.k1_course = counts["K1"]
         law_rate, visits = law.hz(), driver.ctr
+        # The eager law on the recorded (pose, waypoint) sequence.
+        eager = eager_mppi_law(cfg, self.params, self.dev)
+        differ = [i for i, (pose, wpt, out) in enumerate(calls)
+                  if not np.array_equal(eager(pose, wpt), out)]
+        if differ:
+            raise AssertionError(f"the replayed law differs from the eager "
+                                 f"law at {len(differ)} of {len(calls)} "
+                                 f"commands, first {differ[0]}")
 
-        # A fresh graph: 60 cycles warm, then 120 timed, 120 profiled, 60
-        # counted for syncs and 20 traced.
-        s, driver, _, _, run_cycles = self.course_graph(cfg, wpts)
-        run_cycles(60)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        run_cycles(120)
-        torch.cuda.synchronize()
-        cycle_us = 1e6 * (time.perf_counter() - t1) / 120
-        kern, held = eager_window(lambda: run_cycles(120), 1)
-        busy = window_us(kern, held, 120)
-        syncs = syncs_per_call(lambda: run_cycles(60), 1) / 60
+        # The law alone on one recorded (pose, waypoint), replayed and
+        # eager, in turns: µs per call, the host copies in and out included.
+        from examples_torch.full_stack_two_process import mppi_law
+
+        pose, wpt, _ = calls[len(calls) // 2]
+        laws = {"graph": mppi_law(cfg, self.params, self.dev),
+                "eager": eager_mppi_law(cfg, self.params, self.dev)}
+        law_turns = {"graph": [], "eager": []}
+        for name in ("graph", "eager", "eager", "graph"):
+            law_turns[name].append(wall_us(lambda: laws[name](pose, wpt),
+                                           200))
+        # Fresh graphs: the eager law 30 cycles warm, 60 timed and a window
+        # of 30; the replayed law 60 warm, then 120 timed, a window of 60
+        # and 20 traced.
+        windows = {}
+        for name, make, warm, timed in (("eager", eager_mppi_law, 30, 60),
+                                        ("graph", None, 60, 120)):
+            s, driver, _, _, run_cycles = self.course_graph(cfg, wpts, make)
+            run_cycles(warm)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run_cycles(timed)
+            torch.cuda.synchronize()
+            cycle_us = 1e6 * (time.perf_counter() - t1) / timed
+            windows[name] = {"cycles_per_s": 1e6 / cycle_us,
+                             **node_window(lambda: run_cycles(1), timed // 2,
+                                           cycle_us)}
         out = os.path.join(ROOT, "tools", "out", "node_course_trace")
         with trace(out):
             run_cycles(20)
@@ -1909,30 +1970,26 @@ class Graphs:
         if len(named) != 2 or driver.done:
             raise AssertionError(f"trace {newest} names {named} of K1's two "
                                  "kernels")
-        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
         emit("node_course", seconds=time.perf_counter() - t0,
              card=self.card, K=cfg.rollouts, N=cfg.steps,
              course_virtual_seconds=round(cycles / 60.0, 4), cycles=cycles,
              visits=visits, done=True, final_odom=odom.tolist(),
              dist_to_last_waypoint=d_last, commands=commands,
              kernel_launches=counts, cycles_per_s=cycles / wall,
-             law_hz=law_rate, window_cycles=120,
-             unprofiled_cycle_us=cycle_us, device_us_per_cycle=busy,
-             launches_per_cycle=sum(c for _, c in kern.values()) / 120,
-             device_idle_share=None if busy is None else 1 - busy / cycle_us,
-             kernel_records=held,
-             host_syncs_per_cycle=syncs,
-             trace=os.path.relpath(newest, ROOT), trace_names_k1=named,
-             top_kernels_us_per_cycle={name[:60]: us / 120
-                                       for name, (us, _) in top})
+             law_hz=law_rate, law_bit_identical_commands=len(calls),
+             law_alone_us_in_turns=law_turns,
+             per_cycle_law_replayed=windows["graph"],
+             per_cycle_law_eager=windows["eager"],
+             trace=os.path.relpath(newest, ROOT), trace_names_k1=named)
 
-    def rbpf_graph(self, seed=0):
+    def rbpf_graph(self, seed=0, record=None):
         """BASELINE config 5 as a node graph: fake encoders at 30 Hz on
         RBPF_TWIST, a scan publisher at 5 Hz (the port's lidar in walls at
         ±1.8 m, 360 beams, 2 mm noise from a generator seeded 7), and the
         RbpfMappingNode (P=500, k=50, 80×80 at 0.05 m, ICP 25 iterations).
         Returns the node, the channels, and a function that runs until n
-        more updates were published (calling ``on_update`` after each)."""
+        more updates were published; ``record`` collects each update's
+        inputs (the odometry the node read, the scan)."""
         from tpunav_torch.core import diff_drive as dd
         from tpunav_torch.runtime import Channel, Node, Scheduler
         from tpunav_torch.runtime.nodes import FakeDiffEncodersNode, host
@@ -1966,7 +2023,9 @@ class Graphs:
             self.RBPF_TWIST)))
         s.add(Node("encoders", 30.0, enc.tick))
         s.add(Node("scan", 5.0, scan))
-        s.add(Node("slam", 5.0, node.tick))
+        s.add(Node("slam", 5.0, node.tick if record is None else
+                   recorder(node, ch["slam_pose"], record,
+                            lambda: (node.drive, ch["scan"].latest()))))
 
         def run_updates(n):
             target = ch["slam_pose"].seq + n
@@ -1976,15 +2035,22 @@ class Graphs:
 
     def rbpf_node(self):
         """(a) The RBPF node at BASELINE config 5 over 120 updates (24 s of
-        virtual time). Gates: best particle |xy| < 0.2 m from the truth
+        virtual time), each one replay of its graph (the odometry, the
+        PFStepper update, the estimates) and one host copy. Gates: best
+        particle |xy| < 0.2 m from the truth
         (examples/rbpf_slam_demo.py:82), the grid holds 100 and 0 cells,
         map→odom published, one K2 and one K3 launch per update (K4 once,
-        in pf_init). Its updates/s beside rbpf_course's."""
+        in pf_init), and the state after 20 updates equal in digest to an
+        eager pf_slam_step chain on the same inputs with the same
+        generator. Its updates/s beside rbpf_course's (eager) and
+        graph_rbpf's (PFStepper alone)."""
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         reset_counts()           # K4 launches in pf_init, in the node's ctor
-        node, ch, run_updates = self.rbpf_graph()
+        inputs = []
+        node, ch, run_updates = self.rbpf_graph(record=inputs)
         run_updates(Rbpf.WARM)
+        at_warm = digest(node.pf.poses, node.pf.log_weights, node.pf.grids)
         torch.cuda.synchronize()
         t_warm = time.perf_counter()
         run_updates(Rbpf.UPDATES - Rbpf.WARM)
@@ -2006,24 +2072,35 @@ class Graphs:
         if updates != Rbpf.UPDATES or counts != want:
             raise AssertionError(f"RBPF node: launches {counts} over "
                                  f"{updates} updates, expected {want}")
+        st = eager_rbpf_chain(self.r, self.params, inputs[:Rbpf.WARM],
+                              self.dev)
+        eager = digest(st.poses, st.log_weights, st.grids)
+        if eager != at_warm:
+            raise AssertionError(f"RBPF node after {Rbpf.WARM} updates: "
+                                 f"digest {at_warm}, eager chain {eager}")
         course = 1e3 / self.r.ms_per_update
-        # Where the node's extra time goes: launches, device time and host
-        # syncs per update over 5 more updates (rbpf_profile has the
-        # course's).
-        kern, held = eager_window(lambda: run_updates(1), 5)
-        busy = window_us(kern, held, 5)
-        syncs = syncs_per_call(lambda: run_updates(1), 5)
-        # Host-bound rates drift within a call, so the overhead is also
-        # taken in turns on the same host: 20 bare updates of the course's
-        # inputs, 20 node updates, 20 node, 20 bare (ms per update).
+        # Per update over 5 more of the graph (the simulated encoders and
+        # scans included): device µs and operations, host API calls, syncs,
+        # idle share (rbpf_profile has the eager course's); then the same
+        # for the node's update alone (the last scan again: one copy in,
+        # the normals' draws, one replay, one copy out).
+        window = node_window(lambda: run_updates(1), 5, 1e6 / steady)
+        alone = self.update_alone(node, ch["scan"], 10)
+        # Host-bound rates drift within a call, so the node's cost over its
+        # update is also taken in turns on the same host: 20 updates of
+        # the course's inputs through a bare PFStepper, 20 node updates, 20
+        # node, 20 bare (ms per update).
         u, scans, odoms, prevs = self.r.inputs
+        bare_stepper = self.r.pf.PFStepper(
+            self.r.cfg, self.r.pf.pf_init(self.r.cfg, seed=1,
+                                          device=self.dev), self.dev)
 
         def bare():
-            st = self.r.pf.pf_init(self.r.cfg, seed=1, device=self.dev)
             for i in range(20):
-                st = self.r.pf.pf_slam_step(self.r.cfg, st, scans[i], u,
-                                            odoms[i], prevs[i])
+                bare_stepper.step(scans[i], u, odoms[i], prevs[i])
 
+        for i in range(2):                    # its warm-up and capture
+            bare_stepper.step(scans[i], u, odoms[i], prevs[i])
         turns = {"bare": [], "node": []}
         for name in ("bare", "node", "node", "bare"):
             torch.cuda.synchronize()
@@ -2034,18 +2111,16 @@ class Graphs:
         return {"seconds": time.perf_counter() - t0, "P": self.r.P,
                 "k": self.r.K, "map": [self.r.g80.height, self.r.g80.width],
                 "updates": updates, "steady_updates_per_s": steady,
+                "steady_ms_per_update": 1e3 / steady,
                 "rbpf_course_updates_per_s": course,
-                "node_overhead_ms_per_update": 1e3 / steady - 1e3 / course,
+                "digest_after_warm_up": at_warm,
+                "eager_chain_digest_equal": True,
+                "eager_chain_updates": Rbpf.WARM,
                 "turns_ms_per_update": turns,
-                "node_overhead_ms_per_update_in_turns":
+                "node_over_pf_stepper_ms_per_update_in_turns":
                     statistics.mean(turns["node"])
                     - statistics.mean(turns["bare"]),
-                "launches_per_update": sum(c for _, c in kern.values()) / 5,
-                "device_us_per_update": busy,
-                "device_idle_share": (None if busy is None
-                                      else 1 - busy / (1e6 / steady)),
-                "kernel_records": held,
-                "host_syncs_per_update": syncs,
+                "per_update_of_graph": window, "update_alone": alone,
                 "pose_error_cm": 100 * xy,
                 "occupied_cells": int((grid == 100).sum()),
                 "free_cells": int((grid == 0).sum()),
@@ -2058,7 +2133,12 @@ class Graphs:
         plant at 60 Hz (the plant's wheels off nominal, TRUE_WHEELS);
         EkfSlamNode (known DA, 12 slots) fed by landmark_measurements of
         the block world within 1.2 m at 10 Hz. Gates: EKF |xy| error <
-        odometry's, one K1 launch per published command."""
+        odometry's, one K1 launch per published command, and the node's
+        first EKF_NODE_EAGER published poses and map→odom corrections equal
+        bit for bit to its eager form's on the same inputs (the odometry,
+        the dynamic known-DA update and the estimates, one by one). Per
+        update of the node's graph: ms, host API calls, syncs, idle share.
+        """
         from examples_torch.full_stack_two_process import mppi_law
         from tpunav_torch.core import diff_drive as dd
         from tpunav_torch.runtime import Channel, Node, Scheduler
@@ -2090,6 +2170,10 @@ class Graphs:
                           ch["slam_pose"], ch["odom_pose"],
                           map_odom=ch["map_odom"], known_da=True,
                           device=self.dev)
+        inputs = []
+        slam = recorder(ekf, ch["slam_pose"], inputs, lambda: (
+            ekf.drive, ch["landmarks"].latest(), ch["slam_pose"].latest(),
+            ch["map_odom"].latest()), EKF_NODE_EAGER)
 
         def sense(t):
             ch["landmarks"].publish(self.e.sensor.landmark_measurements(
@@ -2101,7 +2185,7 @@ class Graphs:
                                ("turtle_interface", 60.0, iface.tick),
                                ("plant", 60.0, plant.tick),
                                ("landmark_sensor", 10.0, sense),
-                               ("slam", 60.0, ekf.tick)]:
+                               ("slam", 60.0, slam)]:
             s.add(Node(name, rate, fn))
         torch.cuda.synchronize()
         reset_counts()
@@ -2122,15 +2206,62 @@ class Graphs:
                       "K4": 0, "EIG": 0}:
             raise AssertionError(f"EKF node: launches {counts} for {commands}"
                                  " commands")
-        return {"seconds": time.perf_counter() - t0, "K": mppi.rollouts,
-                "N": mppi.steps, "landmarks": len(centers),
-                "virtual_seconds": s.t, "done": driver.done,
-                "visits": driver.ctr, "commands": commands,
-                "ekf_updates": ch["slam_pose"].seq, "ekf_error_m": ekf_err,
-                "odometry_error_m": odo_err,
-                "landmarks_tracked": int(ekf.ekf.count),
-                "kernel_launches": counts,
-                "graph_seconds_per_virtual_second": wall / s.t}
+        out = {"K": mppi.rollouts, "N": mppi.steps,
+               "landmarks": len(centers), "virtual_seconds": s.t,
+               "done": driver.done, "visits": driver.ctr,
+               "commands": commands, "ekf_updates": ch["slam_pose"].seq,
+               "ekf_error_m": ekf_err, "odometry_error_m": odo_err,
+               "landmarks_tracked": int(ekf.ekf.count),
+               "kernel_launches": counts,
+               "graph_seconds_per_virtual_second": wall / s.t,
+               "eager_bit_identical_updates": len(inputs),
+               "eager_ms_per_update": self.ekf_node_against_eager(
+                   ekf_cfg, True, inputs, True),
+               "update_alone": self.update_alone(ekf, ch["landmarks"])}
+        return {"seconds": time.perf_counter() - t0, **out}
+
+    def ekf_node_against_eager(self, cfg, known, inputs, map_odom):
+        """The EKF node's recorded updates (odometry, message, published
+        pose[, map→odom]) against its eager form on the same inputs, bit
+        for bit; returns the eager form's ms per update."""
+        from tpunav_torch.core import diff_drive as dd
+        from tpunav_torch.runtime.nodes import host, to_device
+        from tpunav_torch.runtime.slam_nodes import map_to_odom
+
+        ekff = self.e.ekff
+        step = (ekff.known_correspondence_slam if known
+                else ekff.slam_unknown_da)
+        st = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
+        drive = dd.init_state(device=self.dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i, (odo, meas, *published) in enumerate(inputs):
+            drive, wheel_vel = dd.update_odometry(self.params, drive,
+                                                  odo.left, odo.right)
+            u = dd.wheels_to_twist(self.params, wheel_vel)[:2]
+            st = step(cfg, st, to_device(meas, torch.float32, self.dev), u)
+            pose = ekff.robot_pose(st)
+            want = host(torch.cat([pose, map_to_odom(pose, dd.pose(odo))])
+                        if map_odom else pose)
+            if not np.array_equal(want, np.concatenate(published)):
+                raise AssertionError(f"EKF node (known DA {known}) update "
+                                     f"{i}: {published} against the eager "
+                                     f"form's {want}")
+        return 1e3 * (time.perf_counter() - t1) / len(inputs)
+
+    def update_alone(self, node, channel, reps=20):
+        """A SLAM node's update alone (``channel``'s last message again:
+        one copy in, one replay, one copy out): ms, and per update device
+        µs and operations, host API calls, syncs and idle share."""
+        last = channel.latest()
+
+        def update():
+            channel.publish(last)
+            node.tick(0.0)
+
+        update_us = wall_us(update, reps)
+        return {"ms": 1e-3 * update_us,
+                **node_window(update, reps // 2, update_us)}
 
     def detector_node(self):
         """(c) Config 4's world: 360-beam scans (1 mm noise) at 5 Hz from a
@@ -2138,10 +2269,13 @@ class Graphs:
         EkfSlamNode (unknown DA, capacity 50), 30 s of virtual time. Gates:
         the node's measurements equal feature_detection +
         circles_to_measurements on the same scans bit for bit (the node
-        replays the detector as a CUDA graph), all state finite, at least
-        20 landmarks tracked, two eigensolver launches per scan. The node's
+        replays the detector as a CUDA graph), the EKF node's first
+        EKF_NODE_EAGER published poses equal bit for bit to its eager
+        form's (the unknown-DA update), all state finite, at least 20
+        landmarks tracked, two eigensolver launches per scan. The node's
         tick (the scan in, one replay, one host copy out) timed beside the
-        eager detector call (``detector``'s ms per call)."""
+        eager detector call (``detector``'s ms per call), and the EKF
+        node's update per update."""
         from tpunav_torch.core import diff_drive as dd
         from tpunav_torch.core import se2
         from tpunav_torch.runtime import Channel, Node, Scheduler
@@ -2164,7 +2298,7 @@ class Graphs:
         ekf = EkfSlamNode(ekf_cfg, self.params, ch["joints"], ch["landmarks"],
                           ch["slam_pose"], ch["odom_pose"], known_da=False,
                           device=self.dev)
-        seen = []
+        inputs, seen = [], []
 
         def scan(t):
             p = dd.pose(enc.state)           # in the start frame
@@ -2185,7 +2319,10 @@ class Graphs:
         s.add(Node("encoders", 20.0, enc.tick))
         s.add(Node("scan", 5.0, scan))
         s.add(Node("landmarks", 5.0, detect))
-        s.add(Node("slam", 20.0, ekf.tick))
+        s.add(Node("slam", 20.0, recorder(
+            ekf, ch["slam_pose"], inputs, lambda: (
+                ekf.drive, ch["landmarks"].latest(),
+                ch["slam_pose"].latest()), EKF_NODE_EAGER)))
         s.run(29.99)
         torch.cuda.synchronize()
         counts = read_counts()
@@ -2209,6 +2346,8 @@ class Graphs:
         tick_us = wall_us(node_tick, 50)
         est = ch["slam_pose"].latest()
         odo = host(dd.pose(enc.state))
+        eager_ms = self.ekf_node_against_eager(ekf_cfg, False, inputs, False)
+        per_update = self.update_alone(ekf, ch["landmarks"])
         return {"seconds": time.perf_counter() - t0, "scans": len(seen),
                 "beams": 360, "capacity": ekf_cfg.num_landmarks,
                 "detections_per_scan": float(np.mean(
@@ -2217,6 +2356,9 @@ class Graphs:
                 "landmarks_tracked": count, "kernel_launches": counts,
                 "node_tick_us": tick_us,
                 "eager_detector_us": 1e3 * self.e.detector_ms,
+                "ekf_eager_bit_identical_updates": len(inputs),
+                "ekf_eager_ms_per_update": eager_ms,
+                "ekf_update_alone": per_update,
                 "slam_xy_error_m": float(np.hypot(est[1] - odo[1],
                                                   est[2] - odo[2]))}
 
@@ -2232,8 +2374,149 @@ class Graphs:
                             + ekf["kernel_launches"][k]
                             + det["kernel_launches"][k] for k in
                             ("K1", "K2", "K3", "K4", "EIG")}
+        self.node_counts = {"rbpf_node": rbpf["kernel_launches"],
+                            "ekf_node": ekf["kernel_launches"],
+                            "detector_chain": det["kernel_launches"],
+                            "node_course": {"K1": self.k1_course}}
         emit("slam_nodes", seconds=time.perf_counter() - t0, card=self.card,
              rbpf_config5=rbpf, ekf_config3=ekf, detector_chain=det)
+
+    def wrappers(self):
+        """``graph_wrappers``: the wrappers that replay one graph per step,
+        each against its eager form on the card bit for bit, with µs and
+        host syncs per step both ways: TurtleWay around its pentagon
+        (tests/test_sim_plant.py's, 60 Hz) to its completion tick,
+        MPPIController over 200 closed-loop solves at
+        configs/mppi_params.yaml (horizon 0.5 s, K=4,096, N=50; the plain
+        solver, no kernel), and PotentialField.plan on the planning phase's
+        square map."""
+        t0 = time.perf_counter()
+        out = {"turtle_way": self.turtle_way(),
+               "mppi_controller": self.controller(),
+               "potential_field": self.potential_field()}
+        emit("graph_wrappers", seconds=time.perf_counter() - t0,
+             card=self.card, **out)
+
+    def turtle_way(self):
+        from tpunav_torch.core import diff_drive as dd
+        from tpunav_torch.core import waypoints as wp
+        from tpunav_torch.runtime import Channel
+        from tpunav_torch.runtime.nodes import host
+        from tpunav_torch.sim.tsim import TurtleWay
+
+        pts = [(3.0, 2.0), (5.0, 2.5), (5.5, 4.0), (4.0, 5.0), (2.5, 4.0)]
+        tw = TurtleWay(pts, rot_vel=1.0, trans_vel=1.5, frequency=60.0,
+                       pose_in=Channel(), cmd_vel=Channel(), device=self.dev)
+        cmds = []
+        while not tw.done and len(cmds) < 12000:
+            if len(cmds) == 2:                 # after warm-up and capture
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            tw.tick(len(cmds) / 60.0)
+            cmds.append(tw.cmd_vel.latest())
+        graph_us = 1e6 * (time.perf_counter() - t1) / (len(cmds) - 2)
+        params = wp.make_params(np.asarray(pts, np.float32), 1.0, 1.5,
+                                device=self.dev)
+        ws = wp.init_state(device=self.dev)
+        model = dd.init_state(0.0, pts[0][0], pts[0][1], device=self.dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i, got in enumerate(cmds):
+            cmd, ws = wp.next_waypoint(params, ws, dd.pose(model))
+            model = dd.feedforward(dd.TURTLEBOT3, model, cmd * tw.scale)
+            done = bool(ws.cycle_complete)
+            if not (np.array_equal(got, np.asarray(host(cmd), float))
+                    and done == (i == len(cmds) - 1)):
+                raise AssertionError(f"TurtleWay tick {i}: {got}, done "
+                                     f"{done}, against the eager law's "
+                                     f"{host(cmd)}")
+        eager_us = 1e6 * (time.perf_counter() - t1) / len(cmds)
+        return {"ticks_to_done": len(cmds), "bit_identical": True,
+                "graph_us_per_tick": graph_us, "eager_us_per_tick": eager_us,
+                "host_syncs_per_tick": syncs_per_call(lambda: tw.tick(0.0),
+                                                      20)}
+
+    def controller(self, solves=200):
+        from tpunav_torch.control import mppi
+        from tpunav_torch.models.cart import kinematic_cart
+        from tpunav_torch.ops.rk4 import rk4_step
+
+        cfg = self.s.config.load_mppi_config(
+            os.path.join(CONFIGS, "mppi_params.yaml"), horizon=0.5,
+            rollouts=4096)
+        ctl = mppi.MPPIController(cfg, self.s.model, seed=3, device=self.dev)
+        ctl.set_waypoint([0.6, 0.4, 0.0])
+        pose = torch.zeros(3, device=self.dev)
+        poses, cmds = [], []
+        f = lambda x, uu: kinematic_cart(self.s.model, x, uu)
+        for i in range(solves):
+            if i == 2:                          # after warm-up and capture
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            poses.append(pose)
+            cmds.append(ctl.new_controls(pose))
+            pose = rk4_step(f, pose, cmds[-1], 1.0 / 60.0)
+        torch.cuda.synchronize()
+        graph_us = 1e6 * (time.perf_counter() - t1) / (solves - 2)
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+        u = mppi.init_controls(cfg, device=self.dev)
+        xd = torch.tensor([0.6, 0.4, 0.0], device=self.dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        same = []
+        for pose, got in zip(poses, cmds):
+            cmd, u = mppi.mppi_solve(cfg, self.s.model, u, gen, pose, xd)
+            same.append(torch.equal(cmd, got))
+        torch.cuda.synchronize()
+        eager_us = 1e6 * (time.perf_counter() - t1) / solves
+        if not (all(same) and torch.equal(u, ctl.u)):
+            raise AssertionError(f"MPPIController: {same.count(False)} of "
+                                 f"{solves} commands differ from the eager "
+                                 "solve's")
+        moved = float(torch.linalg.vector_norm(poses[-1][:2]))
+        return {"K": cfg.rollouts, "N": cfg.steps, "solves": solves,
+                "bit_identical": True, "moved_m": moved,
+                "graph_us_per_solve": graph_us,
+                "eager_us_per_solve": eager_us,
+                "host_syncs_per_solve": syncs_per_call(
+                    lambda: ctl.new_controls(pose), 20)}
+
+    def potential_field(self):
+        from tpunav_torch import planning as plan
+        from tpunav_torch.planning import potential_field as pfm
+
+        square = plan.load_obstacle_map(
+            [[[1.5, 1.5], [2.5, 1.5], [2.5, 2.5], [1.5, 2.5]]],
+            bounds=[[0.0, 4.0], [0.0, 4.0]], resolution=0.1)
+        pf = plan.PotentialField(plan.PotentialFieldConfig(step=0.05,
+                                                           qthresh=0.3),
+                                 square, device=self.dev)
+        start, goal = [0.5, 1.0], [3.5, 3.0]
+        pf.plan(start, goal, max_steps=5)             # warm-up and capture
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path = pf.plan(start, goal, max_steps=500)
+        torch.cuda.synchronize()
+        graph_us = 1e6 * (time.perf_counter() - t1) / (len(path) - 1)
+        q = torch.tensor(start, device=self.dev)
+        g = torch.tensor(goal, device=self.dev)
+        want = [q]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        while (len(want) <= 500
+               and float(torch.linalg.vector_norm(q - g)) >= pf.cfg.eps):
+            q = pfm._one_step(pf.cfg, pf.a, pf.b, pf.valid, q, g)
+            want.append(q)
+        eager_us = 1e6 * (time.perf_counter() - t1) / (len(want) - 1)
+        if not (len(path) == len(want)
+                and torch.equal(torch.stack(path), torch.stack(want))):
+            raise AssertionError(f"potential field: {len(path)} steps, the "
+                                 f"eager descent {len(want)}, or other bits")
+        steps = len(path) - 1
+        return {"steps": steps, "bit_identical": True,
+                "graph_us_per_step": graph_us, "eager_us_per_step": eager_us,
+                "host_syncs_per_step": syncs_per_call(
+                    lambda: pf.plan(start, goal, max_steps=500), 1) / steps}
 
     def two_process(self, cycles=150, duration=10.0):
         """The two-machine deployment (examples/full_stack_two_process.py):
@@ -2271,8 +2554,10 @@ class Graphs:
 
     def checkpoint(self):
         """The RBPF node's PFState at config 5 (its CUDA generator
-        included) saved after 10 updates and loaded into a fresh template:
-        10 more updates give the digests of an uninterrupted 20."""
+        included) saved after 10 updates, loaded into a fresh template and
+        assigned to the node, whose setter copies it into the buffers its
+        graph replays (the same tensors before and after): 10 more updates
+        give the digests of an uninterrupted 20."""
         import tempfile
 
         from tpunav_torch.runtime import load_pytree, save_pytree
@@ -2288,13 +2573,18 @@ class Graphs:
             save_pytree(path, node.pf)
             template = self.r.pf.pf_init(self.r.cfg, seed=123,
                                          device=self.dev)
+            buffers = [t.data_ptr() for t in node.pf[:-1]]
             node.pf = load_pytree(path, template)
+            in_place = [t.data_ptr() for t in node.pf[:-1]] == buffers
         run_updates(10)
         resumed = digest(node.pf.poses, node.pf.log_weights, node.pf.grids)
-        if resumed != whole or node.pf.generator.device != self.dev:
-            raise AssertionError(f"checkpoint resume {resumed} != {whole}")
+        if not (resumed == whole and in_place
+                and node.pf.generator.device == self.dev):
+            raise AssertionError(f"checkpoint resume {resumed} != {whole}, "
+                                 f"loaded in place: {in_place}")
         emit("checkpoint", seconds=time.perf_counter() - t0, P=self.r.P,
              updates=[10, 10], generator=str(node.pf.generator.device),
+             loaded_in_place=in_place,
              digest_uninterrupted=whole, digest_resumed=resumed)
 
 
@@ -2867,6 +3157,86 @@ def graph_window(step, reps: int, per: int, step_us: float,
             "top_device_us": {k[:60]: us / n for k, (us, _) in top}}
 
 
+def node_window(fn, reps: int, step_us: float) -> dict:
+    """A window of ``reps`` calls of ``fn`` on a node graph (eager
+    operations and graph replays), held against the launch counters: per
+    call, device µs (null where the profiler missed a counted kernel) and
+    operations, host CUDA API calls and graph launches among them, the
+    idle share against the unprofiled ``step_us``, and host syncs."""
+    kern, api, counts = trace_window(fn, reps)
+    profiled = {key: sum(c for name, (_, c) in kern.items() if tag in name)
+                for key, tag in COUNTED.items()}
+    missed = [key for key in COUNTED if profiled[key] != counts[key]]
+    busy = None if missed else sum(us for us, _ in kern.values()) / reps
+    return {"calls": reps, "unprofiled_us": step_us, "device_us": busy,
+            "device_ops": sum(c for _, c in kern.values()) / reps,
+            "device_idle_share": None if busy is None else 1 - busy / step_us,
+            "host_api_calls": sum(api.values()) / reps,
+            "graph_launches": api.get("cudaGraphLaunch", 0) / reps,
+            "host_syncs": syncs_per_call(fn, reps),
+            "kernel_records": {"counters": {k: counts[k] for k in COUNTED},
+                               "profiler": profiled, "missed": missed}}
+
+
+def recorder(node, out, record: list, snapshot, limit=None):
+    """``node.tick`` that appends ``snapshot()`` to ``record`` after each
+    tick that published on ``out`` (up to ``limit`` entries): the inputs a
+    node's update read, for its eager form."""
+    def tick(t):
+        seq = out.seq
+        node.tick(t)
+        if out.seq != seq and (limit is None or len(record) < limit):
+            record.append(snapshot())
+    return tick
+
+
+def eager_mppi_law(cfg, params, device):
+    """``examples_torch.full_stack_two_process.mppi_law`` before its graph:
+    the same fused solve keyed by seed 11 + k, seed increment and twist,
+    dispatched operation by operation (the form the graph is held to)."""
+    from tpunav_torch.control.mppi import init_controls
+    from tpunav_torch.core import diff_drive as dd
+    from tpunav_torch.models.cart import CartParams
+    from tpunav_torch.ops.fused_mppi import mppi_solve_fused
+    from tpunav_torch.runtime.nodes import host, to_device
+
+    cart = CartParams(params.wheel_radius, params.wheel_base)
+    state = {"u": init_controls(cfg, device=device),
+             "seed": to_device(11, torch.int32, device)}
+
+    def law(pose_xyt, wpt):
+        goal = [wpt[0], wpt[1], wpt[2] if len(wpt) > 2 else 0.0]
+        x = to_device(np.concatenate([pose_xyt, goal]), torch.float32, device)
+        cmd, state["u"] = mppi_solve_fused(cfg, cart, state["u"],
+                                           state["seed"], x[:3], x[3:])
+        state["seed"] = state["seed"] + 1
+        return host(dd.wheels_to_twist(params, cmd))
+
+    return law
+
+
+def eager_rbpf_chain(rbpf, params, inputs, device):
+    """The RBPF node's eager form on its recorded inputs (the odometry it
+    read, the scan): the filter-input odometry, the twist and
+    ``pf_slam_step`` drawing from a generator seeded as the node's (0),
+    one by one. Returns the state."""
+    from tpunav_torch.core import diff_drive as dd
+    from tpunav_torch.runtime.nodes import to_device
+
+    st = rbpf.pf.pf_init(rbpf.cfg, seed=0, device=device)
+    drive = dd.init_state(device=device)
+    prev = torch.zeros(3, device=device)
+    for odo, scan in inputs:
+        drive, wheel_vel = dd.update_odometry(params, drive, odo.left,
+                                              odo.right)
+        u = dd.wheels_to_twist(params, wheel_vel)[:2]
+        cur = dd.pose(odo)
+        st = rbpf.pf.pf_slam_step(rbpf.cfg, st, to_device(
+            scan, torch.float32, device), u, cur, prev)
+        prev = cur
+    return st
+
+
 def same_bits(a, b, names) -> dict:
     """{name: equal bits} of the named fields of two states."""
     return {n: bool(torch.equal(getattr(a, n), getattr(b, n)))
@@ -3190,38 +3560,42 @@ class CudaGraphs:
     def update_alone(self, cfg, known, meas, u, masked_updates=20,
                      f64_updates=12):
         """The EKF update alone through ``EKFStepper`` against the eager
-        update (float32, ``bench_ekf``'s 200 updates): bit for bit the
-        dynamic chain's state and, over the first ``masked_updates``, the
-        eager masked form's; a float64 stepper over ``f64_updates`` within
-        1e-9 of the masked update on the CPU; ms per update both ways and
-        a replayed window; the eigensolver's launches per update (the SPD
-        repair at S = 103: its two kernels, gated off on an SPD
-        covariance)."""
+        update (float32, ``bench_ekf``'s 200 updates through the stepper):
+        bit for bit the dynamic chain's state after its
+        GRAPH_EKF_EAGER_UPDATES updates and, over the first
+        ``masked_updates``, the eager masked form's; a float64 stepper over
+        ``f64_updates`` within 1e-9 of the masked update on the CPU; ms per
+        update both ways (after 20 warm-up updates) and a replayed window;
+        the eigensolver's launches per update (the SPD repair at S = 103:
+        its two kernels, gated off on an SPD covariance)."""
         ekff = self.e.ekff
         fn, masked = ((ekff.known_correspondence_slam,
                        ekff.known_correspondence_slam_masked) if known
                       else (ekff.slam_unknown_da, ekff.slam_unknown_da_masked))
+        eager = meas[:GRAPH_EKF_EAGER_UPDATES]
         a = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
         stepper = ekff.EKFStepper(cfg, a, 50, known)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        for i, m in enumerate(meas):
+        for i, m in enumerate(eager):
             a = fn(cfg, a, m, u)
             if i == 19:
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
         torch.cuda.synchronize()
-        eager_ms = 1e3 * (time.perf_counter() - t1) / (len(meas) - 20)
+        eager_ms = 1e3 * (time.perf_counter() - t1) / (len(eager) - 20)
         reset_counts()
         for i, m in enumerate(meas):
             b = stepper.step(m, u)
             if i == 19:
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
+            if i == len(eager) - 1:
+                at_eager = ekff.EKFState(*(t.clone() for t in b))
         torch.cuda.synchronize()
         graph_ms = 1e3 * (time.perf_counter() - t1) / (len(meas) - 20)
         counts = read_counts()
-        bits = same_bits(b, a, ekff.EKFState._fields)
+        bits = same_bits(at_eager, a, ekff.EKFState._fields)
         c = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
         short = ekff.EKFStepper(cfg, c, 50, known)
         for m in meas[:masked_updates]:
@@ -3252,6 +3626,7 @@ class CudaGraphs:
             raise AssertionError(f"EKF stepper float64 vs CPU: {f64_err}")
         step_us = wall_us(lambda: stepper.step(meas[-1], u), 5, warmup=0)
         return {"spd_repair": cfg.spd_repair,
+                "eager_updates": len(eager), "graph_updates": len(meas),
                 "eager_ms_per_update": eager_ms,
                 "graph_ms_per_update": graph_ms,
                 "graph_updates_per_s": 1e3 / graph_ms, "bit_identical": bits,
@@ -3636,7 +4011,17 @@ def graph_launches(cuda_graphs: CudaGraphs, key: str) -> dict:
     return {"launches_graph_rbpf": g["rbpf"][key]}
 
 
+def node_launches(graphs: Graphs, key: str) -> dict:
+    """One kernel's measured launches in each node graph that replays its
+    steps (the node course's law, the RBPF node, the EKF nodes), for the
+    ``kernels`` line."""
+    return {"launches_node_graphs": {
+        name: counts.get(key, 0)
+        for name, counts in graphs.node_counts.items()}}
+
+
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's card path cannot "
               "run here", file=sys.stderr)
@@ -3684,6 +4069,7 @@ def main() -> int:
     graphs = Graphs(smoke, rbpf, ekf)
     graphs.node_course()
     graphs.slam_nodes()
+    graphs.wrappers()
     graphs.two_process()
     graphs.checkpoint()
     sharded = Sharded(smoke, rbpf)
@@ -3695,6 +4081,7 @@ def main() -> int:
     demos.lidar_ekf()
     demos.rbpf_stages()
     kernel_times(smoke, rbpf, obst)
+    emit("run", seconds=time.perf_counter() - started, card=smoke.card)
 
     main_row = smoke.timing[0]
     k1_ms, k1_by = bound(*k1_work(main_row["K"], main_row["N"]))
@@ -3712,6 +4099,7 @@ def main() -> int:
         "launches_dense_world": ekf.k1_dense,
         "launches_node_course": graphs.k1_course,
         "launches_slam_nodes": graphs.slam_counts["K1"],
+        **node_launches(graphs, "K1"),
         "launches_sharded": sharded.launches["K1"],
         **demo_launches(demos, "K1"),
         **graph_launches(cuda_graphs, "K1"),
@@ -3732,6 +4120,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "launches_slam_nodes": graphs.slam_counts[key],
+            **node_launches(graphs, key),
             "launches_sharded": sharded.launches[key],
             **demo_launches(demos, key),
             **graph_launches(cuda_graphs, key)})
@@ -3760,6 +4149,7 @@ def main() -> int:
         "bound_ms": det["bound_ms"], "bound_by": det["bound_by"],
         "library_ms": det["library_ms"],
         "launches_slam_nodes": graphs.slam_counts["EIG"],
+        **node_launches(graphs, "EIG"),
         "launches_graph_ekf_update_alone": cuda_graphs.launches["ekf_eig"],
         **demo_launches(demos, "EIG"),
         "by_shape": [{k: r.get(k) for k in (

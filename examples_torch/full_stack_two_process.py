@@ -89,25 +89,36 @@ def mppi_law(cfg, params, device):
     """The examples' MPPI control law for ``WaypointDriverNode``
     (examples/full_stack_two_process.py:83-111) on K1: (pose [x, y, θ],
     waypoint) → one fused solve on ``device`` keyed by seed 11 + k on the
-    k-th call → the wheel command as a body twist, in numpy. The pose and
-    waypoint go to the device in one copy; the seed stays there."""
+    k-th call → the wheel command as a body twist, in numpy. A call is one
+    ``capture.Graph`` step (``tpunav``'s jitted law): the solve, the seed's
+    increment and the twist on static tensors, the pose and waypoint in
+    by one copy and the twist out by one."""
+    from tpunav_torch import capture
     from tpunav_torch.control.mppi import init_controls
     from tpunav_torch.core import diff_drive as dd
     from tpunav_torch.models.cart import CartParams
     from tpunav_torch.ops.fused_mppi import mppi_solve_fused
-    from tpunav_torch.runtime.nodes import host, to_device
+    from tpunav_torch.runtime.nodes import host, to_device, to_static
 
     cart = CartParams(params.wheel_radius, params.wheel_base)
-    state = {"u": init_controls(cfg, device=device),
-             "seed": to_device(11, torch.int32, device)}
+    u = init_controls(cfg, device=device)
+    seed = to_device(11, torch.int32, device)
+    x = torch.zeros(6, device=u.device)          # [pose, waypoint]
+    twist = torch.zeros(3, device=u.device)
+
+    def body():
+        cmd, u_next = mppi_solve_fused(cfg, cart, u, seed, x[:3], x[3:])
+        u.copy_(u_next)
+        seed.add_(1)
+        twist.copy_(dd.wheels_to_twist(params, cmd))
+
+    graph = capture.Graph(body, u.device)
 
     def law(pose_xyt, wpt):
         goal = [wpt[0], wpt[1], wpt[2] if len(wpt) > 2 else 0.0]
-        x = to_device(np.concatenate([pose_xyt, goal]), torch.float32, device)
-        cmd, state["u"] = mppi_solve_fused(cfg, cart, state["u"],
-                                           state["seed"], x[:3], x[3:])
-        state["seed"] = state["seed"] + 1
-        return host(dd.wheels_to_twist(params, cmd))
+        to_static(x, np.concatenate([pose_xyt, goal]))
+        graph()
+        return host(twist)
 
     return law
 

@@ -250,6 +250,61 @@ def test_set_initial_controls():
     np.testing.assert_allclose(ctl.u.numpy(), np.tile([1.0, -2.0], (10, 1)))
 
 
+def _poses(steps, dtype):
+    rng = np.random.default_rng(4)
+    return [torch.as_tensor(POSE + 0.05 * i + 0.01 * rng.normal(size=3),
+                            dtype=dtype) for i in range(steps)]
+
+
+def test_controller_graph_equals_eager_solve():
+    """Six solves through the controller's graph step, its perturbations
+    drawn from its generator before each replay, with a waypoint and the
+    initial controls set in between: the eager ``mppi_solve`` chain's
+    commands and controls bit for bit, and the generator's state."""
+    cfg = tm.MPPIConfig(horizon=0.2, rollouts=64)
+    ctl = tm.MPPIController(cfg, MODEL, seed=5, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    u = tm.init_controls(cfg, device="cpu")
+    xd = torch.zeros(3)
+    for i, pose in enumerate(_poses(6, torch.float32)):
+        if i == 2:
+            ctl.set_waypoint(XD)
+            xd = torch.as_tensor(XD, dtype=torch.float32)
+        if i == 4:
+            ctl.set_initial_controls(0.5, -0.25)
+            u = torch.tensor([0.5, -0.25]).expand_as(u).clone()
+        cmd = ctl.new_controls(pose.numpy())
+        want, u = tm.mppi_solve(cfg, MODEL, u, gen, pose, xd)
+        assert torch.equal(cmd, want) and torch.equal(ctl.u, u), i
+    assert torch.equal(ctl.xd, xd)
+    assert torch.equal(ctl.generator.get_state(), gen.get_state())
+
+
+def test_controller_with_injected_noise_matches_tpunav():
+    """Five solves in float64 with ``tpunav``'s perturbations (its key's
+    splits) injected through ``noise=``: ``tpunav``'s MPPIController's
+    commands and controls within 1e-9."""
+    import jax
+
+    cfg_kw = _cfg(64, 30)
+    jcfg, cfg = jm.MPPIConfig(**cfg_kw), tm.MPPIConfig(**cfg_kw)
+    theirs = jm.MPPIController(jcfg, J_MODEL, seed=2, dtype=jnp.float64)
+    ours = tm.MPPIController(cfg, MODEL, seed=0, dtype=torch.float64,
+                             device="cpu")
+    theirs.set_waypoint(XD)
+    ours.set_waypoint(XD)
+    key = jax.random.PRNGKey(2)
+    for pose in _poses(5, torch.float64):
+        key, sub = jax.random.split(key)
+        noise = jm.sample_perturbations(jcfg, sub, dtype=jnp.float64)
+        want = theirs.new_controls(jnp.asarray(pose.numpy()))
+        got = ours.new_controls(pose, noise=_t(np.array(noise)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-9)
+        np.testing.assert_allclose(ours.u.numpy(), np.asarray(theirs.u),
+                                   rtol=0, atol=1e-9)
+
+
 # ------------------------------------------------------------ guards ----
 
 def test_port_imports_no_jax():

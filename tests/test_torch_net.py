@@ -7,7 +7,8 @@ counterpart of examples/full_stack_two_process.py, run here on the CPU: the robo
 (plant, turtle_interface, odometer, landmark sensor) in one process and
 the laptop (PRM + Theta*, EKF SLAM, the MPPI driver through K1's plain
 version at K=128) in another, lockstep over the bus, against the same
-graph in one process.
+graph in one process. The waypoint node's MPPI law is one ``capture.Graph``
+step, held bit for bit to its eager form.
 """
 
 import socket
@@ -135,6 +136,34 @@ def test_two_process_lockstep_matches_single_process(tmp_path):
     assert np.max(np.abs(slam2 - slam1)) < 1e-9
     assert np.linalg.norm(truth2[-1][1:]) > 0.05
     assert steady > 0
+
+
+def test_mppi_law_graph_equals_eager():
+    """Eight calls of the laptop's law (K1's plain version at K=128) on a
+    moving pose and two waypoints: the eager fused solves keyed by seed
+    11 + k and their twists, bit for bit."""
+    import torch
+
+    from tpunav_torch.control.mppi import init_controls
+    from tpunav_torch.core import diff_drive as dd
+    from tpunav_torch.models.cart import CartParams
+    from tpunav_torch.ops.fused_mppi import mppi_solve_fused
+
+    params, cfg = fstp.robot_params(), fstp.mppi_config(128)
+    law = fstp.mppi_law(cfg, params, "cpu")
+    cart = CartParams(params.wheel_radius, params.wheel_base)
+    u = init_controls(cfg, device="cpu")
+    for k in range(8):
+        pose = np.array([0.01 * k, -0.02 * k, 0.1 * k])
+        wpt = [0.4, 0.3] if k < 4 else [0.1, 0.6, 1.2]
+        got = law(pose, wpt)
+        x = torch.tensor(np.concatenate(
+            [pose, wpt + [0.0] * (3 - len(wpt))]), dtype=torch.float32)
+        cmd, u = mppi_solve_fused(cfg, cart, u, torch.tensor(
+            11 + k, dtype=torch.int32), x[:3], x[3:])
+        want = dd.wheels_to_twist(params, cmd).numpy()
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def test_frame_over_the_cap_raises_before_its_payload_is_read(monkeypatch):

@@ -180,6 +180,29 @@ def test_potential_field_converges():
         assert not (1.55 < q[0] < 2.45 and 1.55 < q[1] < 2.45), q
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_potential_field_graph_equals_eager_steps(dtype):
+    """``plan``'s graph steps against the eager descent (the step function
+    called on the path's last point until the goal tolerance): the same
+    path bit for bit, twice from one planner (its static start and goal
+    reloaded)."""
+    from tpunav_torch.planning import potential_field as tpf
+
+    pf = PotentialField(PotentialFieldConfig(step=0.05, qthresh=0.3),
+                        MAPS["reference"], device="cpu", dtype=dtype)
+    for start, goal in (([0.6, 0.3], [2.0, 3.7]), ([0.5, 1.0], [3.5, 3.0])):
+        path = pf.plan(start, goal, max_steps=300)
+        q = torch.as_tensor(start, dtype=dtype)
+        g = torch.as_tensor(goal, dtype=dtype)
+        want = [q]
+        while len(want) <= 300 and float(
+                torch.linalg.vector_norm(q - g)) >= pf.cfg.eps:
+            q = tpf._one_step(pf.cfg, pf.a, pf.b, pf.valid, q, g)
+            want.append(q)
+        assert len(path) == len(want) > 20
+        assert all(torch.equal(a, b) for a, b in zip(path, want))
+
+
 def test_dstar_online_observe_reroutes():
     """An all-free belief plans straight; observing a barrier forces an
     incremental replan through the gap; advance() reaches the goal."""

@@ -504,6 +504,8 @@ def _node_entry_points(pcfg):
     from tpunav_torch.estimation.landmarks import LandmarkConfig
     from tpunav_torch.runtime import nodes, slam_nodes
     from tpunav_torch.runtime.channels import Channel
+    from tpunav_torch.planning import PotentialField, PotentialFieldConfig
+    from tpunav_torch.planning.world import load_obstacle_map
     from tpunav_torch.sim.tsim import TurtleWay
 
     p = dd.TURTLEBOT3
@@ -523,6 +525,9 @@ def _node_entry_points(pcfg):
                                                               *ch(4)),
         "TurtleWay": lambda: TurtleWay([(0.0, 0.0), (1.0, 0.0)], 1.0, 0.5,
                                        60.0, *ch(2)),
+        "PotentialField": lambda: PotentialField(
+            PotentialFieldConfig(), load_obstacle_map(
+                [[[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]]], [[-1, 2], [-1, 2]])),
     }
 
 

@@ -122,6 +122,33 @@ def test_turtle_way_pentagon_matches_tpunav():
     assert s["x_error"]["p99"] < 0.05 and s["y_error"]["p99"] < 0.05
 
 
+def test_turtle_way_graph_equals_eager():
+    """The pentagon follower's graph step against its eager form (the
+    waypoint law and the feedforward model called one by one): the same
+    commands bit for bit every tick and the same completion tick, read
+    from the tick's one host copy."""
+    from tpunav_torch.core import waypoints as wp
+
+    ours = TurtleWay(PENTAGON, rot_vel=1.0, trans_vel=1.5, frequency=60.0,
+                     pose_in=Channel(), cmd_vel=Channel(), **CPU)
+    params = wp.make_params(np.asarray(PENTAGON, np.float32), 1.0, 1.5,
+                            **CPU)
+    ws = wp.init_state(**CPU)
+    model = dd.init_state(0.0, PENTAGON[0][0], PENTAGON[0][1], **CPU)
+    for i in range(12000):
+        ours.tick(i / 60.0)
+        cmd, ws = wp.next_waypoint(params, ws, dd.pose(model))
+        model = dd.feedforward(dd.TURTLEBOT3, model, cmd * ours.scale)
+        np.testing.assert_array_equal(ours.cmd_vel.latest(),
+                                      np.asarray(cmd.numpy(), float))
+        assert ours.done == bool(ws.cycle_complete), i
+        if ours.done:
+            break
+    assert i > 600 and ours.done
+    for name, a, b in zip(model._fields, ours.model, model):
+        assert torch.equal(a, b), name
+
+
 def _hw_chain(motor=None):
     cmd_vel, wheel_cmd, sensor, joints, odom = (Channel() for _ in range(5))
     iface = TurtleInterfaceNode(dd.TURTLEBOT3, cmd_vel, wheel_cmd, sensor,

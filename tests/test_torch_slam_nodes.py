@@ -4,11 +4,17 @@ Each ``tpunav`` node and its port read the same input channels, fed by
 the encoders and sensors of tests/test_slam_nodes.py's graphs, and publish
 on their own. The EKF node runs float64 without noise, so the
 filters are held to 1e-9 over the whole graph. The RBPF node draws
-randomness: each port update starts from ``tpunav``'s pre-update state and
-takes the normals ``tpunav``'s key gives (``_jax_noise``, injected through
-``pf_slam_step``'s ``noise=``), held to the bars of
-``test_pf_step_matches_tpunav``. On the CPU the port's RBPF update runs
-kernels K2 and K3 as their plain versions.
+randomness: each port update starts from ``tpunav``'s pre-update state,
+loaded into the node's buffers in place (its ``pf`` setter), and takes the
+normals ``tpunav``'s key gives (``_jax_noise``, injected as the stepper's
+draw), held to the bars of ``test_pf_step_matches_tpunav``. On the CPU the
+port's RBPF update runs kernels K2 and K3 as their plain versions.
+
+The nodes' updates are ``capture.Graph`` steps, whose bodies run on the
+CPU without capture: each node is also held bit for bit to its eager form
+(the odometry, the filter's function and the estimates, called one by one
+on the same inputs), the EKF node across a change of its messages' row
+count, and the RBPF node across a checkpoint loaded through its setter.
 """
 
 import dataclasses
@@ -38,9 +44,12 @@ from tpunav_torch.core import se2
 from tpunav_torch.estimation.ekf import EKFConfig
 from tpunav_torch.estimation.landmarks import LandmarkConfig
 from tpunav_torch.estimation.rbpf import PFConfig
+from tpunav_torch.estimation.rbpf import grid as tg
+from tpunav_torch.estimation.rbpf import icp as ticp
 from tpunav_torch.estimation.rbpf import particle_filter as tpf
 from tpunav_torch.runtime import nodes, slam_nodes
 from tpunav_torch.sim import landmark_measurements
+from tpunav_torch.sim import lidar as tlidar
 
 torch.set_num_threads(1)
 
@@ -154,8 +163,9 @@ def _jax_step(jcfg):
 
 def _rbpf_graph(twist, scan_hz, duration, monkeypatch):
     """tests/test_slam_nodes.py's RBPF graph with both nodes on it; the
-    port's update starts from ``tpunav``'s pre-update state with its
-    normals. Checked after every update."""
+    port's update starts from ``tpunav``'s pre-update state, loaded through
+    the node's setter, with its normals as the stepper's draw. Checked
+    after every update."""
     jcfg = JPFConfig(num_particles=4, k_samples=8,
                      motion_noise=(1e-6, 1e-5, 1e-5),
                      sample_range=(1e-6, 1e-5, 1e-5),
@@ -180,15 +190,9 @@ def _rbpf_graph(twist, scan_hz, duration, monkeypatch):
         pre.append(st)
         return step(st, ranges, u, cur, prev)
 
-    def our_step(cfg, st, ranges, u, cur, prev):
-        jst = pre[-1]
-        st = interop.pf_state_from_numpy(
-            {f: np.asarray(getattr(jst, f)) for f in _STATE}, **CPU)
-        return tpf.pf_slam_step(cfg, st, ranges, u, cur, prev,
-                                noise=_jax_noise(jcfg, jst.key))
-
     theirs._step = their_step
-    monkeypatch.setattr(slam_nodes, "pf_slam_step", our_step)
+    monkeypatch.setattr(tpf, "draw_noise",
+                        lambda cfg, st: _jax_noise(jcfg, pre[-1].key))
     edges = _label_edges(jcfg.grid)
     checked = [0]
 
@@ -201,6 +205,9 @@ def _rbpf_graph(twist, scan_hz, duration, monkeypatch):
 
     def compare(t):
         theirs.tick(t)
+        if outs[1][0].seq != checked[0]:
+            ours.pf = interop.pf_state_from_numpy(
+                {f: np.asarray(getattr(pre[-1], f)) for f in _STATE}, **CPU)
         ours.tick(t)
         if outs[1][0].seq == checked[0]:
             return
@@ -302,3 +309,203 @@ def test_landmarks_node_matches_tpunav():
         assert np.isfinite(got).all(-1).sum() >= 2
         np.testing.assert_array_equal(outs[0][1].latest()[2],
                                       outs[1][1].latest()[2])
+
+
+# ------------------------------------------- the graphs against eager ---
+
+def _drive_node(node, channels, cmd, ticks, sense_every, sense, start=0,
+                encoders=None):
+    """Fake encoders at 60 Hz on ``cmd`` into ``node`` over ticks ``start``
+    to ``ticks`` (``encoders`` carries on an earlier call's);
+    ``sense(k, drive)`` publishes a message every ``sense_every`` ticks.
+    Returns, per update the node published, the odometry it read, the
+    message and the published payloads of ``channels``; and the
+    encoders."""
+    cmd_vel = Channel()
+    if encoders is None:
+        encoders = nodes.FakeDiffEncodersNode(dd.TURTLEBOT3, cmd_vel,
+                                              node.joints, rate_hz=60.0,
+                                              **CPU)
+    cmd_vel = encoders.cmd_vel
+    out_seq, records = channels[0].seq, []
+    for k in range(start, ticks):
+        cmd_vel.publish(np.asarray(cmd))
+        encoders.tick(k / 60.0)
+        if k % sense_every == sense_every - 1:
+            msg = sense(k, encoders.state)
+        node.tick(k / 60.0)
+        if channels[0].seq != out_seq:
+            out_seq = channels[0].seq
+            records.append((node.drive, msg, [c.latest() for c in channels]))
+    return records, encoders
+
+
+def _ekf_eager(cfg, known, records, dtype):
+    """The eager EKF node: the filter-input odometry, the update and the
+    estimates, called one by one on the recorded inputs."""
+    from tpunav_torch.estimation.ekf import filter as tf
+
+    step = (tf.known_correspondence_slam if known else tf.slam_unknown_da)
+    st = tf.ekf_init(cfg, dtype=dtype, **CPU)
+    ekf_drive = dd.init_state(dtype=dtype, **CPU)
+    out = []
+    for drive, meas, _ in records:
+        ekf_drive, wheel_vel = dd.update_odometry(
+            dd.TURTLEBOT3, ekf_drive, drive.left, drive.right)
+        u = dd.wheels_to_twist(dd.TURTLEBOT3, wheel_vel)[:2]
+        st = step(cfg, st, torch.as_tensor(meas, dtype=dtype), u)
+        pose = tf.robot_pose(st)
+        centers, active = tf.landmark_map(cfg, st)
+        out.append((pose, slam_nodes.map_to_odom(pose, dd.pose(drive)),
+                    centers, active))
+    return st, out
+
+
+def _ekf_node_against_eager(known, rows):
+    """An EkfSlamNode (float32, the default SPD repair) whose k-th message
+    has ``rows(k)`` rows, against its eager form bit for bit: every
+    published pose, map→odom and landmark map, and the final state."""
+    cfg = EKFConfig(num_landmarks=8)
+    ch = [Channel() for _ in range(4)]
+    lm = Channel()
+    node = slam_nodes.EkfSlamNode(cfg, dd.TURTLEBOT3, Channel(), lm, ch[0],
+                                  Channel(), map_odom=ch[1],
+                                  landmark_est=ch[2], known_da=known, **CPU)
+    sent = [0]
+
+    def sense(k, drive):
+        m = landmark_measurements(LANDMARKS.float(), dd.pose(drive),
+                                  2.0).numpy()
+        n = rows(sent[0])
+        sent[0] += 1
+        m = np.concatenate([m, np.full((max(n - len(m), 0), 2), np.nan,
+                                       np.float32)])[:n]
+        lm.publish(m)
+        return m
+
+    records, _ = _drive_node(node, ch[:3], [0.3, 0.08, 0.0], 150, 6, sense)
+    assert len(records) == 25
+    st, want = _ekf_eager(cfg, known, records, torch.float32)
+    for (_, _, (pose, m2o, (centers, active))), (p, o, c, a) in zip(records,
+                                                                    want):
+        assert pose.dtype == np.float32
+        np.testing.assert_array_equal(pose, p.numpy())
+        np.testing.assert_array_equal(m2o, o.numpy())
+        np.testing.assert_array_equal(centers, c.numpy())
+        np.testing.assert_array_equal(active, a.numpy())
+    for name, x, y in zip(st._fields, node.ekf, st):
+        assert torch.equal(x, y), name
+    assert int(node.ekf.count) >= 3
+    return node
+
+
+@pytest.mark.parametrize("known_da", [True, False])
+def test_ekf_slam_node_graph_equals_eager(known_da):
+    """25 updates of 6 rows through the node's graph step: its eager form's
+    bits."""
+    node = _ekf_node_against_eager(known_da, lambda k: 6)
+    assert node._stepper.inputs[0].shape == (6, 2)
+
+
+@pytest.mark.parametrize("known_da", [True, False])
+def test_ekf_slam_node_rebuilds_on_a_new_row_count(known_da):
+    """Messages of 6, then 8 (two NaN rows), then 5 rows: the node rebuilds
+    its stepper from the current state at each new count and keeps its
+    eager form's bits."""
+    node = _ekf_node_against_eager(
+        known_da, lambda k: 6 if k < 8 else 8 if k < 16 else 5)
+    assert node._stepper.inputs[0].shape == (5, 2)
+
+
+def _rbpf_node(seed=3):
+    """The port's RBPF node on GRID's small map (P=4, k=8), float32."""
+    cfg = PFConfig(num_particles=4, k_samples=8,
+                   motion_noise=(1e-6, 1e-5, 1e-5),
+                   sample_range=(1e-6, 1e-5, 1e-5),
+                   grid=tg.GridConfig(**GRID), icp=ticp.ICPConfig(max_iter=8))
+    ch = [Channel() for _ in range(3)]
+    scan = Channel()
+    node = slam_nodes.RbpfMappingNode(cfg, dd.TURTLEBOT3, Channel(), scan,
+                                      ch[0], ch[1], map_odom=ch[2],
+                                      seed=seed, **CPU)
+    segs = tlidar.box_segments(-1.2, -1.2, 1.2, 1.2, **CPU)
+
+    def sense(k, drive):
+        ranges = tlidar.scan_segments(
+            dd.pose(drive), segs, num_beams=60,
+            beam_delta=GRID["beam_delta"], max_range=3.0,
+            generator=torch.Generator().manual_seed(k),
+            noise_std=0.005).numpy()
+        scan.publish(ranges)
+        return ranges
+
+    return cfg, node, ch, sense
+
+
+def _rbpf_eager(cfg, records, seed=3):
+    """The eager RBPF node: the filter-input odometry, ``pf_slam_step``
+    with its generator's draws, and the estimates, one by one."""
+    st = tpf.pf_init(cfg, seed=seed, **CPU)
+    pf_drive = dd.init_state(**CPU)
+    prev, out = torch.zeros(3), []
+    for drive, ranges, _ in records:
+        pf_drive, wheel_vel = dd.update_odometry(dd.TURTLEBOT3, pf_drive,
+                                                 drive.left, drive.right)
+        u = dd.wheels_to_twist(dd.TURTLEBOT3, wheel_vel)[:2]
+        cur = dd.pose(drive)
+        st = tpf.pf_slam_step(cfg, st, torch.as_tensor(ranges), u, cur, prev)
+        prev = cur
+        pose, grid = tpf.best_particle(st)
+        out.append((pose, tg.occupancy_grid(cfg.grid, grid),
+                    slam_nodes.map_to_odom(pose, cur)))
+    return st, out
+
+
+def _assert_pf_equal(got, want):
+    for name, x, y in zip(tpf.PFState._fields[:-1], got[:-1], want[:-1]):
+        assert torch.equal(x, y), name
+    assert torch.equal(got.generator.get_state(), want.generator.get_state())
+
+
+def test_rbpf_mapping_node_graph_equals_eager():
+    """8 updates through the node's graph step (its normals drawn from the
+    filter's generator before each replay): its eager form's published
+    pose, grid and map→odom, and its state with the generator's, bit for
+    bit."""
+    cfg, node, ch, sense = _rbpf_node()
+    records, _ = _drive_node(node, ch, [0.2, 0.06, 0.0], 100, 12, sense)
+    assert len(records) == 8
+    st, want = _rbpf_eager(cfg, records)
+    for (_, _, (pose, grid, m2o)), (p, g, o) in zip(records, want):
+        np.testing.assert_array_equal(pose, p.numpy())
+        assert grid.dtype == np.int8
+        np.testing.assert_array_equal(grid, g.numpy())
+        np.testing.assert_array_equal(m2o, o.numpy())
+    _assert_pf_equal(node.pf, st)
+
+
+def test_rbpf_mapping_node_resumes_a_checkpoint_through_its_setter(tmp_path):
+    """The node's state saved after 4 updates, then another state and the
+    checkpoint assigned to ``node.pf`` in turn: the buffers the graph
+    replays are loaded in place (never rebound), and 4 more updates give
+    the uninterrupted 8's state."""
+    from tpunav_torch.runtime import load_pytree, save_pytree
+
+    cfg, node, ch, sense = _rbpf_node()
+    whole, _ = _drive_node(node, ch, [0.2, 0.06, 0.0], 100, 12, sense)
+    want = node.pf
+    cfg, node, ch, sense = _rbpf_node()
+    first, encoders = _drive_node(node, ch, [0.2, 0.06, 0.0], 50, 12, sense)
+    assert len(first) == 4
+    path = str(tmp_path / "pf.npz")
+    save_pytree(path, node.pf)
+    buffers = [t.data_ptr() for t in node.pf[:-1]]
+    gen = node.pf.generator
+    node.pf = tpf.pf_init(cfg, seed=99, **CPU)
+    node.pf = load_pytree(path, tpf.pf_init(cfg, seed=123, **CPU))
+    assert [t.data_ptr() for t in node.pf[:-1]] == buffers
+    assert node.pf.generator is gen
+    rest, _ = _drive_node(node, ch, [0.2, 0.06, 0.0], 100, 12, sense,
+                          start=50, encoders=encoders)
+    assert len(first) + len(rest) == len(whole)
+    _assert_pf_equal(node.pf, want)

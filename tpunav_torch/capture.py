@@ -25,6 +25,9 @@ CUDA graph that each later step replays with one launch.
 - Launch counters: the kernel wrappers count launches in Python, so a
   replay would not move them. Capture records each counter's change during
   the capture, takes it back (nothing ran), and adds it on every replay.
+- A graph reads its static tensors where they lay at capture: a state that
+  a graph replays is loaded into them in place (:func:`load`), never
+  rebound.
 """
 
 from __future__ import annotations
@@ -76,6 +79,20 @@ def counted(fn: Callable[[], None]) -> Dict[str, int]:
     deltas = {key: after[key] - before[key] for key in before}
     add_counts(deltas, -1)
     return deltas
+
+
+def load(buffers, values) -> None:
+    """Copy ``values`` into ``buffers`` in place, field by field (two tuples
+    of one layout, such as a step's state and the state a step computed).
+    A ``torch.Generator`` field takes the other's state, unless it is that
+    generator: so a body may load the state it computed, which carries the
+    generator it shares."""
+    for buf, val in zip(buffers, values, strict=True):
+        if isinstance(buf, torch.Generator):
+            if buf is not val:
+                buf.set_state(val.get_state())
+        else:
+            buf.copy_(val)
 
 
 def state_device(t: torch.Tensor, device=DEFAULT_DEVICE) -> torch.device:

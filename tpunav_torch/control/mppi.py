@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import capture
 from ..device import DEFAULT_DEVICE, constant, resolve
 from ..models.cart import CartParams, kinematic_cart
 from ..ops.rk4 import rk4_solve
@@ -143,28 +144,54 @@ def mppi_solve(cfg: MPPIConfig, model: CartParams, u, generator, pose_xyt,
 
 
 class MPPIController:
-    """Host-side wrapper holding (u, generator) state around the solve."""
+    """Host-side wrapper holding (u, generator) state around the solve.
+
+    The counterpart of ``tpunav``'s jitted, donated solve: the controls,
+    the pose and the waypoint live in static tensors on ``device`` (default
+    the CUDA card), and a solve is one ``capture.Graph`` step of
+    :func:`mppi_solve` on them. Its perturbations are drawn eagerly before
+    each replay with :func:`sample_perturbations`' calls (the eager
+    solve's bits) into a static (K, N, 2) tensor, or taken from
+    ``noise=``. ``u`` and ``xd`` are the static tensors; the setters
+    write them in place."""
 
     def __init__(self, cfg: MPPIConfig, model: CartParams, seed: int = 0,
                  dtype=torch.float32, device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.model = model
-        self.u = init_controls(cfg, dtype=dtype, device=device)
-        self.generator = torch.Generator(device=self.u.device)
+        u = self.u = init_controls(cfg, dtype=dtype, device=device)
+        self.generator = torch.Generator(device=u.device)
         self.generator.manual_seed(seed)
-        self.xd = torch.zeros(3, dtype=dtype, device=self.u.device)
+        like = dict(dtype=dtype, device=u.device)
+        xd = self.xd = torch.zeros(3, **like)
+        pose = self._pose = torch.zeros(3, **like)
+        noise = self._noise = torch.zeros((cfg.rollouts, cfg.steps, 2),
+                                          **like)
+        cmd = self._cmd = torch.zeros(2, **like)
+
+        def body():
+            c, u_next = mppi_solve(cfg, model, u, None, pose, xd,
+                                   noise=noise)
+            cmd.copy_(c)
+            u.copy_(u_next)
+
+        self._graph = capture.Graph(body, u.device)
 
     def set_waypoint(self, xd):
-        self.xd = torch.as_tensor(xd, dtype=self.u.dtype, device=self.u.device)
+        self.xd.copy_(torch.as_tensor(xd, dtype=self.xd.dtype),
+                      non_blocking=True)
 
     def set_initial_controls(self, ul: float, ur: float):
-        self.u = torch.tensor([ul, ur], dtype=self.u.dtype,
-                              device=self.u.device).expand_as(self.u).clone()
+        self.u.copy_(torch.tensor([ul, ur], dtype=self.u.dtype).expand_as(
+            self.u), non_blocking=True)
 
-    def new_controls(self, pose_xyt):
-        """Solve and advance internal state; returns wheel velocities (2,)."""
-        pose = torch.as_tensor(pose_xyt, dtype=self.u.dtype,
-                               device=self.u.device)
-        cmd, self.u = mppi_solve(self.cfg, self.model, self.u,
-                                 self.generator, pose, self.xd)
-        return cmd
+    def new_controls(self, pose_xyt, noise: Optional[torch.Tensor] = None):
+        """Solve and advance internal state; returns wheel velocities (2,).
+        ``noise`` ((K, N, 2) perturbations) replaces the draw."""
+        self._pose.copy_(torch.as_tensor(pose_xyt, dtype=self._pose.dtype),
+                         non_blocking=True)
+        self._noise.copy_(sample_perturbations(
+            self.cfg, self.generator, dtype=self.u.dtype,
+            device=self.u.device) if noise is None else noise)
+        self._graph()
+        return self._cmd.clone()

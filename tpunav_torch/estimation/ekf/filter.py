@@ -598,7 +598,11 @@ class EKFStepper:
     returns them, so the state a step returned is consumed by the next, as
     ``tpunav``'s callers donate theirs. Every configuration is taken, the
     SPD repair (once per update, or per row with ``spd_repair_per_meas``)
-    included: its eigensolver is a kernel gated by a device flag."""
+    included: its eigensolver is a kernel gated by a device flag.
+
+    ``inputs`` (the measurements and the twist) and ``update`` (the step's
+    body on them) let a caller run the update inside a graph of its own,
+    as the EKF node does."""
 
     def __init__(self, cfg: EKFConfig, st: EKFState, n_meas: int,
                  known_da: bool = True, device=DEFAULT_DEVICE):
@@ -608,23 +612,21 @@ class EKFStepper:
         # dropped is freed at once, not by the cyclic collector.
         state = self.state = EKFState(*(t.clone() for t in st))
         like = dict(dtype=st.state.dtype, device=dev)
-        meas = self._meas = torch.zeros((n_meas, 2), **like)
-        u = self._u = torch.zeros(2, **like)
-        update = (known_correspondence_slam_masked if known_da
-                  else slam_unknown_da_masked)
+        inputs = self.inputs = (torch.zeros((n_meas, 2), **like),
+                                torch.zeros(2, **like))
+        step = (known_correspondence_slam_masked if known_da
+                else slam_unknown_da_masked)
 
-        def body():
-            new = update(cfg, state, meas, u)
-            for buf, val in zip(state, new):
-                buf.copy_(val)
+        def update():
+            capture.load(state, step(cfg, state, *inputs))
 
-        self.graph = capture.Graph(body, dev)
+        self.update = update
+        self.graph = capture.Graph(update, dev)
 
     def step(self, meas_xy, u) -> EKFState:
         """One update from (n_meas, 2) robot-frame measurements (NaN rows
         skipped) and the (2,) twist [w, vx]; returns the state in place."""
-        self._meas.copy_(meas_xy)
-        self._u.copy_(u)
+        capture.load(self.inputs, (meas_xy, u))
         self.graph()
         return self.state
 

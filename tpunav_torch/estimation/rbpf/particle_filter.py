@@ -370,7 +370,11 @@ class PFStepper:
     theirs. Each step draws its normals eagerly from the generator (the
     calls of :func:`draw_noise`, so the eager step's bits), or takes
     ``noise``, and copies them and the scan's inputs into static tensors
-    before the replay."""
+    before the replay.
+
+    ``inputs`` (the scan, the twist and the two odometry poses), ``noise``
+    and ``update`` (the step's body on those tensors) let a caller run the
+    update inside a graph of its own, as the RBPF node does."""
 
     def __init__(self, cfg: PFConfig, st: PFState, device=DEFAULT_DEVICE):
         dev = capture.state_device(st.poses, device)
@@ -381,32 +385,35 @@ class PFStepper:
                                      generator=st.generator)
         like = dict(dtype=st.poses.dtype, device=dev)
         p, k = cfg.num_particles, cfg.k_samples
-        inputs = self._inputs = (
+        inputs = self.inputs = (
             torch.zeros(cfg.grid.num_beams, **like), torch.zeros(2, **like),
             torch.zeros(3, **like), torch.zeros(3, **like))
-        noise = self._noise = PFNoise(
+        noise = self.noise = PFNoise(
             samples=torch.zeros((p, k, 3), **like),
             pose=torch.zeros((p, 3), **like),
             motion=torch.zeros((p, 3), **like),
             resample=torch.zeros((), **like))
 
-        def body():
-            new = pf_slam_step(cfg, state, *inputs, noise=noise)
-            for buf, val in zip(state[:-1], new[:-1]):
-                buf.copy_(val)
+        def update():
+            capture.load(state, pf_slam_step(cfg, state, *inputs,
+                                             noise=noise))
 
-        self.graph = capture.Graph(body, dev)
+        self.update = update
+        self.graph = capture.Graph(update, dev)
+
+    def draw(self, noise: Optional[PFNoise] = None) -> None:
+        """Copy the next update's normals into the static tensors: ``noise``,
+        or those :func:`draw_noise` draws from the generator."""
+        capture.load(self.noise, draw_noise(self.cfg, self.state)
+                     if noise is None else noise)
 
     def step(self, ranges, u, cur_odom, prev_odom,
              noise: Optional[PFNoise] = None) -> PFState:
         """One update from the (B,) scan, the (2,) twist and the (3,)
         odometry poses, as :func:`pf_slam_step` takes them; returns the
         state in place."""
-        if noise is None:
-            noise = draw_noise(self.cfg, self.state)
-        for buf, val in zip((*self._inputs, *self._noise),
-                            (ranges, u, cur_odom, prev_odom, *noise)):
-            buf.copy_(val)
+        self.draw(noise)
+        capture.load(self.inputs, (ranges, u, cur_odom, prev_odom))
         self.graph()
         return self.state
 

@@ -30,9 +30,17 @@ def to_device(values, dtype, device) -> torch.Tensor:
         device, non_blocking=True)
 
 
+def to_static(buf: torch.Tensor, values) -> None:
+    """A message's numbers into a graph's static tensor ``buf`` in one
+    copy, which does not wait for the device's queue."""
+    buf.copy_(torch.tensor(np.asarray(values), dtype=buf.dtype),
+              non_blocking=True)
+
+
 def host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as numpy, the payload type of every channel."""
-    return t.detach().cpu().numpy()
+    """A tensor as numpy, the payload type of every channel: a copy, also
+    of a CPU tensor, so a payload never aliases a graph's static output."""
+    return t.detach().to("cpu", copy=True).numpy()
 
 
 class OdometerNode:

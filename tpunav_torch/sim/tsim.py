@@ -14,11 +14,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import capture
 from ..core import diff_drive as dd
 from ..core import waypoints as wp
 from ..device import DEFAULT_DEVICE
 from ..runtime.channels import Channel
 from ..runtime.metrics import Metrics, PoseError
+from ..runtime.nodes import host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +132,10 @@ class TurtleWay:
     ``Waypoints`` bang-bang law computed on an internal ``DiffDrive``
     model, and publishes PoseError = |model − plant| each tick — the
     reference's model-vs-turtlesim drift experiment. The model and the
-    law's state live on ``device`` (default the CUDA card)."""
+    law's state live in static tensors on ``device`` (default the CUDA
+    card); a tick is one ``capture.Graph`` step (``tpunav``'s jitted
+    ``_tick``) that writes [cmd, model pose, cycle complete] to one buffer,
+    which comes back in one host copy."""
 
     def __init__(self, waypoints, rot_vel: float, trans_vel: float,
                  frequency: float, pose_in: Channel, cmd_vel: Channel,
@@ -139,23 +144,39 @@ class TurtleWay:
         self.pose_in = pose_in
         self.cmd_vel = cmd_vel
         self.scale = 1.0 / frequency
-        self.params = wp.make_params(np.asarray(waypoints, np.float32),
-                                     rot_vel, trans_vel, device=device)
-        self.wstate = wp.init_state(device=device)
-        self.model = dd.init_state(
-            0.0, float(waypoints[0][0]), float(waypoints[0][1]),
+        params = self.params = wp.make_params(
+            np.asarray(waypoints, np.float32), rot_vel, trans_vel,
             device=device)
+        # One tensor per field (init_state shares one zero among the
+        # encoders): the graph writes each in place.
+        wstate = self.wstate = wp.WaypointState(
+            *(t.clone() for t in wp.init_state(device=device)))
+        model = self.model = dd.DiffDriveState(*(t.clone() for t in
+                                                 dd.init_state(
+            0.0, float(waypoints[0][0]), float(waypoints[0][1]),
+            device=device)))
+        out = self._out = torch.zeros(7, device=model.pose.device)
+        scale = self.scale
+        self._done = False
+
+        def body():
+            cmd, ws = wp.next_waypoint(params, wstate, dd.pose(model))
+            nxt = dd.feedforward(dd.TURTLEBOT3, model, cmd * scale)
+            capture.load(wstate, ws)
+            capture.load(model, nxt)
+            torch.cat([cmd, dd.pose(nxt), ws.cycle_complete.reshape(1).to(
+                out.dtype)], out=out)
+
+        self._graph = capture.Graph(body, device)
 
     def tick(self, t: float) -> None:
-        pose = dd.pose(self.model)
-        cmd, self.wstate = wp.next_waypoint(self.params, self.wstate, pose)
-        self.model = dd.feedforward(dd.TURTLEBOT3, self.model,
-                                    cmd * self.scale)
-        out = torch.cat([cmd, dd.pose(self.model)]).cpu().numpy()
+        self._graph()
+        out = host(self._out)
+        self._done = bool(out[6])
         self.cmd_vel.publish(np.asarray(out[:3], float))
         plant_pose = self.pose_in.latest()
         if plant_pose is not None:
-            err = PoseError.between(np.asarray(out[3:], float),
+            err = PoseError.between(np.asarray(out[3:6], float),
                                     np.asarray(plant_pose))
             self.metrics.record("x_error", abs(err.x_error))
             self.metrics.record("y_error", abs(err.y_error))
@@ -163,4 +184,5 @@ class TurtleWay:
 
     @property
     def done(self) -> bool:
-        return bool(self.wstate.cycle_complete)
+        """The pentagon cycle is complete, as of the last tick's copy."""
+        return self._done
