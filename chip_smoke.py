@@ -61,11 +61,15 @@ card, then drives the port's paths:
   ``dense_world`` phases and the landmarks node replay graphs too, held
   ticks skip K1's work, and the launch counters count a graph's launches
   on every replay;
-- the closed-loop demos (``examples_torch/``, the :class:`Demos` phases):
-  the RBPF exploration under K1 at config 5 with its checkpoint and
-  resume (``explore``), the full stack — RBPF map → D* Lite → K1, all four
-  kernels in one loop (``full_stack``), the lidar EKF courses
-  (``lidar_ekf``) and the exploration loop's per-scan budget
+- the closed-loop demos (``examples_torch/``, the :class:`Demos` phases),
+  each loop one CUDA-graph replay per scan or step, held first to its
+  eager form bit for bit over a prefix: the RBPF exploration under K1 at
+  config 5 with its checkpoint and resume loaded into the graph
+  (``explore``), the full stack — RBPF map → D* Lite on the host → K1,
+  all four kernels in one loop (``full_stack``), the RBPF course
+  (``rbpf_demo_course``), the lidar EKF courses (``lidar_ekf``) and the EKF
+  demo's arc (``ekf_demo``), each EKF graph against the masked update run
+  eagerly; and the eager exploration loop's per-scan budget
   (``rbpf_stages``);
 
 and times every kernel beside its plain version. Each phase prints one
@@ -2890,12 +2894,20 @@ class Sharded:
                   "no rate here is a scaling number")
 
 
+# Steps of the EKF demos' courses held bit for bit against the masked
+# update run eagerly, and against the dynamic form at the float32 bars.
+DEMO_EKF_PREFIX = 100
+
+
 class Demos:
-    """The closed-loop demos (``examples_torch/``) on the card: the RBPF
-    exploration under K1 with its checkpoint and resume (BASELINE config
-    5), the full stack (RBPF map → D* Lite → K1: all four kernels in one
-    loop), the lidar EKF courses, and the exploration loop's per-scan
-    budget. Each phase's launches are counted from 0 over its run."""
+    """The closed-loop demos (``examples_torch/``) on the card, each loop
+    one CUDA-graph replay per scan or step (the demos' defaults), each held
+    first to its eager form over a prefix: the RBPF exploration under K1
+    with its checkpoint and resume (BASELINE config 5), the full stack
+    (RBPF map → D* Lite → K1: all four kernels in one loop), the RBPF
+    course, the lidar EKF courses and the EKF demo's arc, and the
+    exploration loop's per-scan budget (eager). Each phase's launches are
+    counted from 0 over its run; a replay adds its graph's launches."""
 
     def __init__(self, smoke: Smoke):
         self.s, self.dev, self.card = smoke, smoke.dev, smoke.card
@@ -2911,20 +2923,51 @@ class Demos:
         self.launches[name] = read_counts()
         return out
 
+    @staticmethod
+    def window(step, per_scan: int = 1) -> dict:
+        """A replayed window of a warmed, captured ``step``: µs per step by
+        the host's clock over 10, :func:`graph_window` over 5 (device µs,
+        operations, host API calls and ``cudaGraphLaunch`` per step, idle
+        share) and the host syncs per step over 5."""
+        step_us = wall_us(step, 10, warmup=2)
+        return {"us_per_step": step_us,
+                "graph": graph_window(step, 5, per_scan, step_us),
+                "host_syncs_per_step": syncs_per_call(step, 5)}
+
     def explore(self):
         """examples_torch.rbpf_explore_demo.run_experiment at P=500,
         K=2,048, 80×80, 360 beams, six K1 solves per scan, 20 scans per
-        chunk: a warm-up chunk, a timed one, the checkpoint, the chunk after
-        it from memory and from disk, four timed chunks. Gates: SLAM |xy| <
-        0.25 m (the demo's) and below odometry's; per scan 6 K1, 1 K2 and 1
-        K3 launches, one K4 per pf_init; the resumed chunk's digests
-        (poses, log-weights, grids, u) equal the in-memory chunk's."""
+        chunk, through ``ScanGraph`` (one replay per scan): a warm-up
+        chunk, a timed one, the checkpoint, the chunk after it from memory
+        and from disk (loaded into the graph's buffers), four timed chunks.
+        First the eager interval's first chunk: its digests (poses,
+        log-weights, grids, u) and its 20 samples must equal the graph's
+        bit for bit. Gates: SLAM |xy| < 0.25 m (the demo's) and below
+        odometry's; per scan 6 K1, 1 K2 and 1 K3 launches, one K4 per
+        pf_init; the resumed chunk's digests equal the in-memory chunk's.
+        Then a replayed window of a second runner."""
         from examples_torch import rbpf_explore_demo as ex
 
         t0 = time.perf_counter()
+        pf_cfg, mppi_cfg, eager = ex.build(device=self.dev, eager=True)
+        series = []
+        t_eager = time.perf_counter()
+        first = eager(ex.init_state(pf_cfg, mppi_cfg, device=self.dev),
+                      series)
+        torch.cuda.synchronize()
+        eager_ms = 1e3 * (time.perf_counter() - t_eager) / len(series)
+        want_digests = ex.digests(first)
+        want_series = torch.stack(series).cpu().numpy()
+
         r = self.counted("explore", lambda: ex.run_experiment(
             device=self.dev))
         counts = self.launches["explore"]
+        same = {"digests": r["first_chunk_digests"] == want_digests,
+                "series": bool(np.array_equal(r["series"][:len(series)],
+                                              want_series))}
+        if not all(same.values()):
+            raise AssertionError(f"explore: the graph left the eager "
+                                 f"interval's first chunk: {same}")
         slam_xy = float(np.hypot(*r["slam_err"][1:]))
         odo_xy = float(np.hypot(*r["odom_err"][1:]))
         if not (slam_xy < 0.25 and slam_xy < odo_xy):
@@ -2939,29 +2982,51 @@ class Demos:
         if not r["resume_bit_equal"]:
             raise AssertionError(f"explore: the resumed chunk left the "
                                  f"saved one: {r['resume_digests']}")
+        runner = ex.ScanGraph(pf_cfg, mppi_cfg, ex.init_state(
+            pf_cfg, mppi_cfg, device=self.dev), self.dev)
+        window = self.window(runner.step)
         emit("explore", seconds=time.perf_counter() - t0, P=r["num_particles"],
              K=r["mppi_rollouts"], N=50, solves_per_scan=ex.TICKS_PER_SCAN,
              scans=r["n_scans"], scans_run=scans,
+             graph_equals_eager_first_chunk=same,
+             eager_ms_per_scan_first_chunk=eager_ms,
              slam_err_theta_x_y=r["slam_err"].tolist(), slam_xy_error_m=slam_xy,
              odometry_err_theta_x_y=r["odom_err"].tolist(),
              odometry_xy_error_m=odo_xy, occupied_cells=r["occupied_cells"],
              updates_per_s_best=r["updates_per_sec"],
              updates_per_s_median=r["updates_per_sec_median"],
+             ms_per_scan_best=1e3 / r["updates_per_sec"],
              solves_per_s_best=ex.TICKS_PER_SCAN * r["updates_per_sec"],
              chunk_seconds=r["chunk_seconds"],
              checkpoint_mb=r["checkpoint_mb"], resume_bit_equal=True,
              resume_digest=r["resume_digests"]["resumed"]["grids"][:16],
-             kernel_launches=counts, card=self.card)
+             kernel_launches=counts, replayed_window=window, card=self.card)
 
     def full_stack(self):
         """examples_torch.full_stack_demo.run(seed=5) at P=500, K1 at
-        K=2,048, 12 solves per scan. Gates: the goal reached, final error
-        < 0.3 m (the demo's); per scan 12 K1, 1 K2 and 1 K3 launches, one
-        K4 in pf_init; finite outputs. Reports ms per scan by stage and
-        the host syncs per scan (torch's sync debug mode over the run)."""
+        K=2,048, 12 solves per scan, one ``ScanGraph`` replay and one host
+        copy per scan. First 30 scans eagerly and through the graph: every
+        pose of both trails, every D* target and the final grid's digest
+        must be equal. Gates: the goal reached, final error < 0.3 m (the
+        demo's); per scan 12 K1, 1 K2 and 1 K3 launches, one K4 in
+        pf_init; finite outputs. Reports ms per scan (the replay on the
+        device's clock, D* on the host's, the whole scan), D*'s share, the
+        host syncs per scan over the run, and a replayed window of the
+        scan's device part (target in, replay, copy out)."""
         from examples_torch import full_stack_demo as fs
 
         t0 = time.perf_counter()
+        prefix = [fs.run(seed=5, max_scans=30, verbose=False,
+                         device=self.dev, eager=eager)
+                  for eager in (True, False)]
+        same = {key: bool(np.array_equal(prefix[0][key], prefix[1][key]))
+                for key in ("trail_true", "trail_slam", "targets")}
+        same["grid_digest"] = (hashlib.sha256(prefix[0]["grid"].tobytes())
+                               .hexdigest() == hashlib.sha256(
+                                   prefix[1]["grid"].tobytes()).hexdigest())
+        if not all(same.values()) or prefix[1]["updates"] != 30:
+            raise AssertionError(f"full stack: the graph left the eager "
+                                 f"loop in the first 30 scans: {same}")
         box = []
         syncs = self.counted("full_stack", lambda: syncs_per_call(
             lambda: box.append(fs.run(seed=5, verbose=False,
@@ -2981,50 +3046,218 @@ class Demos:
         if counts != want:
             raise AssertionError(f"full stack: launches {counts}, expected "
                                  f"{want} for {n} scan updates")
+        stages = fs.Stages(device=self.dev)
+        pose0 = torch.tensor([0.8, *fs.START_XY]).to(self.dev)
+        runner = fs.ScanGraph(
+            stages, fs.pf_init(stages.pf_cfg, pose=pose0, seed=5,
+                               device=self.dev), pose0,
+            fs.init_controls(stages.mppi_cfg, device=self.dev), self.dev)
+        window = self.window(lambda: runner.scan(fs.GOAL_XY))
+        ms = out["ms_per_scan"]
         emit("full_stack", seconds=time.perf_counter() - t0, P=500,
              K=out["rollouts"], N=50, solves_per_scan=12, seed=5,
+             graph_equals_eager_30_scans=same,
+             eager_ms_per_scan_30_scans=prefix[0]["ms_per_scan"],
              reached=True, scans=out["scans"], updates=n,
              wall_s=out["wall_s"], final_goal_error_m=out["final_goal_err_m"],
              slam_vs_true_m=out["slam_vs_true_m"],
-             ms_per_scan=out["ms_per_scan"], host_syncs=syncs,
-             host_syncs_per_scan=syncs / n, kernel_launches=counts,
+             ms_per_scan=ms, dstar_share=ms["dstar_host"] / ms["whole"],
+             host_syncs=syncs, host_syncs_per_scan=syncs / n,
+             kernel_launches=counts, replayed_window=window,
              card=self.card)
 
+    def rbpf_course(self):
+        """examples_torch.rbpf_slam_demo's course (P=40, 80×80 at 0.05 m,
+        360 beams, filter seed 2): its 120 updates eagerly and through
+        ``PFStepper`` (one replay each), the final state and generator bit
+        for bit. Gates: the best particle within 0.2 m of the truth (the
+        demo's); one K3 per update and K2's launches per update (two on its
+        two-pass path, which P=40 takes below the card's SM count), one K4
+        in pf_init. Then a replayed window of the stepper. Phase
+        ``rbpf_demo_course`` (``rbpf_course`` is config 5's)."""
+        from examples_torch import rbpf_slam_demo as rs
+        from tpunav_torch.estimation.rbpf import particle_filter as pf
+
+        t0 = time.perf_counter()
+        cfg = rs.config()
+        inputs = rs.course_inputs(cfg.grid, device=self.dev)
+        n = len(inputs[1])
+        walls = {}
+        states = {}
+        for name, eager in (("eager", True), ("graph", False)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            states[name] = self.counted(f"rbpf_demo_{name}", lambda: (
+                rs.course(cfg, inputs, device=self.dev, eager=eager)))
+            walls[name] = time.perf_counter() - t1
+        st = states["graph"]
+        same = same_bits(st, states["eager"], pf.PFState._fields[:-1])
+        same["generator"] = bool(torch.equal(
+            st.generator.get_state(), states["eager"].generator.get_state()))
+        counts = self.launches.pop("rbpf_demo_graph")
+        self.launches["rbpf_demo_course"] = counts
+        self.launches.pop("rbpf_demo_eager")
+        e = (pf.best_particle(st)[0] - inputs[2][-1]).cpu()
+        err = float(torch.hypot(e[1], e[2]))
+        from tpunav_torch.ops import likelihood
+
+        g = cfg.grid                    # K2 in two launches below the SMs
+        path, per_update, _ = likelihood._plan(
+            cfg.num_particles, cfg.k_samples + 1, g.height, g.width,
+            g.num_beams, torch.cuda.get_device_properties(
+                self.dev).multi_processor_count, smem_limit())
+        want = {"K1": 0, "K1_obstacle": 0, "K2": per_update * n, "K3": n,
+                "K4": 1, "EIG": 0}
+        if not all(same.values()) or counts != want or not err < 0.2:
+            raise AssertionError(f"RBPF course: graph vs eager {same}, "
+                                 f"launches {counts} (want {want}), pose "
+                                 f"error {err} m")
+        stepper = pf.PFStepper(cfg, pf.pf_init(cfg, seed=2,
+                                               device=self.dev), self.dev)
+        k = [0]
+
+        def update():
+            i = k[0] % n
+            stepper.step(inputs[1][i], inputs[0], inputs[2][i],
+                         inputs[3][i])
+            k[0] += 1
+
+        emit("rbpf_demo_course", seconds=time.perf_counter() - t0, P=40,
+             updates=n, k2_path=path, bit_identical=same,
+             pose_error_m=err,
+             eager_ms_per_update=1e3 * walls["eager"] / n,
+             graph_ms_per_update_with_capture=1e3 * walls["graph"] / n,
+             kernel_launches=counts, replayed_window=self.window(update),
+             card=self.card)
+
+    def ekf_demo_case(self, tag, step, cfg, known, steps, make, graph,
+                      least):
+        """One EKF demo course: ``make(step_fn, steps, eager)`` → a course
+        ``seed → (true_pose, odom, state, ...)``. The graph over
+        DEMO_EKF_PREFIX steps against the masked update run eagerly (bit
+        for bit, a gate) and the dynamic form (pose 1e-5, landmarks 1e-4,
+        the same count: a gate); then the whole course through the graph
+        (the gates: SLAM |xy| below odometry's, ``least`` landmarks), timed
+        again from seed 1 without its capture, and a replayed window of
+        ``graph``'s step. The eager prefixes' ms per step are reported."""
+        from tpunav_torch.estimation.ekf import filter as ekff
+
+        masked = (ekff.known_correspondence_slam_masked if known
+                  else ekff.slam_unknown_da_masked)
+        got = make(step, DEMO_EKF_PREFIX, False)(0)
+        eager_ms = {}
+
+        def eager(fn, name):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = make(fn, DEMO_EKF_PREFIX, True)(0)
+            torch.cuda.synchronize()
+            eager_ms[name] = (1e3 * (time.perf_counter() - t1)
+                              / DEMO_EKF_PREFIX)
+            return out
+
+        ref, dyn = eager(masked, "masked"), eager(step, "dynamic")
+        flat = lambda r: [*r[:2], *r[2], *r[3:]]  # noqa: E731
+        bits = all(torch.equal(a, b) for a, b in zip(flat(got), flat(ref)))
+        active = dyn[2].active.cpu()
+        near = {"pose": float((got[0] - dyn[0]).abs().max()),
+                "filter_pose": float((got[2].state[:3]
+                                      - dyn[2].state[:3]).abs().max()),
+                "landmarks": float((got[2].state[3:].view(-1, 2)
+                                    - dyn[2].state[3:].view(-1, 2)
+                                    ).abs().cpu()[active].max()),
+                "count": [int(got[2].count), int(dyn[2].count)],
+                "same_bits": all(torch.equal(a, b) for a, b in
+                                 zip(flat(got), flat(dyn)))}
+        near_ok = (near["pose"] <= 1e-5 and near["filter_pose"] <= 1e-5
+                   and near["landmarks"] <= 1e-4
+                   and near["count"][0] == near["count"][1]
+                   and torch.equal(got[2].active, dyn[2].active))
+        course = make(step, steps, False)
+        out = self.counted(tag, lambda: course(0))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        course(1)
+        torch.cuda.synchronize()
+        steady_ms = 1e3 * (time.perf_counter() - t1) / steps
+        true_pose, odom, st = out[:3]
+        slam_xy = float(torch.hypot(*(st.state[1:3] - true_pose[1:])))
+        odo_xy = float(torch.hypot(*(odom[1:3] - true_pose[1:])))
+        n_lm = int(st.count)
+        if not (bits and near_ok and slam_xy < odo_xy and n_lm >= least):
+            raise AssertionError(
+                f"{tag}: graph vs eager masked bits {bits}, vs dynamic "
+                f"{near}; SLAM |xy| {slam_xy} m, odometry {odo_xy} m, "
+                f"{n_lm} landmarks (need {least})")
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(2)
+        return {"graph_equals_eager_masked": bits,
+                "prefix_steps": DEMO_EKF_PREFIX, "vs_dynamic": near,
+                "slam_err_theta_x_y": (st.state[:3] - true_pose).tolist(),
+                "slam_xy_error_m": slam_xy, "odometry_xy_error_m": odo_xy,
+                "landmarks_tracked": n_lm, "slots": cfg.num_landmarks,
+                "steps": steps, "graph_ms_per_step": steady_ms,
+                "eager_ms_per_step": eager_ms,
+                "steps_per_s": 1e3 / steady_ms,
+                "kernel_launches": self.launches[tag],
+                "replayed_window": self.window(lambda: graph.step(gen))}
+
     def lidar_ekf(self, steps=400):
-        """examples_torch.lidar_ekf_slam_demo.run, known and unknown DA,
-        400 steps, seed 0. Gates: SLAM |xy| below odometry's in both; 12 of
-        12 landmarks for known DA, at least 10 for unknown DA (tpunav
-        records 11.0 ± 0.0, RESULTS.md)."""
+        """examples_torch.lidar_ekf_slam_demo's courses, known and unknown
+        DA, 400 steps, seed 0, one ``StepGraph`` replay per step (the
+        detector's two eigensolver launches and the masked update over its
+        16 rows, the oracle's 12 for known DA) — each held first to the
+        eager masked and dynamic forms (``ekf_demo_case``). Gates: SLAM
+        |xy| below odometry's; 12 of 12 landmarks for known DA, at least
+        10 for unknown DA (tpunav records 11.0 ± 0.0, RESULTS.md); two
+        eigensolver launches per step."""
         from examples_torch import lidar_ekf_slam_demo as le
 
         t0 = time.perf_counter()
         rows = {}
         for tag, (step, known, cfg) in le.CONFIGS.items():
-            ekf_err, odo_err, n_lm, wall, _, _ = self.counted(
-                f"lidar_ekf_{tag}", lambda: le.run(step, cfg, known, steps,
-                                                   seed=0, device=self.dev))
-            slam_xy = float(np.hypot(*ekf_err[1:]))
-            odo_xy = float(np.hypot(*odo_err[1:]))
-            least = 12 if known else 10
-            if not (slam_xy < odo_xy and n_lm >= least):
-                raise AssertionError(f"lidar EKF ({tag} DA): SLAM |xy| "
-                                     f"{slam_xy} m, odometry {odo_xy} m, "
-                                     f"{n_lm} landmarks (need {least})")
-            rows[tag] = {"slam_err_theta_x_y": ekf_err.tolist(),
-                         "slam_xy_error_m": slam_xy,
-                         "odometry_xy_error_m": odo_xy,
-                         "landmarks_tracked": n_lm,
-                         "slots": cfg.num_landmarks, "steps": steps,
-                         "steps_per_s": steps / wall,
-                         "kernel_launches": self.launches[f"lidar_ekf_{tag}"]}
+            def make(fn, n, eager):
+                return le.make_sim(fn, cfg, known, n, self.dev, eager)
+
+            rows[tag] = self.ekf_demo_case(
+                f"lidar_ekf_{tag}", step, cfg, known, steps, make,
+                le.make_graph(step, cfg, known, self.dev), 12 if known else 10)
+            eig = rows[tag]["kernel_launches"]["EIG"]
+            if eig != 2 * steps:
+                raise AssertionError(f"lidar EKF ({tag} DA): {eig} "
+                                     f"eigensolver launches in {steps} steps")
         emit("lidar_ekf", seconds=time.perf_counter() - t0, card=self.card,
              **rows)
 
+    def ekf_demo(self, steps=400):
+        """examples_torch.ekf_slam_demo's arc, known DA (12 slots) and
+        unknown DA (capacity 20), 400 steps, seed 0, one ``StepGraph``
+        replay per step with the landmark sensor's 12 rows — each held
+        first to the eager masked and dynamic forms (``ekf_demo_case``).
+        Gates: SLAM |xy| below odometry's; 12 of 12 landmarks for known
+        DA, at least 10 for unknown DA."""
+        from examples_torch import ekf_slam_demo as ek
+
+        t0 = time.perf_counter()
+        rows = {}
+        for name, (step, cfg) in ek.CONFIGS.items():
+            known = name.startswith("known")
+            tag = "known" if known else "unknown"
+
+            def make(fn, n, eager):
+                return ek.make_course(fn, cfg, n, self.dev, eager)
+
+            rows[tag] = self.ekf_demo_case(
+                f"ekf_demo_{tag}", step, cfg, known, steps, make,
+                ek.make_graph(step, cfg, self.dev), 12 if known else 10)
+        emit("ekf_demo", seconds=time.perf_counter() - t0, card=self.card,
+             **rows)
+
     def rbpf_stages(self):
-        """examples_torch.profile_rbpf_stages: the exploration loop's ms
-        per scan by stage over 5 scans (the profiler's cost grows with the
-        scans it records), with launches and host syncs per scan, and the
-        stages of one config-5 update."""
+        """examples_torch.profile_rbpf_stages: the eager exploration loop's
+        ms per scan by stage over 5 scans (the profiler's cost grows with
+        the scans it records), with launches and host syncs per scan, and
+        the stages of one config-5 update."""
         from examples_torch import profile_rbpf_stages as prof
 
         t0 = time.perf_counter()
@@ -3124,7 +3357,15 @@ def graph_window(step, reps: int, per: int, step_us: float,
     share against the unprofiled ``step_us``, the top kernels, and each
     kernel's count beside its launch counter's change, which must agree.
     A window that disagrees is reported and profiled again, up to
-    ``attempts`` windows: a counter that is wrong disagrees every time."""
+    ``attempts`` windows. Late in a process the profiler loses kernel
+    records (on an H100, one K1 launch of a full-stack window in every
+    window of a run); it never records a launch that did not happen. A
+    counter moves by its step's launches at every step, so a counter at
+    fault is off by a multiple of ``reps``: after ``attempts`` windows that
+    disagree, the last is held if no family has more records than launches
+    and none is ``reps`` or more records short, and its device µs, idle
+    share and K1 µs per launch are null (not measured); otherwise it
+    raises."""
     misses = []
     for _ in range(attempts):
         kern, api, counts = trace_window(step, reps)
@@ -3137,10 +3378,12 @@ def graph_window(step, reps: int, per: int, step_us: float,
         misses.append({"counters": counted, "profiler": profiled,
                        "device_ops": sum(c for _, c in kern.values())})
     else:
-        raise AssertionError(f"launch counters against the profiler's "
-                             f"kernels in {attempts} windows: {misses}")
+        if not all(0 <= counted[k] - profiled[k] < reps for k in counted):
+            raise AssertionError(f"launch counters against the profiler's "
+                                 f"kernels in {attempts} windows: {misses}")
+    missed = [key for key in COUNTED if profiled[key] != counted[key]]
     n = reps * per
-    busy = sum(us for us, _ in kern.values()) / n
+    busy = None if missed else sum(us for us, _ in kern.values()) / n
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
     k1_us = sum(us for name, (us, _) in kern.items() if "mppi_" in name)
     return {"per_window": reps, "ticks_or_updates": n,
@@ -3150,10 +3393,13 @@ def graph_window(step, reps: int, per: int, step_us: float,
             "host_api_calls_by_name": {k: v / n for k, v in api.items()},
             "graph_launches": api.get("cudaGraphLaunch", 0) / n,
             "unprofiled_us": step_us / per,
-            "device_idle_share": 1 - busy * per / step_us,
+            "device_idle_share": (None if busy is None
+                                  else 1 - busy * per / step_us),
             "counters_equal_profiler": counted, "windows_that_disagreed": misses,
+            "profiler_missed": missed,
             "k1_device_us_per_launch": (k1_us / profiled["K1"]
-                                        if profiled["K1"] else None),
+                                        if profiled["K1"] and "K1" not in
+                                        missed else None),
             "top_device_us": {k[:60]: us / n for k, (us, _) in top}}
 
 
@@ -4078,7 +4324,9 @@ def main() -> int:
     demos = Demos(smoke)
     demos.explore()
     demos.full_stack()
+    demos.rbpf_course()
     demos.lidar_ekf()
+    demos.ekf_demo()
     demos.rbpf_stages()
     kernel_times(smoke, rbpf, obst)
     emit("run", seconds=time.perf_counter() - started, card=smoke.card)

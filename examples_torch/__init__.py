@@ -230,12 +230,16 @@ def spawn(targets, timeout: float, results=None, expect: int = 0):
     return out
 
 
-def launch(target, args=(), world: int = 2, device="cpu", backend=None,
+def launch(target, args=(), world: int = 2, device="cuda", backend=None,
            timeout: float = 600.0):
     """``target(mesh, device, *args)`` on ``world`` spawned ranks; returns
-    their results in rank order. ``backend`` as in
+    their results in rank order. ``device`` defaults to the card and
+    raises without CUDA before any rank is spawned. ``backend`` as in
     ``tpunav_torch.runtime.distributed.initialize`` (ranks that share one
     card pass ``"gloo"``). ``target`` and its results must pickle."""
+    from tpunav_torch.device import resolve
+
+    resolve(device)
     results = mp.get_context("spawn").Queue()
     address = f"127.0.0.1:{free_port()}"
     out = spawn([(rank_main, (target, args, r, world, address, device,

@@ -7,7 +7,11 @@ slam_node.cpp + analysis_node.cpp): a simulated robot drives an arc
 through the 12-cylinder block world; the filter receives biased odometry
 and the landmark sensor's measurements; the final pose error against
 ground truth stands beside dead-reckoned odometry's (the reference's
-README tables, nuslam/README.md:24-50).
+README tables, nuslam/README.md:24-50). Where ``tpunav`` jits the course
+as one ``lax.scan``, each step replays one CUDA graph
+(``lidar_ekf_slam_demo.StepGraph``) with the EKF's masked update;
+``make_course(..., eager=True)`` calls the dynamic update, operation by
+operation.
 
     python -m examples_torch.ekf_slam_demo [--device cpu]
 """
@@ -19,11 +23,12 @@ import time
 import torch
 
 from examples_torch import device_parser, synchronize
+from examples_torch.lidar_ekf_slam_demo import (StepGraph, course,
+                                                eager_course, known_da)
 from tpunav_torch.device import DEFAULT_DEVICE, resolve
 from tpunav_torch.estimation.ekf import (EKFConfig, ekf_init,
                                          known_correspondence_slam,
                                          robot_pose, slam_unknown_da)
-from tpunav_torch.estimation.ekf import filter as ekff
 from tpunav_torch.sim import landmark_measurements
 
 LANDMARKS = [
@@ -49,30 +54,64 @@ CONFIGS = {
 }
 
 
-def run(slam_step, cfg: EKFConfig, steps=400, seed=0, device=DEFAULT_DEVICE):
-    """The arc for ``steps`` steps in float32, the sensor's noise (1e-4 m)
-    from a generator seeded ``seed``; returns (ekf_err [θ, x, y], odo_err,
-    n_tracked, wall, steps), numpy."""
-    device = resolve(device)
-    f32 = dict(dtype=torch.float32, device=device)
+def _course_parts(device):
+    """(sense, u_true, u_odom): ``sense(true_pose, generator=None,
+    noise=None)`` → the landmark sensor's (12, 2) measurements (1e-4 m
+    noise, 1 m visibility), and the two twists."""
     landmarks = torch.tensor(LANDMARKS, dtype=torch.float32).to(device)
     u_true = torch.tensor([0.03, 0.015], dtype=torch.float32).to(device)
     u_odom = u_true + torch.tensor([0.001, 0.0005],
                                    dtype=torch.float32).to(device)
-    zero3 = torch.zeros(3, **f32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+
+    def sense(true_pose, generator=None, noise=None):
+        return landmark_measurements(landmarks, true_pose, 1.0,
+                                     generator=generator, noise_std=1e-4,
+                                     noise=noise)
+
+    return sense, u_true, u_odom
+
+
+def make_graph(slam_step, cfg: EKFConfig, device=DEFAULT_DEVICE):
+    """The arc's ``lidar_ekf_slam_demo.StepGraph``: the landmark sensor in
+    place of the scan and the detector, its 12 rows into ``slam_step``'s
+    masked form."""
+    device = resolve(device)
+    sense, u_true, u_odom = _course_parts(device)
+    return StepGraph(cfg, known_da(slam_step),
+                     lambda pose, z: sense(pose, noise=z),
+                     (len(LANDMARKS), 2), len(LANDMARKS),
+                     ekf_init(cfg, dtype=torch.float32, device=device),
+                     u_true, u_odom, device)
+
+
+def make_course(slam_step, cfg: EKFConfig, steps=400,
+                device=DEFAULT_DEVICE, eager=False):
+    """The arc ``course(seed) → (true_pose, odom, ekf_state)`` for
+    ``steps`` steps in float32 on ``device``, the sensor's noise (1e-4 m)
+    from a generator seeded ``seed``. Each step is one replay of
+    :func:`make_graph`'s graph; every call loads its start into that one
+    graph. With ``eager`` the step's operations run one by one,
+    ``slam_step`` itself (the dynamic form, or a masked one as the graph's
+    bits reference)."""
+    device = resolve(device)
+    if not eager:
+        graph = make_graph(slam_step, cfg, device)
+        return lambda seed: course(graph, cfg, seed, steps)[:3]
+    parts = _course_parts(device)
+    return lambda seed: eager_course(slam_step, cfg, *parts, seed,
+                                     steps)[:3]
+
+
+def run(slam_step, cfg: EKFConfig, steps=400, seed=0,
+        device=DEFAULT_DEVICE):
+    """The arc for ``steps`` steps (:func:`make_course`); returns (ekf_err
+    [θ, x, y], odo_err, n_tracked, wall, steps), numpy. ``wall`` includes
+    the graph's warm-up and capture."""
+    device = resolve(device)
+    course_fn = make_course(slam_step, cfg, steps, device)
     synchronize(device)
     t0 = time.perf_counter()
-    true_pose = torch.zeros(3, **f32)
-    st = ekf_init(cfg, dtype=torch.float32, device=device)
-    odom = st.state
-    for _ in range(steps):
-        true_pose = ekff.motion_update(cfg, true_pose, u_true, zero3)
-        odom = ekff.motion_update(cfg, odom, u_odom, zero3)
-        meas = landmark_measurements(landmarks, true_pose, 1.0,
-                                     generator=gen, noise_std=1e-4)
-        st = slam_step(cfg, st, meas, u_odom)
+    true_pose, odom, st = course_fn(seed)
     synchronize(device)
     wall = time.perf_counter() - t0
     return ((robot_pose(st) - true_pose).cpu().numpy(),

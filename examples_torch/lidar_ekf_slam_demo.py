@@ -15,10 +15,14 @@ gating on raw detections).
     python -m examples_torch.lidar_ekf_slam_demo [--device cpu]
 
 The seed enters only the scan noise; the filter is deterministic
-(``generator=None``). ``run_many`` loops over seeds where ``tpunav`` vmaps
-its course: each EKF update reads its count of valid measurements on the
-host, and the detector's ``eigh`` reads its error code, so the course is a
-host loop that ``torch.func.vmap`` cannot batch.
+(``generator=None``). Where ``tpunav`` jits the course as one ``lax.scan``,
+each step here replays one CUDA graph (:class:`StepGraph`,
+``tpunav_torch/capture.py``): the sensor, the detector (two eigensolver
+launches), the oracle and the EKF's masked update, whose fixed trip over
+the detector's rows makes no host read. ``run_many`` loops over seeds
+where ``tpunav`` vmaps its course, every seed through one graph. The
+eager form (``eager=True``) calls the dynamic update, which reads its
+count of valid rows on the host.
 """
 
 from __future__ import annotations
@@ -29,12 +33,14 @@ import numpy as np
 import torch
 
 from examples_torch import device_parser, draw, out_path, synchronize
+from tpunav_torch import capture
 from tpunav_torch.core.angles import normalize_angle_pi
 from tpunav_torch.device import DEFAULT_DEVICE, resolve
-from tpunav_torch.estimation.ekf import (EKFConfig, ekf_init,
+from tpunav_torch.estimation.ekf import (EKFConfig, EKFState, ekf_init,
                                          known_correspondence_slam,
                                          robot_pose, slam_unknown_da)
 from tpunav_torch.estimation.ekf import filter as ekff
+from tpunav_torch.estimation.ekf.filter import EKFStepper
 from tpunav_torch.estimation.landmarks import (LandmarkConfig,
                                                circles_to_measurements,
                                                feature_detection)
@@ -64,51 +70,184 @@ CONFIGS = {
 }
 
 
-def make_sim(slam_step, cfg: EKFConfig, known: bool, steps=400,
-             device=DEFAULT_DEVICE):
-    """The closed-loop course ``sim(seed, noise=None) → (true_pose, odom,
-    ekf_state, telemetry)`` on ``device``, in float32. Per step: truth and
-    biased odometry through ``motion_update``, a 360-beam scan (range
-    noise from a generator seeded ``seed``, or ``noise[i]``, the step's
-    (360,) standard normals), the detector, the known-DA oracle when
-    ``known``, and ``slam_step``. The telemetry (steps, 5) holds SLAM |xy|
-    and yaw error, odometry |xy| and yaw error, and the tracked count."""
-    device = resolve(device)
+# Each slam step's masked form: the DA that ``EKFStepper`` takes for it.
+_KNOWN_DA = {known_correspondence_slam: True, slam_unknown_da: False,
+             ekff.known_correspondence_slam_masked: True,
+             ekff.slam_unknown_da_masked: False}
+
+
+def known_da(slam_step) -> bool:
+    """Whether ``slam_step`` (dynamic or masked) associates by known
+    correspondence; raises for any other function."""
+    try:
+        return _KNOWN_DA[slam_step]
+    except KeyError:
+        raise ValueError(f"{slam_step!r} has no masked form for "
+                         f"EKFStepper") from None
+
+
+def telemetry(st: EKFState, true_pose, odom):
+    """A step's row: SLAM |xy| and yaw error, odometry |xy| and yaw error,
+    and the tracked count."""
+    e_s = robot_pose(st) - true_pose
+    e_o = odom[:3] - true_pose
+    return torch.stack([
+        torch.hypot(e_s[1], e_s[2]), normalize_angle_pi(e_s[0]),
+        torch.hypot(e_o[1], e_o[2]), normalize_angle_pi(e_o[0]),
+        st.count.to(torch.float32)])
+
+
+class StepGraph:
+    """One step of an EKF course as one ``capture.Graph`` step: the truth
+    and the biased odometry through ``motion_update``, ``sense(true_pose,
+    noise)`` → (n_meas, 2) robot-frame measurements (NaN rows skipped),
+    ``EKFStepper``'s masked update (``known``: known DA, else unknown) and
+    the :func:`telemetry` row into the static ``tel``, on ``device``
+    (default the card; raises without CUDA; ``st`` must lie there).
+
+    ``noise`` is the sensor's static normals of ``noise_shape``: each
+    :meth:`step` draws them eagerly from a generator (the eager sensor's
+    call) or takes them, then replays. :meth:`load` puts a course's start
+    into the buffers in place, so one graph serves every seed."""
+
+    def __init__(self, cfg: EKFConfig, known: bool, sense, noise_shape,
+                 n_meas: int, st: EKFState, u_true, u_odom,
+                 device=DEFAULT_DEVICE):
+        dev = capture.state_device(st.state, device)
+        f32 = dict(dtype=torch.float32, device=dev)
+        stepper = self.stepper = EKFStepper(cfg, st, n_meas, known, dev)
+        # The body holds the buffers, not self.
+        carry = self.carry = (torch.zeros(3, **f32), st.state.clone())
+        noise = self.noise = torch.zeros(noise_shape, **f32)
+        tel = self.tel = torch.zeros(5, **f32)
+        zero3 = torch.zeros(3, **f32)
+        state, update = stepper.state, stepper.update
+        meas_in, u_in = stepper.inputs
+        u_in.copy_(u_odom)
+
+        def body():
+            true_pose = ekff.motion_update(cfg, carry[0], u_true, zero3)
+            odom = ekff.motion_update(cfg, carry[1], u_odom, zero3)
+            meas_in.copy_(sense(true_pose, noise))
+            update()
+            tel.copy_(telemetry(state, true_pose, odom))
+            capture.load(carry, (true_pose, odom))
+
+        self.graph = capture.Graph(body, dev)
+
+    def load(self, true_pose, odom, st: EKFState) -> None:
+        capture.load(self.carry, (true_pose, odom))
+        capture.load(self.stepper.state, st)
+
+    def step(self, generator=None, noise=None) -> torch.Tensor:
+        """One step, the sensor's normals drawn from ``generator`` or
+        ``noise``; returns the static telemetry row."""
+        z = self.noise
+        z.copy_(torch.randn(z.shape, generator=generator, dtype=z.dtype,
+                            device=z.device) if noise is None else noise)
+        self.graph()
+        return self.tel
+
+
+def eager_course(slam_step, cfg: EKFConfig, sense, u_true, u_odom,
+                 seed: int, steps: int, noise=None):
+    """The eager form of :func:`course`: each step's operations one by one,
+    ``sense(true_pose, generator, noise)`` the sensor and ``slam_step``
+    itself the update (the dynamic form, or a masked one as the graph's
+    bits reference)."""
+    dev = u_true.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
+    true_pose = torch.zeros(3, dtype=torch.float32, device=dev)
+    st = ekf_init(cfg, dtype=torch.float32, device=dev)
+    odom = st.state
+    tel = []
+    for i in range(steps):
+        true_pose = ekff.motion_update(cfg, true_pose, u_true, zero3)
+        odom = ekff.motion_update(cfg, odom, u_odom, zero3)
+        meas = sense(true_pose, gen, None if noise is None else noise[i])
+        st = slam_step(cfg, st, meas, u_odom)
+        tel.append(telemetry(st, true_pose, odom))
+    return true_pose, odom, st, torch.stack(tel)
+
+
+def course(graph: StepGraph, cfg: EKFConfig, seed: int, steps: int,
+           noise=None):
+    """``steps`` steps of ``graph`` from the course's start, the sensor's
+    normals from a generator seeded ``seed`` (or ``noise[i]``); returns
+    copies of (true_pose, odom, ekf_state, telemetry (steps, 5))."""
+    dev = graph.tel.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    st = ekf_init(cfg, dtype=torch.float32, device=dev)
+    graph.load(torch.zeros(3, dtype=torch.float32, device=dev), st.state,
+               st)
+    tel = [graph.step(gen, None if noise is None else noise[i]).clone()
+           for i in range(steps)]
+    true_pose, odom = (t.clone() for t in graph.carry)
+    return (true_pose, odom, EKFState(*(t.clone() for t in
+                                        graph.stepper.state)),
+            torch.stack(tel))
+
+
+def _course_parts(known: bool, device):
+    """(scan, u_true, u_odom): ``scan(true_pose, generator=None,
+    noise=None)`` → the detector's (16, 2) measurements of a 360-beam scan
+    (the oracle's (12, 2) when ``known``), and the two twists."""
     f32 = dict(dtype=torch.float32, device=device)
     lm_cfg = LandmarkConfig(max_clusters=16)
     landmarks = torch.tensor(LANDMARKS, dtype=torch.float32).to(device)
     radii = torch.full((len(LANDMARKS),), CYL_RADIUS, **f32)
     u_true = torch.tensor(U_TRUE, dtype=torch.float32).to(device)
     u_odom = u_true + torch.tensor(BIAS, dtype=torch.float32).to(device)
-    zero3 = torch.zeros(3, **f32)
 
-    def sim(seed: int, noise=None):
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed))
-        true_pose = torch.zeros(3, **f32)
-        st = ekf_init(cfg, dtype=torch.float32, device=device)
-        odom = st.state
-        tel = []
-        for i in range(steps):
-            true_pose = ekff.motion_update(cfg, true_pose, u_true, zero3)
-            odom = ekff.motion_update(cfg, odom, u_odom, zero3)
-            ranges = scan_cylinders(true_pose, landmarks, radii,
-                                    generator=gen, noise_std=SCAN_NOISE,
-                                    noise=None if noise is None
-                                    else noise[i])
-            meas = circles_to_measurements(feature_detection(lm_cfg, ranges))
-            if known:
-                meas = associate_known(meas, landmarks, true_pose)
-            st = slam_step(cfg, st, meas, u_odom)
-            e_s = robot_pose(st) - true_pose
-            e_o = odom[:3] - true_pose
-            tel.append(torch.stack([
-                torch.hypot(e_s[1], e_s[2]), normalize_angle_pi(e_s[0]),
-                torch.hypot(e_o[1], e_o[2]), normalize_angle_pi(e_o[0]),
-                st.count.to(torch.float32)]))
-        return true_pose, odom, st, torch.stack(tel)
+    def scan(true_pose, generator=None, noise=None):
+        ranges = scan_cylinders(true_pose, landmarks, radii,
+                                generator=generator, noise_std=SCAN_NOISE,
+                                noise=noise)
+        meas = circles_to_measurements(feature_detection(lm_cfg, ranges))
+        return associate_known(meas, landmarks, true_pose) if known else meas
 
-    return sim
+    return scan, u_true, u_odom
+
+
+def make_graph(slam_step, cfg: EKFConfig, known: bool,
+               device=DEFAULT_DEVICE) -> StepGraph:
+    """The course's :class:`StepGraph`: the scan, the detector, the oracle
+    when ``known``, and ``slam_step``'s masked form over the detector's 16
+    rows (the oracle's 12)."""
+    device = resolve(device)
+    scan, u_true, u_odom = _course_parts(known, device)
+    rows = len(LANDMARKS) if known else 16
+    return StepGraph(cfg, known_da(slam_step),
+                     lambda pose, z: scan(pose, noise=z), (360,), rows,
+                     ekf_init(cfg, dtype=torch.float32, device=device),
+                     u_true, u_odom, device)
+
+
+def make_sim(slam_step, cfg: EKFConfig, known: bool, steps=400,
+             device=DEFAULT_DEVICE, eager=False):
+    """The closed-loop course ``sim(seed, noise=None) → (true_pose, odom,
+    ekf_state, telemetry)`` on ``device``, in float32. Per step: truth and
+    biased odometry through ``motion_update``, a 360-beam scan (range
+    noise from a generator seeded ``seed``, or ``noise[i]``, the step's
+    (360,) standard normals), the detector, the known-DA oracle when
+    ``known``, and ``slam_step``. The telemetry (steps, 5) holds SLAM |xy|
+    and yaw error, odometry |xy| and yaw error, and the tracked count.
+
+    Each step is one replay of :func:`make_graph`'s graph; every call of
+    ``sim`` loads its start into that one graph. With ``eager`` the step's
+    operations run one by one, ``slam_step`` itself (the dynamic form, or
+    a masked one as the graph's bits reference)."""
+    device = resolve(device)
+    if not eager:
+        graph = make_graph(slam_step, cfg, known, device)
+        return lambda seed, noise=None: course(graph, cfg, seed, steps,
+                                               noise)
+    parts = _course_parts(known, device)
+    return lambda seed, noise=None: eager_course(slam_step, cfg, *parts,
+                                                 seed, steps, noise)
 
 
 def _wrapped(e):
@@ -120,7 +259,8 @@ def _wrapped(e):
 def run(slam_step, cfg: EKFConfig, known: bool, steps=400, seed=0,
         device=DEFAULT_DEVICE):
     """One seed; returns (ekf_err [θ, x, y], odo_err, n_tracked, wall,
-    steps, telemetry (steps, 5)), numpy."""
+    steps, telemetry (steps, 5)), numpy. ``wall`` includes the graph's
+    warm-up and capture."""
     device = resolve(device)
     sim = make_sim(slam_step, cfg, known, steps, device)
     synchronize(device)
@@ -135,8 +275,9 @@ def run(slam_step, cfg: EKFConfig, known: bool, steps=400, seed=0,
 
 def run_many(slam_step, cfg: EKFConfig, known: bool, seeds, steps=400,
              device=DEFAULT_DEVICE):
-    """The course once per seed; returns per-seed (ekf_err (S, 3) [θ, x,
-    y], odo_err (S, 3), counts (S,)) and the wall seconds of the sweep."""
+    """The course once per seed, every seed through one graph; returns
+    per-seed (ekf_err (S, 3) [θ, x, y], odo_err (S, 3), counts (S,)) and
+    the wall seconds of the sweep."""
     device = resolve(device)
     sim = make_sim(slam_step, cfg, known, steps, device)
     errs, odos, counts = [], [], []

@@ -37,6 +37,8 @@ import time
 import numpy as np
 import torch
 
+from tpunav_torch.device import DEFAULT_DEVICE
+
 ROLLOUTS = 4096
 SOLVES = 20
 SEED = 7
@@ -86,11 +88,12 @@ def run_course(mesh, device, rollouts: int = ROLLOUTS, solves: int = SOLVES,
             "k1_obstacle_launches": fused_mppi.OBSTACLE_LAUNCHES - obstacle}
 
 
-def launcher(device: str = "cpu", backend=None, noise: str = "kernel",
+def launcher(device=DEFAULT_DEVICE, backend=None, noise: str = "kernel",
              rollouts: int = ROLLOUTS, solves: int = SOLVES,
              timeout: float = 600.0):
-    """Two spawned ranks run :func:`run_course`; raises unless they hold
-    the same bits. Returns both ranks' results."""
+    """Two spawned ranks run :func:`run_course` on ``device`` (default the
+    card; raises without CUDA before they are spawned); raises unless they
+    hold the same bits. Returns both ranks' results."""
     from examples_torch import launch
 
     a, b = launch(run_course, (rollouts, solves, noise), world=2,

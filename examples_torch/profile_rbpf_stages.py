@@ -7,9 +7,10 @@ times each stage of ``pf_slam_step`` at BASELINE config 5 (P=500, k=50,
 K2), the pose likelihood, the Gaussian fit and draw, the map update
 (kernel K3), the resample gather and the whole step.
 :func:`profile_closed_loop` splits ``examples_torch.rbpf_explore_demo``'s
-scan interval into the control chunk (6 K1 solves), the lidar raycast and
-the SLAM update, from CUDA-event marks placed between them inside the
-chained loop itself, so the stages run on the loop's inputs and add up to
+eager scan interval (``build(..., eager=True)``; the demo itself replays
+the interval as one CUDA graph, which marks cannot split) into the
+control chunk (6 K1 solves), the lidar raycast and the SLAM update, from
+CUDA-event marks placed between them inside the chained loop itself, so the stages run on the loop's inputs and add up to
 the whole interval; :func:`stage_times` times each stage alone with CUDA
 events over repeated calls (ms per call). The interval also gives its
 kernel launches (``torch.profiler``) and host syncs (torch's sync debug
@@ -117,7 +118,7 @@ def profile_closed_loop(num_particles=500, reps=10, rollouts=2048,
 
     device = resolve(device)
     pf_cfg, mppi_cfg, run_chunk = ex.build(num_particles, reps, rollouts,
-                                           device)
+                                           device, eager=True)
     st = run_chunk(ex.init_state(pf_cfg, mppi_cfg, device=device))
     marks = Marks(device)
     st = run_chunk(st, marks=marks)

@@ -17,9 +17,19 @@ memory.
 
     python -m examples_torch.rbpf_explore_demo [--device cpu]
 
-No step reads the device on the host: the K1 seeds are a device zero plus
-a host int, the waypoint index advances through ``torch.where``, and the
-per-scan observability sample stays on the device until the run ends.
+Where ``tpunav`` jits the scan interval, :class:`ScanGraph` replays it as
+one CUDA graph (``tpunav_torch/capture.py``): the six ticks, the raycast,
+``PFStepper``'s update and the five-metric sample, on static tensors. The
+lidar's normals and the filter's are drawn eagerly before each replay,
+with the eager step's calls, so a replay gives the eager interval's bits;
+K1's seeds come from a scan counter on the device. ``build`` runs the
+graph unless asked for the eager interval (``eager=True``), which is the
+bits reference of the tests and ``chip_smoke.py``. On the CPU the graph's
+body runs without capture on the same buffers.
+
+No step reads the device on the host: the waypoint index advances through
+``torch.where``, and the per-scan observability sample stays on the
+device until the run ends.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 
 from examples_torch import device_parser, draw, out_path, synchronize
+from tpunav_torch import capture
 from tpunav_torch.control.mppi import MPPIConfig, init_controls
 from tpunav_torch.control.waypoint_loop import _active_waypoint
 from tpunav_torch.core.angles import normalize_angle_pi
@@ -42,6 +53,7 @@ from tpunav_torch.device import DEFAULT_DEVICE, resolve
 from tpunav_torch.estimation.rbpf import (GridConfig, PFConfig, PFState,
                                           best_particle, pf_init, pf_slam_step)
 from tpunav_torch.estimation.rbpf.icp import ICPConfig
+from tpunav_torch.estimation.rbpf.particle_filter import PFStepper
 from tpunav_torch.models.cart import CartParams, kinematic_cart
 from tpunav_torch.ops.fused_mppi import mppi_solve_fused
 from tpunav_torch.ops.rk4 import rk4_step
@@ -152,36 +164,173 @@ def init_state(pf_cfg: PFConfig, mppi_cfg: MPPIConfig, seed=FILTER_SEED,
         scan_gen=gen)
 
 
+class _World(NamedTuple):
+    """The course's constants on the device: the box's walls, the
+    waypoints, the odometry's wheel bias and K1's seed base."""
+
+    segs: torch.Tensor
+    waypoints: torch.Tensor
+    wheel_bias: torch.Tensor
+    seed0: torch.Tensor
+
+
+def _world(device) -> _World:
+    return _World(box_segments(-1.8, -1.8, 1.8, 1.8, device=device),
+                  torch.tensor(WAYPOINTS, dtype=torch.float32).to(device),
+                  torch.tensor(WHEEL_BIAS, dtype=torch.float32).to(device),
+                  torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _control(mppi_cfg, world: _World, true_pose, odom_pose, u, wheel_vel,
+             wpt_idx, tick, noise=None):
+    """A scan interval's TICKS_PER_SCAN control ticks; K1's seed is
+    tick · TICKS_PER_SCAN + t (``tick`` a host int or a device int32), or
+    ``noise[t]`` its (N, K, 2) perturbations."""
+    for t in range(TICKS_PER_SCAN):
+        true_pose, odom_pose, u, wheel_vel, wpt_idx = control_tick(
+            mppi_cfg, world.waypoints, world.wheel_bias, true_pose,
+            odom_pose, u, wheel_vel, wpt_idx,
+            world.seed0 + (tick * TICKS_PER_SCAN + t),
+            None if noise is None else noise[t])
+    return true_pose, odom_pose, u, wheel_vel, wpt_idx
+
+
+def _sense(grid: GridConfig, world: _World, true_pose, generator=None,
+           noise=None):
+    """The 360-beam scan of the box, 2 mm range noise from ``generator``
+    or the (B,) normals ``noise``."""
+    return scan_segments(true_pose, world.segs, num_beams=grid.num_beams,
+                         max_range=grid.range_max, generator=generator,
+                         noise_std=0.002, noise=noise)
+
+
+def _clone_generator(gen: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+class ScanGraph:
+    """The scan interval as one ``capture.Graph`` step: the six control
+    ticks, the raycast, ``PFStepper``'s update (K2 and K3) and the
+    five-metric sample, on static tensors on ``device`` (default the card;
+    raises without CUDA; ``st`` must lie there).
+
+    ``st`` is copied into the buffers, its generators into generators of
+    the runner's own. Each :meth:`step` draws the lidar's (B,) normals and
+    the filter's from them eagerly (the eager interval's calls), replays,
+    and advances the scan counter on the device that keys K1's seeds, so
+    it gives the eager interval's bits with no host read. :meth:`load`
+    copies a state (a checkpoint's, another seed's) into the buffers in
+    place, generators included; :meth:`snapshot` copies them out.
+    ``injected``: K1 takes its perturbations from a static (6, N, K, 2)
+    tensor that each step fills (``noise=``), in place of its in-kernel
+    draw, as the tests feed ``tpunav``'s."""
+
+    def __init__(self, pf_cfg: PFConfig, mppi_cfg: MPPIConfig,
+                 st: ExploreState, device=DEFAULT_DEVICE, injected=False):
+        dev = capture.state_device(st.true_pose, device)
+        grid = pf_cfg.grid
+        world = _world(dev)
+        stepper = self.stepper = PFStepper(
+            pf_cfg, st.pf._replace(generator=_clone_generator(
+                st.pf.generator)), dev)
+        # The body holds the buffers, not self: a graph whose runner is
+        # dropped is freed at once, not by the cyclic collector.
+        carry = self.carry = tuple(t.clone() for t in (
+            st.true_pose, st.odom_pose, st.u, st.wheel_vel, st.wpt_idx))
+        tick = self.tick_dev = torch.full((), st.tick, dtype=torch.int32,
+                                          device=dev)
+        self.tick = st.tick
+        self.scan_gen = _clone_generator(st.scan_gen)
+        noise = self.scan_noise = torch.zeros(grid.num_beams, device=dev)
+        k1_noise = self.k1_noise = (torch.zeros(
+            (TICKS_PER_SCAN, mppi_cfg.steps, mppi_cfg.rollouts, 2),
+            device=dev) if injected else None)
+        sample = self.sample = torch.zeros(5, device=dev)
+        state, update = stepper.state, stepper.update
+        scan_in, u_in, cur_in, prev_in = stepper.inputs
+
+        def body():
+            prev_odom = carry[1]
+            nxt = _control(mppi_cfg, world, *carry, tick, k1_noise)
+            true_pose, odom_pose = nxt[:2]
+            scan_in.copy_(_sense(grid, world, true_pose, noise=noise))
+            u_in.copy_(body_twist(odom_pose, prev_odom))
+            cur_in.copy_(odom_pose)
+            prev_in.copy_(prev_odom)
+            update()
+            sample.copy_(_metrics(state, true_pose, odom_pose))
+            capture.load(carry, nxt)
+            tick.add_(1)
+
+        self.graph = capture.Graph(body, dev)
+
+    def step(self, noise=None) -> torch.Tensor:
+        """One scan interval; returns the static (5,) sample. ``noise``:
+        (K1's (6, N, K, 2) perturbations, the scan's (B,) normals, the
+        filter's ``PFNoise``) in place of the draws (``injected`` only)."""
+        if noise is None:
+            z = self.scan_noise
+            z.copy_(torch.randn(z.shape, generator=self.scan_gen,
+                                dtype=z.dtype, device=z.device))
+            self.stepper.draw()
+        else:
+            if self.k1_noise is None:
+                raise ValueError("K1's perturbations need injected=True")
+            capture.load((self.k1_noise, self.scan_noise), noise[:2])
+            self.stepper.draw(noise[2])
+        self.graph()
+        self.tick += 1
+        return self.sample
+
+    def load(self, st: ExploreState) -> None:
+        """``st`` into the buffers and generators, in place."""
+        capture.load(self.stepper.state, st.pf)
+        capture.load(self.carry, (st.true_pose, st.odom_pose, st.u,
+                                  st.wheel_vel, st.wpt_idx))
+        self.tick_dev.fill_(st.tick)
+        self.tick = st.tick
+        capture.load((self.scan_gen,), (st.scan_gen,))
+
+    def snapshot(self) -> ExploreState:
+        """The state in the buffers, copied out with generators of its
+        own."""
+        pf = self.stepper.state
+        return ExploreState(
+            PFState(*(t.clone() for t in pf[:-1]),
+                    generator=_clone_generator(pf.generator)),
+            *(t.clone() for t in self.carry), self.tick,
+            _clone_generator(self.scan_gen))
+
+
 def build(num_particles=500, scans_per_chunk=20, rollouts=2048,
-          device=DEFAULT_DEVICE):
+          device=DEFAULT_DEVICE, eager=False):
     """Returns (pf_cfg, mppi_cfg, run_chunk). ``run_chunk(st, series=None,
     marks=None)`` runs ``scans_per_chunk`` scan intervals from ``st`` and
-    returns the state after them; each scan appends its five-metric sample
-    (SLAM |xy| and yaw error, odometry |xy| and yaw error, N_eff), a device
-    tensor, to ``series`` where given. ``marks`` (an
-    ``examples_torch.Marks``): one mark at the chunk's start, then three
-    per scan, after the control ticks, the lidar raycast and the SLAM
-    update, so consecutive marks split the chained run into its stages."""
+    returns the state after them, leaving ``st`` as it was; each scan
+    appends its five-metric sample (SLAM |xy| and yaw error, odometry |xy|
+    and yaw error, N_eff), a device tensor, to ``series`` where given.
+
+    By default ``run_chunk`` loads ``st`` into one :class:`ScanGraph`
+    (built at the first call) and replays it per scan. With ``eager`` it
+    runs the interval's operations one by one, and ``marks`` (an
+    ``examples_torch.Marks``) takes one mark at the chunk's start, then
+    three per scan, after the control ticks, the lidar raycast and the
+    SLAM update, so consecutive marks split the chained run into its
+    stages; the graph takes one mark per scan."""
     device = resolve(device)
     pf_cfg, mppi_cfg = configs(num_particles, rollouts)
     grid = pf_cfg.grid
-    segs = box_segments(-1.8, -1.8, 1.8, 1.8, device=device)
-    waypoints = torch.tensor(WAYPOINTS, dtype=torch.float32).to(device)
-    wheel_bias = torch.tensor(WHEEL_BIAS, dtype=torch.float32).to(device)
-    seed0 = torch.zeros((), dtype=torch.int32, device=device)
+    world = _world(device)
 
     def scan_interval(st: ExploreState, series, mark):
         prev_odom = st.odom_pose
-        true_pose, odom_pose, u, wheel_vel, wpt_idx = (
-            st.true_pose, st.odom_pose, st.u, st.wheel_vel, st.wpt_idx)
-        for t in range(TICKS_PER_SCAN):
-            true_pose, odom_pose, u, wheel_vel, wpt_idx = control_tick(
-                mppi_cfg, waypoints, wheel_bias, true_pose, odom_pose, u,
-                wheel_vel, wpt_idx, seed0 + (st.tick * TICKS_PER_SCAN + t))
+        true_pose, odom_pose, u, wheel_vel, wpt_idx = _control(
+            mppi_cfg, world, st.true_pose, st.odom_pose, st.u, st.wheel_vel,
+            st.wpt_idx, st.tick)
         mark()
-        scan = scan_segments(true_pose, segs, num_beams=grid.num_beams,
-                             max_range=grid.range_max, generator=st.scan_gen,
-                             noise_std=0.002)
+        scan = _sense(grid, world, true_pose, generator=st.scan_gen)
         mark()
         pf = pf_slam_step(pf_cfg, st.pf, scan,
                           body_twist(odom_pose, prev_odom), odom_pose,
@@ -192,14 +341,30 @@ def build(num_particles=500, scans_per_chunk=20, rollouts=2048,
         return ExploreState(pf, true_pose, odom_pose, u, wheel_vel, wpt_idx,
                             st.tick + 1, st.scan_gen)
 
-    def run_chunk(st: ExploreState, series=None, marks=None) -> ExploreState:
+    def run_eager(st: ExploreState, series=None, marks=None) -> ExploreState:
         mark = marks.mark if marks is not None else (lambda: None)
         mark()
         for _ in range(scans_per_chunk):
             st = scan_interval(st, series, mark)
         return st
 
-    return pf_cfg, mppi_cfg, run_chunk
+    runner = []
+
+    def run_graph(st: ExploreState, series=None, marks=None) -> ExploreState:
+        if not runner:
+            runner.append(ScanGraph(pf_cfg, mppi_cfg, st, device))
+        graph = runner[0]
+        graph.load(st)
+        mark = marks.mark if marks is not None else (lambda: None)
+        mark()
+        for _ in range(scans_per_chunk):
+            sample = graph.step()
+            if series is not None:
+                series.append(sample.clone())
+            mark()
+        return graph.snapshot()
+
+    return pf_cfg, mppi_cfg, run_eager if eager else run_graph
 
 
 def _metrics(pf: PFState, true_pose, odom_pose):
@@ -245,12 +410,14 @@ def run_experiment(num_particles=500, scans_per_chunk=20, rollouts=2048,
     final SLAM and odometry errors [θ, x, y], the update rate (best and
     median chunk), the scan count, and the checkpoint's resume proof.
 
-    A warm-up chunk on a throwaway state, a timed chunk, a checkpoint of
-    the whole state to disk and back; then the same chunk from the state
-    in memory and from the restored state (their digests must be equal:
-    ``resume_bit_equal``), and ``timed_chunks`` timed chunks from the
-    restored run. Rates are chunk wall times ended by a synchronize; the
-    first timed chunk and the later ones give best and median."""
+    A warm-up chunk on a throwaway state (on the card: the graph's warm-up
+    and capture), a timed chunk (its digests: ``first_chunk_digests``), a
+    checkpoint of the whole state to disk and back; then the same chunk
+    from the state in memory and from the restored state (their digests
+    must be equal: ``resume_bit_equal``), and ``timed_chunks`` timed
+    chunks from the restored run. Rates are chunk wall times ended by a
+    synchronize; the first timed chunk and the later ones give best and
+    median."""
     device = resolve(device)
     pf_cfg, mppi_cfg, run_chunk = build(num_particles, scans_per_chunk,
                                         rollouts, device)
@@ -262,6 +429,7 @@ def run_experiment(num_particles=500, scans_per_chunk=20, rollouts=2048,
     st = run_chunk(init_state(pf_cfg, mppi_cfg, device=device), series)
     synchronize(device)
     times = [time.perf_counter() - t0]
+    first = digests(st)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "rbpf_explore_ckpt.npz")
@@ -300,6 +468,7 @@ def run_experiment(num_particles=500, scans_per_chunk=20, rollouts=2048,
         # the filters initialised: what the kernels' counts must match.
         "scans_run": n_scans + 2 * scans_per_chunk, "pf_inits": 2,
         "checkpoint_mb": ckpt_mb,
+        "first_chunk_digests": first,
         "resume_digests": {"in_memory": in_memory, "resumed": resumed},
         "resume_bit_equal": in_memory == resumed,
         "series": torch.stack(series).cpu().numpy(),
@@ -312,7 +481,8 @@ def seed_sweep(seeds=tuple(range(20)), num_particles=500, chunks=2,
     stream, re-run with a fresh filter generator seeded each seed; returns
     (slam_err (S, 3) [θ, x, y], odom_err (S, 3)). The stochastic element is
     the filter itself (proposal draws and resampling) — what a point
-    estimate hides."""
+    estimate hides. One graph serves every seed: each seed's start is
+    loaded into its buffers."""
     device = resolve(device)
     pf_cfg, mppi_cfg, run_chunk = build(num_particles, scans_per_chunk,
                                         rollouts, device)

@@ -6,7 +6,9 @@ turtle_mapping_node.cpp): the robot drives an arc inside a walled box;
 every particle carries its own occupancy grid (kernels K2–K4 on the card);
 ICP scan matching proposes poses; the final pose error against ground
 truth and the map are reported (the reference's README experiment,
-bmapping/README.md:33-47).
+bmapping/README.md:33-47). Each update replays ``PFStepper``'s CUDA
+graph; ``course(..., eager=True)`` dispatches ``pf_slam_step``'s
+operations one by one, the bits reference.
 
     python -m examples_torch.rbpf_slam_demo [--device cpu]
 """
@@ -24,6 +26,7 @@ from tpunav_torch.estimation.rbpf import (GridConfig, PFConfig, best_particle,
                                           pf_init, pf_slam_step)
 from tpunav_torch.estimation.rbpf.grid import occupancy_grid
 from tpunav_torch.estimation.rbpf.icp import ICPConfig
+from tpunav_torch.estimation.rbpf.particle_filter import PFStepper
 from tpunav_torch.sim.lidar import box_segments, scan_segments
 
 U = (0.03, 0.02)            # per update: 0.03 rad of turn, 0.02 m forward
@@ -67,21 +70,41 @@ def config(num_particles=40):
                     grid=grid, icp=ICPConfig(max_iter=25))
 
 
+def course(cfg: PFConfig, inputs, seed=2, device=DEFAULT_DEVICE,
+           eager=False, noise=None):
+    """The filter from seed ``seed`` over ``course_inputs``' updates; returns
+    the final state. Each update is one ``PFStepper`` replay (``tpunav``
+    runs the whole course as one program), or with ``eager`` one
+    ``pf_slam_step`` of operations one by one. ``noise``: each update's
+    ``PFNoise`` in place of the filter's draws."""
+    u, scans, odoms, prevs = inputs
+    noise = [None] * len(scans) if noise is None else noise
+    st = pf_init(cfg, seed=seed, device=device)
+    if eager:
+        for i in range(len(scans)):
+            st = pf_slam_step(cfg, st, scans[i], u, odoms[i], prevs[i],
+                              noise=noise[i])
+        return st
+    stepper = PFStepper(cfg, st, device)
+    for i in range(len(scans)):
+        st = stepper.step(scans[i], u, odoms[i], prevs[i], noise=noise[i])
+    return st
+
+
 def run(num_particles=40, updates=120, seed=2, device=DEFAULT_DEVICE):
-    """The course from filter seed ``seed``; returns (err [θ, x, y],
-    occupied cells, free cells of the map, wall seconds, updates)."""
+    """The course from filter seed ``seed`` (:func:`course`); returns (err
+    [θ, x, y], occupied cells, free cells of the map, wall seconds,
+    updates)."""
     device = resolve(device)
     cfg = config(num_particles)
-    u, scans, odoms, prevs = course_inputs(cfg.grid, updates, device=device)
+    inputs = course_inputs(cfg.grid, updates, device=device)
     synchronize(device)
     t0 = time.perf_counter()
-    st = pf_init(cfg, seed=seed, device=device)
-    for i in range(updates):
-        st = pf_slam_step(cfg, st, scans[i], u, odoms[i], prevs[i])
+    st = course(cfg, inputs, seed, device)
     pose, grid_best = best_particle(st)
     synchronize(device)
     wall = time.perf_counter() - t0
-    err = (pose - odoms[-1]).cpu().numpy()
+    err = (pose - inputs[2][-1]).cpu().numpy()
     err[0] = (err[0] + np.pi) % (2 * np.pi) - np.pi  # wrap heading error
     occ = int((grid_best >= cfg.grid.l_occ).sum())
     free = int((occupancy_grid(cfg.grid, grid_best) == 0).sum())

@@ -30,6 +30,8 @@ import math
 import numpy as np
 import torch
 
+from tpunav_torch.device import DEFAULT_DEVICE
+
 P_TOTAL = 16
 STEPS = 2
 WINNER = 3           # the particle that takes the weight
@@ -95,9 +97,10 @@ def run_course(mesh, device) -> dict:
                  map_update.EDT_LAUNCHES), counts)]}
 
 
-def launcher(device: str = "cpu", backend=None, timeout: float = 600.0):
-    """Two spawned ranks run :func:`run_course`; raises unless they hold
-    the same bits and the resample cloned the winner into at least P−2
+def launcher(device=DEFAULT_DEVICE, backend=None, timeout: float = 600.0):
+    """Two spawned ranks run :func:`run_course` on ``device`` (default the
+    card; raises without CUDA before they are spawned); raises unless they
+    hold the same bits and the resample cloned the winner into at least P−2
     slots. Returns both ranks' results."""
     from examples_torch import launch
 

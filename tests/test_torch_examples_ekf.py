@@ -30,28 +30,34 @@ from examples_torch import slam_mppi_closed_loop_demo as tcl
 from tpunav.estimation.ekf import EKFConfig as JEKFConfig
 from tpunav.estimation.ekf import known_correspondence_slam as j_known
 from tpunav.estimation.ekf import slam_unknown_da as j_unknown
+from tpunav_torch.estimation.ekf import filter as ekff
 
 torch.set_num_threads(2)
 
 STEPS = 40
 
 
-@pytest.mark.parametrize("tag", ["known", "unknown"])
-def test_lidar_ekf_course_matches_tpunav(tag):
+def _tpunav_course(tag):
+    """tpunav's lidar EKF course of STEPS steps (seed 0, x64 off) and its
+    scan normals (make_sim's key splits,
+    examples/lidar_ekf_slam_demo.py:57-64)."""
     step, known, cfg = tle.CONFIGS[tag]
     jcfg = JEKFConfig(**dataclasses.asdict(cfg))
     with jax.enable_x64(False):
         sim = jle.make_sim(j_known if known else j_unknown, jcfg, known,
                            STEPS)
         true_pose, _, jst, _ = sim(jax.random.PRNGKey(0))
-        # make_sim's key splits (examples/lidar_ekf_slam_demo.py:57-64).
         key, normals = jax.random.PRNGKey(0), []
         for _ in range(STEPS):
             key, k1 = jax.random.split(key)
             normals.append(np.asarray(jax.random.normal(k1, (360,),
                                                         jnp.float32)))
-    got_pose, _, st, tel = tle.make_sim(step, cfg, known, STEPS, "cpu")(
-        0, noise=torch.from_numpy(np.stack(normals)))
+    return true_pose, jst, torch.from_numpy(np.stack(normals))
+
+
+def _assert_course_near(got_pose, st, true_pose, jst):
+    """The float32 bars of ROADMAP.md §3: pose within 1e-5, landmarks
+    within 1e-4, the same landmarks and count."""
     np.testing.assert_allclose(got_pose.numpy(), np.asarray(true_pose),
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(st.state[:3].numpy(),
@@ -63,7 +69,78 @@ def test_lidar_ekf_course_matches_tpunav(tag):
         lms, np.asarray(jst.state[3:]).reshape(-1, 2)[active], rtol=0,
         atol=1e-4)
     assert int(st.count) == int(jst.count) >= 10
+
+
+@pytest.mark.parametrize("tag", ["known", "unknown"])
+def test_lidar_ekf_course_matches_tpunav(tag):
+    step, known, cfg = tle.CONFIGS[tag]
+    true_pose, jst, normals = _tpunav_course(tag)
+    got_pose, _, st, tel = tle.make_sim(step, cfg, known, STEPS, "cpu")(
+        0, noise=normals)
+    _assert_course_near(got_pose, st, true_pose, jst)
     assert tel.shape == (STEPS, 5) and torch.isfinite(tel).all()
+
+
+@pytest.mark.parametrize("tag", ["known", "unknown"])
+def test_lidar_ekf_eager_course_matches_tpunav(tag):
+    """The eager course (the dynamic update, row count read on the host)
+    with tpunav's normals, at the bars of the graphed course's test."""
+    step, known, cfg = tle.CONFIGS[tag]
+    true_pose, jst, normals = _tpunav_course(tag)
+    got_pose, _, st, tel = tle.make_sim(step, cfg, known, STEPS, "cpu",
+                                        eager=True)(0, noise=normals)
+    _assert_course_near(got_pose, st, true_pose, jst)
+    assert tel.shape == (STEPS, 5) and torch.isfinite(tel).all()
+
+
+_MASKED = {True: ekff.known_correspondence_slam_masked,
+           False: ekff.slam_unknown_da_masked}
+
+
+def _assert_same_bits(got, want):
+    for a, b in zip(got, want):
+        if isinstance(a, tuple):
+            _assert_same_bits(a, b)
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tag", ["known", "unknown"])
+def test_lidar_ekf_graph_equals_eager_masked(tag):
+    """STEPS steps through ``StepGraph`` (``make_sim``'s default): the
+    masked update run eagerly on the same inputs gives every output bit
+    for bit (poses, state, telemetry); the dynamic form matches at the
+    float32 bars. A second seed through the same graph equals a fresh
+    graph's run."""
+    step, known, cfg = tle.CONFIGS[tag]
+    sim = tle.make_sim(step, cfg, known, STEPS, "cpu")
+    got = sim(0)
+    masked = tle.make_sim(_MASKED[known], cfg, known, STEPS, "cpu",
+                          eager=True)(0)
+    _assert_same_bits(got, masked)
+    dyn_pose, _, dyn, _ = tle.make_sim(step, cfg, known, STEPS, "cpu",
+                                       eager=True)(0)
+    _assert_course_near(got[0], got[2], dyn_pose.numpy(),
+                        ekff.EKFState(*(t.numpy() for t in dyn)))
+    again = sim(1)
+    _assert_same_bits(again, tle.make_sim(step, cfg, known, STEPS,
+                                          "cpu")(1))
+    _assert_same_bits(sim(0), got)
+
+
+@pytest.mark.parametrize("name", sorted(tek.CONFIGS))
+def test_ekf_demo_graph_equals_eager_masked(name):
+    """60 steps of the EKF demo's arc through ``StepGraph`` against the
+    masked update run eagerly, bit for bit, and the dynamic form at the
+    float32 bars."""
+    step, cfg = tek.CONFIGS[name]
+    got = tek.make_course(step, cfg, 60, "cpu")(0)
+    masked = tek.make_course(_MASKED[tle.known_da(step)], cfg, 60, "cpu",
+                             eager=True)(0)
+    _assert_same_bits(got, masked)
+    dyn_pose, _, dyn = tek.make_course(step, cfg, 60, "cpu", eager=True)(0)
+    _assert_course_near(got[0], got[2], dyn_pose.numpy(),
+                        ekff.EKFState(*(t.numpy() for t in dyn)))
 
 
 def test_lidar_ekf_run_many_loops_over_seeds():

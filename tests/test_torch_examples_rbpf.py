@@ -35,6 +35,7 @@ from examples import full_stack_demo as jfs
 from examples import rbpf_explore_demo as jex
 from examples_torch import full_stack_demo as tfs
 from examples_torch import rbpf_explore_demo as tex
+from examples_torch import rbpf_slam_demo as trs
 from tpunav.control import mppi as jm
 from tpunav.estimation.rbpf import GridConfig as JGridConfig
 from tpunav.estimation.rbpf import best_particle as j_best
@@ -46,7 +47,7 @@ from tpunav.ops.rk4 import rk4_step as j_rk4
 from tpunav.planning.dstar import dstar_from_labels as j_dstar
 from tpunav.sim import lidar as jlidar
 from tpunav.sim.motor import track as j_track
-from tpunav_torch import interop
+from tpunav_torch import capture, interop
 from tpunav_torch.control.mppi import MPPIConfig
 from tpunav_torch.control.mppi import cost_to_go as t_cost_to_go
 from tpunav_torch.control.mppi import mppi_solve as t_solve
@@ -195,6 +196,226 @@ def test_seed_sweep_returns_finite_errors():
     np.testing.assert_array_equal(odom[0], odom[1])   # the filter's seed only
 
 
+def _explore_runs(eager, chunks=2):
+    """``chunks`` chunks of three scans at P=8, K=64 from the start, with
+    the series."""
+    pf_cfg, mppi_cfg, run_chunk = tex.build(8, 3, 64, "cpu", eager=eager)
+    st, series = tex.init_state(pf_cfg, mppi_cfg, device="cpu"), []
+    for _ in range(chunks):
+        st = run_chunk(st, series)
+    return st, torch.stack(series)
+
+
+def _assert_explore_equal(got, want):
+    assert tex.digests(got) == tex.digests(want)
+    for name in ("true_pose", "odom_pose", "u", "wheel_vel", "wpt_idx"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert got.tick == want.tick
+    for a, b in [(got.scan_gen, want.scan_gen),
+                 (got.pf.generator, want.pf.generator)]:
+        assert torch.equal(a.get_state(), b.get_state())
+
+
+def test_explore_graph_equals_eager():
+    """Two chunks of three scans through ``ScanGraph`` (``build``'s
+    default) and through the eager interval: every leaf, both generators
+    and the six five-metric samples bit for bit."""
+    (eager, s_eager), (graph, s_graph) = (_explore_runs(e) for e in
+                                          (True, False))
+    _assert_explore_equal(graph, eager)
+    assert graph.tick == 6 and s_graph.shape == (6, 5)
+    assert torch.equal(s_graph, s_eager)
+
+
+def test_explore_graph_loads_a_resumed_state_in_place(tmp_path):
+    """A ``ScanGraph`` checkpointed after three scans, then given another
+    state and the restored checkpoint through ``load``: its buffers and
+    generators stay the ones its graph reads (never rebound), and three
+    more scans give the uninterrupted six's state bit for bit. A runner
+    whose state is rebound instead of loaded replays its old buffers, and
+    the same check catches it."""
+    pf_cfg, mppi_cfg = tex.configs(8, 64)
+    start = tex.init_state(pf_cfg, mppi_cfg, device="cpu")
+    g = tex.ScanGraph(pf_cfg, mppi_cfg, start, "cpu")
+    for _ in range(3):
+        g.step()
+    restored = tex.checkpoint_roundtrip(g.snapshot(),
+                                        str(tmp_path / "ckpt.npz"))
+    for _ in range(3):
+        g.step()
+    straight = g.snapshot()
+
+    buffers = [t.data_ptr() for t in (*g.stepper.state[:-1], *g.carry,
+                                      g.tick_dev)]
+    gens = (g.stepper.state.generator, g.scan_gen)
+    g.load(tex.init_state(pf_cfg, mppi_cfg, seed=99, device="cpu"))
+    g.load(restored)
+    assert [t.data_ptr() for t in (*g.stepper.state[:-1], *g.carry,
+                                   g.tick_dev)] == buffers
+    assert (g.stepper.state.generator, g.scan_gen) == gens
+    assert g.tick == 3 and int(g.tick_dev) == 3
+    for _ in range(3):
+        g.step()
+    _assert_explore_equal(g.snapshot(), straight)
+
+    rebound = tex.ScanGraph(pf_cfg, mppi_cfg, start, "cpu")
+    rebound.stepper.state = restored.pf
+    rebound.carry = (restored.true_pose, restored.odom_pose, restored.u,
+                     restored.wheel_vel, restored.wpt_idx)
+    rebound.tick = restored.tick
+    for _ in range(3):
+        rebound.step()
+    assert tex.digests(rebound.snapshot()) != tex.digests(straight)
+
+
+def _jax_explore_interval(jcfg, true, odom, u, wheel, idx, rng):
+    """tpunav's control chunk (examples/rbpf_explore_demo.py:84-122) from
+    its public functions with injected noise; returns its state and each
+    tick's (N, K, 2) noise."""
+    f = lambda x, uu: j_cart(jex.MODEL, x, uu)  # noqa: E731
+    bias = jnp.asarray(tex.WHEEL_BIAS, F32)
+    wpts = jex.WAYPOINTS
+    noises = []
+    for _ in range(tex.TICKS_PER_SCAN):
+        wpt = wpts[idx]
+        d2g = jnp.hypot(odom[1] - wpt[0], odom[2] - wpt[1])
+        idx = jnp.where(d2g < 0.15, (idx + 1) % wpts.shape[0], idx)
+        z = _scaled_noise(jcfg, rng)
+        cmd, u = j_fused(jcfg, jex.MODEL, u, 0,
+                         jnp.stack([odom[1], odom[2], odom[0]]), wpts[idx],
+                         noise=jnp.asarray(z.reshape(jcfg.steps, K // 128,
+                                                     128, 2)),
+                         interpret=True)
+        noises.append(z)
+        wheel = j_track(jex.MOTOR, wheel, cmd, jex.TICK_DT)
+        xyt = [j_rk4(f, jnp.stack([p[1], p[2], p[0]]), w, jex.TICK_DT)
+               for p, w in ((true, wheel), (odom, wheel * bias))]
+        true, odom = (jnp.stack([p[2], p[0], p[1]]) for p in xyt)
+    return true, odom, u, wheel, idx, np.stack(noises)
+
+
+def test_explore_graph_intervals_match_tpunav():
+    """Two scan intervals of the exploration loop at P=16, K=128 (the
+    motion-model update, then the ICP one), each from tpunav's state,
+    through one injected ``ScanGraph``: tpunav's six solves' noise, its
+    scan's normals and its filter's into the static tensors. Poses,
+    particles and the first four metrics within POSE_BAR, N_eff within
+    1e-4 relative, the scan within 1e-5, the waypoint index equal."""
+    pf_cfg, mppi_cfg = tex.configs(16, K)
+    jpf_cfg = jpf.PFConfig(num_particles=16, k_samples=50,
+                           sample_range=(1e-6, 1e-5, 1e-5),
+                           motion_noise=(1e-6, 1e-5, 1e-5),
+                           grid=JGridConfig(), icp=JICPConfig(max_iter=25))
+    assert interop.config_from_fields(
+        PFConfig, dataclasses.asdict(jpf_cfg)) == pf_cfg
+    jmppi = jm.MPPIConfig(**dataclasses.asdict(mppi_cfg))
+    grid = pf_cfg.grid
+    segs = jlidar.box_segments(-1.8, -1.8, 1.8, 1.8, F32)
+    step = jax.jit(lambda s, sc, ub, c, pr: jpf.pf_slam_step(
+        jpf_cfg, s, sc, ub, c, pr, backend="xla"))
+    rng = np.random.default_rng(5)
+    z3 = jnp.zeros(3, F32)
+    true, odom, wheel, idx = z3, z3, jnp.zeros(2, F32), jnp.asarray(0)
+    u = jm.init_controls(jmppi, dtype=F32)
+    jst = jpf.pf_init(jpf_cfg, seed=3)
+    runner = None
+    for tick in range(2):
+        start = tex.ExploreState(
+            _port_pf(jst), _t(true), _t(odom), _t(u), _t(wheel),
+            torch.tensor(int(idx), dtype=torch.int32), tick,
+            torch.Generator())
+        noise_pf = _jax_noise(jpf_cfg, jst.key)
+        prev = odom
+        true, odom, u, wheel, idx, k1 = _jax_explore_interval(
+            jmppi, true, odom, u, wheel, idx, rng)
+        key = jax.random.fold_in(jax.random.PRNGKey(tex.SCAN_SEED), tick)
+        scan = jlidar.scan_segments(true, segs, num_beams=grid.num_beams,
+                                    max_range=grid.range_max, key=key,
+                                    noise_std=0.002)
+        normals = _t(jax.random.normal(key, (grid.num_beams,), F32))
+        jst = step(jst, scan, jex.body_twist(odom, prev), odom, prev)
+        pose, _ = j_best(jst)
+        w = jax.nn.softmax(jst.log_weights)
+        want = np.asarray([
+            jnp.hypot(pose[1] - true[1], pose[2] - true[2]),
+            jex.normalize_angle_pi(pose[0] - true[0]),
+            jnp.hypot(odom[1] - true[1], odom[2] - true[2]),
+            jex.normalize_angle_pi(odom[0] - true[0]), 1.0 / jnp.sum(w * w)])
+
+        if runner is None:
+            runner = tex.ScanGraph(pf_cfg, mppi_cfg, start, "cpu",
+                                   injected=True)
+        runner.load(start)
+        sample = runner.step(noise=(_t(k1), normals, noise_pf)).numpy()
+        for name, got, want_ in [("true", runner.carry[0], true),
+                                 ("odom", runner.carry[1], odom),
+                                 ("particles", runner.stepper.state.poses,
+                                  jst.poses)]:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want_),
+                                       rtol=0, atol=POSE_BAR,
+                                       err_msg=f"scan {tick}: {name}")
+        np.testing.assert_allclose(runner.stepper.inputs[0].numpy(),
+                                   np.asarray(scan), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(sample[:4], want[:4], rtol=0,
+                                   atol=POSE_BAR)
+        np.testing.assert_allclose(sample[4], want[4], rtol=1e-4)
+        assert int(runner.carry[4]) == int(idx)
+        assert runner.tick == tick + 1
+
+
+def test_rbpf_course_graph_equals_eager_and_tpunav():
+    """Four updates of rbpf_slam_demo's course at P=8 with tpunav's scans
+    and normals (examples/rbpf_slam_demo.py:45-58): through ``PFStepper``
+    (the default) and eagerly, bit for bit; against tpunav's updates,
+    the particles within POSE_BAR. And the course with the filter's own
+    draws, graph against eager, bit for bit."""
+    cfg = trs.config(8)
+    jcfg = jpf.PFConfig(num_particles=8, k_samples=50,
+                        sample_range=(1e-6, 1e-5, 1e-5),
+                        motion_noise=(1e-6, 1e-5, 1e-5),
+                        grid=JGridConfig(resolution=0.05, xmin=-2.0,
+                                         xmax=2.0, ymin=-2.0, ymax=2.0,
+                                         num_beams=360),
+                        icp=JICPConfig(max_iter=25))
+    assert interop.config_from_fields(
+        PFConfig, dataclasses.asdict(jcfg)) == cfg
+    segs = jlidar.box_segments(-1.8, -1.8, 1.8, 1.8, F32)
+    u = jnp.asarray(trs.U, F32)
+    step = jax.jit(lambda s, sc, c, pr: jpf.pf_slam_step(
+        jcfg, s, sc, u, c, pr, backend="xla"))
+    jst = jpf.pf_init(jcfg, seed=2)
+    pose = prev = jnp.zeros(3, F32)
+    scans, odoms, prevs, noise = [], [], [], []
+    for i in range(4):
+        th = pose[0] + u[0]
+        pose = jnp.stack([th, pose[1] + u[1] * jnp.cos(th),
+                          pose[2] + u[1] * jnp.sin(th)])
+        key = jax.random.fold_in(jax.random.PRNGKey(99), i)
+        scan = jlidar.scan_segments(pose, segs, num_beams=360,
+                                    max_range=cfg.grid.range_max, key=key,
+                                    noise_std=0.002)
+        noise.append(_jax_noise(jcfg, jst.key))
+        jst = step(jst, scan, pose, prev)
+        scans.append(_t(scan))
+        odoms.append(_t(pose))
+        prevs.append(_t(prev))
+        prev = pose
+    inputs = (_t(u), scans, odoms, prevs)
+    graph = trs.course(cfg, inputs, 2, "cpu", noise=noise)
+    eager = trs.course(cfg, inputs, 2, "cpu", eager=True, noise=noise)
+    for name, a, b in zip(tpf.PFState._fields[:-1], graph[:-1], eager[:-1]):
+        assert torch.equal(a, b), name
+    np.testing.assert_allclose(graph.poses.numpy(), np.asarray(jst.poses),
+                               rtol=0, atol=POSE_BAR)
+    drawn = [trs.course(cfg, inputs, 2, "cpu", eager=e) for e in (False,
+                                                                 True)]
+    for name, a, b in zip(tpf.PFState._fields[:-1], *(d[:-1] for d in
+                                                      drawn)):
+        assert torch.equal(a, b), name
+    assert torch.equal(drawn[0].generator.get_state(),
+                       drawn[1].generator.get_state())
+
+
 # ------------------------------------------------------------- full stack --
 
 def test_make_world_matches_tpunav():
@@ -329,18 +550,11 @@ def _solve_rows_match(jcfg, cfg, use_fused, solves, noises, target):
     return exempt
 
 
-@pytest.mark.parametrize("use_fused", [True, False])
-def test_scan_intervals_match_tpunav(use_fused, record_property):
+def _scan_intervals(use_fused, graph):
     """Two scan intervals of the full stack at P=16, K=128, each from
-    tpunav's state: the control chunk with tpunav's noise, the scan with
-    its range noise, pf_slam_step with its normals, then both packages'
-    labels and D* Lite paths. Poses within 1e-5; labels equal but within
-    the inflation (3 cells) of a cell whose log-odds lie within 1e-5 of
-    l_occ in either package's grid (the mismatches are counted); paths
-    equal where the labels are. The controls are held solve by solve,
-    each from tpunav's inputs, at U_BAR but for near-tie rows of the
-    λ = 0.01 softmax (ROADMAP.md §3; counted): chained over 12 solves, a
-    near-tie row moves u by ~1e-3, which the next solve absorbs."""
+    tpunav's state, through the eager stages or (``graph``) one injected
+    ``ScanGraph`` loaded with that state; returns (label mismatches,
+    exempt rows). See test_scan_intervals_match_tpunav."""
     seed, ticks = 5, 12
     pf_cfg, mppi_cfg, control_chunk, sense, slam_update = tfs.build(
         16, ticks, use_fused, seed, K, "cpu")
@@ -366,6 +580,7 @@ def test_scan_intervals_match_tpunav(use_fused, record_property):
         p.compute_shortest_path()
     step = jax.jit(lambda s, sc, ub, c, pr: jpf.pf_slam_step(
         jpf_cfg, s, sc, ub, c, pr, backend="xla"))
+    runner = None
 
     mismatches, exempt = 0, 0
     for tick in range(2):
@@ -394,13 +609,30 @@ def test_scan_intervals_match_tpunav(use_fused, record_property):
         jst = step(jst, scan, u_body, odom, prev_odom)
         j_pose, j_grid = j_best(jst)
 
-        p_true, p_odom, p_slam, _ = control_chunk(
-            *p_state, _t(target), tick, noise=noises)
-        p_scan = sense(p_true, noise=scan_normals)
-        p_pf, p_pose, p_grid = slam_update(p_pf, p_scan, p_odom, p_state[1],
-                                           noise=noise_pf)
+        if graph:
+            if runner is None:
+                stages = tfs.Stages(16, ticks, use_fused, seed, K, "cpu")
+                runner = tfs.ScanGraph(stages, p_pf, p_state[0],
+                                       p_state[3], "cpu", injected=True)
+            capture.load(runner.carry, p_state)
+            capture.load(runner.stepper.state, p_pf)
+            runner.tick.fill_(tick)
+            flat = torch.from_numpy(runner.scan(
+                (tx, ty), noise=(noises, scan_normals, noise_pf)))
+            p_true, p_odom = flat[3:6], runner.carry[1]
+            p_scan = runner.stepper.inputs[0]
+            p_pf, p_pose = runner.stepper.state, flat[:3]
+            p_grid = flat[6:].reshape(grid.height, grid.width)
+            chunk = []          # the graph keeps no chunk's SLAM pose
+        else:
+            p_true, p_odom, p_slam, _ = control_chunk(
+                *p_state, _t(target), tick, noise=noises)
+            p_scan = sense(p_true, noise=scan_normals)
+            p_pf, p_pose, p_grid = slam_update(p_pf, p_scan, p_odom,
+                                               p_state[1], noise=noise_pf)
+            chunk = [("slam (chunk)", p_slam, slam)]
         for name, got, want in [("true", p_true, true), ("odom", p_odom, odom),
-                                ("slam (chunk)", p_slam, slam),
+                                *chunk,
                                 ("particles", p_pf.poses, jst.poses),
                                 ("best particle", p_pose, j_pose)]:
             np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
@@ -429,8 +661,51 @@ def test_scan_intervals_match_tpunav(use_fused, record_property):
             got = [tuple(c) for c in planners[1].path_to_goal()]
             assert got == [tuple(c) for c in planners[0].path_to_goal()]
     assert np.isfinite(np.asarray(jst.poses)).all()
+    return mismatches, exempt
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_scan_intervals_match_tpunav(use_fused, record_property):
+    """Two scan intervals of the full stack at P=16, K=128, each from
+    tpunav's state: the control chunk with tpunav's noise, the scan with
+    its range noise, pf_slam_step with its normals, then both packages'
+    labels and D* Lite paths. Poses within 1e-5; labels equal but within
+    the inflation (3 cells) of a cell whose log-odds lie within 1e-5 of
+    l_occ in either package's grid (the mismatches are counted); paths
+    equal where the labels are. The controls are held solve by solve,
+    each from tpunav's inputs, at U_BAR but for near-tie rows of the
+    λ = 0.01 softmax (ROADMAP.md §3; counted): chained over 12 solves, a
+    near-tie row moves u by ~1e-3, which the next solve absorbs."""
+    mismatches, exempt = _scan_intervals(use_fused, graph=False)
     record_property("label_mismatches", mismatches)
     record_property("near_tie_rows", exempt)
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_graphed_scan_intervals_match_tpunav(use_fused, record_property):
+    """The same two intervals through one ``ScanGraph`` (K1's or the plain
+    solver's perturbations, the scan's normals and the filter's injected
+    into its static tensors), loaded in place with tpunav's state before
+    each: the true and odometry poses, the particles, the best particle
+    and the scan at the same bars, the labels and paths as there."""
+    mismatches, exempt = _scan_intervals(use_fused, graph=True)
+    record_property("label_mismatches", mismatches)
+    record_property("near_tie_rows", exempt)
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_full_stack_graph_equals_eager(use_fused):
+    """Four scans of ``run`` at P=8, K=64 through ``ScanGraph`` (the
+    default) and through the eager stages: every trail pose, D* target
+    and the final best grid bit for bit."""
+    runs = [tfs.run(8, max_scans=4, use_fused=use_fused, verbose=False,
+                    rollouts=64, device="cpu", eager=eager)
+            for eager in (True, False)]
+    assert runs[0]["updates"] == runs[1]["updates"] == 4
+    assert set(runs[1]["ms_per_scan"]) == {"replay", "dstar_host", "whole"}
+    for key in ("trail_true", "trail_slam", "targets", "grid", "stream"):
+        np.testing.assert_array_equal(runs[1][key], runs[0][key],
+                                      err_msg=key)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -494,7 +494,37 @@ def _graph_entry_points(pcfg):
             rcfg, ekf.ekf_init(rcfg, device="cpu"), 2),
         "EKFStepper(spd_repair_per_meas)": lambda: ekf.EKFStepper(
             pcfg_, ekf.ekf_init(pcfg_, device="cpu"), 2, known_da=False),
+        **_demo_graph_entry_points(ecfg, ekf.ekf_init(
+            ecfg, dtype=torch.float32, device="cpu")),
     }
+
+
+def _demo_graph_entry_points(ecfg, ekf_state):
+    """The demos' graphed runners (``examples_torch/``), each given a
+    state on the CPU and no device."""
+    from examples_torch import full_stack_demo as fs
+    from examples_torch import lidar_ekf_slam_demo as le
+    from examples_torch import rbpf_explore_demo as ex
+
+    def explore():
+        pf_cfg, mppi_cfg = ex.configs(2, 32)
+        return ex.ScanGraph(pf_cfg, mppi_cfg, ex.init_state(
+            pf_cfg, mppi_cfg, device="cpu"))
+
+    def full_stack():
+        stages = fs.Stages(2, 1, False, rollouts=32, device="cpu")
+        pose = torch.zeros(3)
+        return fs.ScanGraph(stages, pf_init(stages.pf_cfg, device="cpu"),
+                            pose, torch.zeros(stages.mppi_cfg.steps, 2))
+
+    def ekf_step():
+        z = torch.zeros(2)
+        return le.StepGraph(ecfg, True, lambda pose, n: n, (2, 2), 2,
+                            ekf_state, z, z)
+
+    return {"examples_torch.rbpf_explore_demo.ScanGraph": explore,
+            "examples_torch.full_stack_demo.ScanGraph": full_stack,
+            "examples_torch.lidar_ekf_slam_demo.StepGraph": ekf_step}
 
 
 def _node_entry_points(pcfg):
@@ -534,11 +564,12 @@ def _node_entry_points(pcfg):
 def _demo_entry_points():
     """The demos' run-style functions (``examples_torch/``)."""
     from examples_torch import (dense_world_slam_demo, ekf_slam_demo,
-                                full_stack_demo, lidar_ekf_slam_demo,
+                                full_stack_demo, launch, lidar_ekf_slam_demo,
                                 live_view_demo, make_results,
-                                mppi_waypoints_demo, obstacle_mppi_demo,
-                                planners_demo, profile_rbpf_stages,
-                                rbpf_explore_demo, rbpf_slam_demo,
+                                mppi_two_process, mppi_waypoints_demo,
+                                obstacle_mppi_demo, planners_demo,
+                                profile_rbpf_stages, rbpf_explore_demo,
+                                rbpf_slam_demo, rbpf_two_process,
                                 slam_mppi_closed_loop_demo)
 
     ex, fs, le = rbpf_explore_demo, full_stack_demo, lidar_ekf_slam_demo
@@ -584,7 +615,20 @@ def _demo_entry_points():
         "profile_rbpf_stages.profile_closed_loop":
             lambda: profile_rbpf_stages.profile_closed_loop(2, 1, 32),
         "make_results.main": lambda: make_results.main(["--rows", "1"]),
+        "full_stack_demo.Stages": lambda: fs.Stages(2),
+        "ekf_slam_demo.make_course": lambda: ekf_slam_demo.make_course(
+            *ekf_slam_demo.CONFIGS["known-DA "], steps=1),
+        "rbpf_slam_demo.course": lambda: rbpf_slam_demo.course(
+            rbpf_slam_demo.config(2), rbpf_slam_demo.course_inputs(
+                GridConfig(**SMALL), 1, device="cpu")),
+        "launch": lambda: launch(_no_target),
+        "mppi_two_process.launcher": lambda: mppi_two_process.launcher(),
+        "rbpf_two_process.launcher": lambda: rbpf_two_process.launcher(),
     }.items()}
+
+
+def _no_target(mesh, device):
+    raise AssertionError("a rank was spawned")
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
