@@ -27,10 +27,10 @@ card, then drives the port's paths:
   configs/block_world_landmarks.yaml, known data association, K=1,024) and
   config 4 at its stated scale (examples/dense_world_slam_demo.py: 44
   cylinders, the lidar → circle detector → unknown data association chain
-  at capacity 50, K=2,048, 5,000 ticks, eager and as the demo runs it:
-  replayed chunks of its scan, through K1 and the eigensolver), with the
-  filter held against its CPU run and the detector against its CPU run
-  and itself;
+  at capacity 50, K=2,048, 5,000 ticks as the demo runs it: replayed
+  chunks of its scan, through K1 and the eigensolver, its first 1,020
+  ticks held to the eager per-tick loop), with the filter held against its
+  CPU run and the detector against its CPU run and itself;
 - the reference's node graph (tpunav_torch/runtime/, the :class:`Graphs`
   phases), whose jitted steps replay one CUDA graph each, held bit for
   bit to their eager forms: the mppi_waypoints.launch graph on the
@@ -47,7 +47,11 @@ card, then drives the port's paths:
   phases) in spawned ranks: K-sharded MPPI through K1's partials in one
   NCCL rank and in two gloo ranks sharing the card (``sharded_mppi``),
   and P-sharded RBPF at config 5 through K2–K4 in two gloo ranks
-  (``sharded_rbpf``), each held against the unsharded path;
+  (``sharded_rbpf``), each held against the unsharded path; and the
+  graphed sharded steppers in one NCCL rank, one replay per solve or
+  update with its collectives, each the eager sharded path's bits
+  (``graph_sharded``: the fused and plain solves at K=4,096, config 5's
+  update with K2, K3 and K4 in its graph), refused on gloo ranks;
 - the loops as CUDA graphs (``tpunav_torch/capture.py``, the
   :class:`CudaGraphs` phases), each held to its eager path bit for bit:
   the flagship and obstacle courses through ``run_course`` and
@@ -56,8 +60,10 @@ card, then drives the port's paths:
   120 RBPF updates through ``PFStepper`` (``graph_rbpf``), config 3
   through ``run_slam_loop`` with the EKF update alone through
   ``EKFStepper``, with and without the default SPD repair
-  (``graph_ekf``), and the capture guard against the cyclic collector
-  (``graph_gc``); the ``course``, ``obstacle_course``, ``ekf_course`` and
+  (``graph_ekf``), the capture guard against the cyclic collector
+  (``graph_gc``), and the plain MPPI backend's course and config 3's loop
+  in replayed chunks, its perturbations drawn into a static tensor
+  (``plain_course``); the ``course``, ``obstacle_course``, ``ekf_course`` and
   ``dense_world`` phases and the landmarks node replay graphs too, held
   ticks skip K1's work, and the launch counters count a graph's launches
   on every replay;
@@ -69,8 +75,9 @@ card, then drives the port's paths:
   all four kernels in one loop (``full_stack``), the RBPF course
   (``rbpf_demo_course``), the lidar EKF courses (``lidar_ekf``) and the EKF
   demo's arc (``ekf_demo``), each EKF graph against the masked update run
-  eagerly; and the eager exploration loop's per-scan budget
-  (``rbpf_stages``);
+  eagerly; and the exploration loop's per-scan budget split into three
+  chained stage graphs beside its one replay, and each stage of the RBPF
+  update as its own graph (``rbpf_stages``);
 
 and times every kernel beside its plain version. Each phase prints one
 JSON line, and ``run`` the command's seconds; any failure raises and the
@@ -123,6 +130,10 @@ EKF_NODE_EAGER = 60
 # and rbpf_profile's profiled eager updates: cut to keep the run well inside
 # its time limit.
 LOOP_RATE_TICKS = 100
+# The eager prefixes of config 4's course (dense_world) and config 3's
+# (graph_ekf) held bit for bit against the graph paths.
+DENSE_EAGER_PREFIX = 1020
+GRAPH_EKF_EAGER_PREFIX = 1020
 RBPF_PROFILE_UPDATES = 8
 
 
@@ -1478,18 +1489,19 @@ class Ekf:
              ticks_run=ran, chunk=chunk, ticks_per_s=ticks / wall,
              card=self.card)
 
-    def dense(self, ticks=5000):
+    def dense(self, ticks=5000, prefix=DENSE_EAGER_PREFIX):
         """BASELINE config 4 at its stated scale
         (examples_torch.dense_world_slam_demo: 5,000 ticks of the
         44-cylinder world from seed 0, K=2,048, lidar → detector → unknown
-        DA at capacity 50), eager per tick (:meth:`dense_eager`: the ticks
+        DA at capacity 50) as the demo runs it by default:
+        ``run_slam_course``'s chunks replayed as CUDA graphs (``tpunav``'s
+        one ``lax.scan``) with the demo's per-tick telemetry; and its first
+        ``prefix`` ticks eager per tick (:meth:`dense_eager`: the ticks
         alone timed, as ``ekf_profile``'s idle share divides the same
         tick's device time, and the demo's telemetry rows taken from the
-        kept states) and as the demo runs it by default:
-        ``run_slam_course``'s chunks replayed as CUDA graphs (``tpunav``'s
-        one ``lax.scan``) with the demo's per-tick telemetry. Gates: the
-        chunked course's final state, generator and 5,000 telemetry rows
-        equal to the eager course's bit for bit; final SLAM |xy| error <
+        kept states) against the same prefix chunked. Gates: the chunked
+        prefix's state, generator and telemetry rows equal to the eager
+        prefix's bit for bit; the whole course's final SLAM |xy| error <
         0.5 × odometry's (tests/test_perception_loop.py:143-145), 36-50
         landmarks tracked, a finite filter; in each run one K1 launch per
         tick and two eigensolver launches per sensing tick (the counts set
@@ -1499,18 +1511,23 @@ class Ekf:
         sl, demo = self.sl, self.c4_demo
         course, (mppi, ekf, loop), ring, world, meas_fn = demo.build(
             ticks, device=self.dev)
-        sensing = -(-ticks // loop.sensor_every)
-        want = {"K1": ticks, "K1_obstacle": 0, "K2": 0, "K3": 0, "K4": 0,
-                "EIG": 2 * sensing}
+        prefix_course = demo.build(prefix, device=self.dev)[0]
+
+        def want(n):
+            return {"K1": n, "K1_obstacle": 0, "K2": 0, "K3": 0, "K4": 0,
+                    "EIG": 2 * -(-n // loop.sensor_every)}
+
         runs = {}
-        for name in ("eager", "chunked"):
+        for name, n in (("eager", prefix), ("chunked_prefix", prefix),
+                        ("chunked", ticks)):
             torch.cuda.synchronize()
             reset_counts()
             if name == "eager":
                 out = self.dense_eager(mppi, ekf, loop, ring, world, meas_fn,
-                                       ticks)
+                                       n)
             else:
-                out = course(0, chunked=True)
+                out = (prefix_course if n == prefix else course)(
+                    0, chunked=True)
             counts = read_counts()
             st = out["state"]
             e_s, e_o = out["ekf_err"], out["odo_err"]
@@ -1519,22 +1536,25 @@ class Ekf:
             n_lm = out["count"]
             finite = all(bool(torch.isfinite(x).all())
                          for x in (st.ekf.state, st.ekf.cov, st.true_pose))
-            if not (finite and slam_xy < 0.5 * odo_xy and 36 <= n_lm <= 50):
+            if not finite or (n == ticks and not (
+                    slam_xy < 0.5 * odo_xy and 36 <= n_lm <= 50)):
                 raise AssertionError(f"config 4 ({name}): SLAM |xy| {slam_xy}"
                                      f" m, odometry {odo_xy} m, {n_lm} "
                                      f"landmarks, finite {finite}")
-            if counts != want:
+            if counts != want(n):
                 raise AssertionError(f"config 4 ({name}): launches {counts} "
-                                     f"for {ticks} ticks, expected {want}")
+                                     f"for {n} ticks, expected {want(n)}")
             runs[name] = {
-                "out": out, "seconds": out["wall_s"],
-                "us_per_tick": 1e6 * out["wall_s"] / ticks,
-                "ticks_per_s": ticks / out["wall_s"],
+                "out": out, "ticks": n, "seconds": out["wall_s"],
+                "us_per_tick": 1e6 * out["wall_s"] / n,
+                "ticks_per_s": n / out["wall_s"],
                 "slam_xy_error_m": slam_xy,
                 "slam_heading_error_rad": float(e_s[0]),
                 "odometry_xy_error_m": odo_xy, "landmarks_tracked": n_lm,
                 "visits": out["visits"], "kernel_launches": counts}
-        a, b = runs["eager"].pop("out"), runs["chunked"].pop("out")
+        a = runs["eager"].pop("out")
+        b = runs["chunked_prefix"].pop("out")
+        full = runs["chunked"].pop("out")
         sa, sb = a["state"], b["state"]
         same = same_bits(sa, sb, ("true_pose", "odom", "u", "wpt_idx",
                                   "visits", "ticks", "done"))
@@ -1545,7 +1565,7 @@ class Ekf:
         same["telemetry"] = bool(torch.equal(a["tel_t"], b["tel_t"]))
         if not all(same.values()) or sa.host_ticks != sb.host_ticks:
             raise AssertionError(f"config 4 chunked vs eager: {same}")
-        self.dense_state = sb
+        self.dense_state = full["state"]
         self.c4_tick_us = runs["eager"]["us_per_tick"]
         self.k1_dense = runs["chunked"]["kernel_launches"]["K1"]
         self.eig_dense = runs["chunked"]["kernel_launches"]["EIG"]
@@ -1560,13 +1580,15 @@ class Ekf:
         chunk_us = wall_us(window.run, 5, warmup=0)
         prof = graph_window(window.run, 2, chunk, chunk_us)
         prof["host_syncs_per_tick"] = syncs_per_call(window.run, 3) / chunk
-        emit("dense_world", seconds=a["wall_s"] + b["wall_s"],
+        emit("dense_world", seconds=sum(r["seconds"] for r in runs.values()),
              K=mppi.rollouts, N=mppi.steps, cylinders=len(self.world),
              capacity=ekf.num_landmarks, beams=360, max_clusters=32,
              sensor_every=loop.sensor_every, ticks=ticks, chunk=chunk,
+             eager_prefix_ticks=prefix,
              ticks_per_s=runs["eager"]["ticks_per_s"], eager=runs["eager"],
-             chunked=runs["chunked"],
-             bit_identical=same, replayed_window=prof,
+             chunked_prefix=runs["chunked_prefix"],
+             chunked=runs["chunked"], bit_identical_prefix=same,
+             replayed_window=prof,
              replayed_us_per_tick=chunk_us / chunk,
              replayed_ticks_per_s=1e6 * chunk / chunk_us, card=self.card)
 
@@ -2682,7 +2704,34 @@ def _shard_gloo_solves(mesh, device):
         out[name + "_k1_solves"] = smoke.fm.KERNEL_LAUNCHES - before
         out[name + "_k1_obstacle_solves"] = (smoke.fm.OBSTACLE_LAUNCHES
                                              - before_obs)
+    out["graphed_steppers_raise"] = _graphs_refused(mesh, device, smoke)
     return out
+
+
+def _graphs_refused(mesh, device, smoke):
+    """Whether each graphed sharded stepper's constructor raises on this
+    rank's mesh (a host-staged gloo mesh on the card)."""
+    from tpunav_torch.estimation.rbpf.particle_filter import PFConfig
+    from tpunav_torch.parallel import (FusedShardedStepper,
+                                       PlainShardedStepper, ShardedPFStepper,
+                                       pf_init_sharded)
+
+    cfg = smoke.cfg(4096)
+    u = smoke.mppi.init_controls(cfg, device=device)
+    pcfg = PFConfig(num_particles=2 * mesh.size, k_samples=2)
+    raised = []
+    for build in (
+            lambda: FusedShardedStepper(cfg, smoke.model, mesh, u, 0),
+            lambda: PlainShardedStepper(cfg, smoke.model, mesh, u,
+                                        torch.Generator(device=device)),
+            lambda: ShardedPFStepper(pcfg, mesh, pf_init_sharded(
+                pcfg, mesh, device=device))):
+        try:
+            build()
+            raised.append(False)
+        except ValueError:
+            raised.append(True)
+    return raised
 
 
 def _shard_rbpf_course(mesh, device, updates):
@@ -2740,6 +2789,137 @@ def _shard_rbpf_course(mesh, device, updates):
     return out
 
 
+def _replayed_window(step, reps: int) -> dict:
+    """A graph stepper's replayed window: ms per step, host syncs per step,
+    and :func:`graph_window`'s device µs, idle share and host API calls
+    per step."""
+    us = wall_us(step, 10, warmup=0)
+    return {"ms": us / 1e3, "host_syncs": syncs_per_call(step, 3),
+            **graph_window(step, reps, 1, us)}
+
+
+def _shard_graph_rank(mesh, device, solves, updates):
+    """graph_sharded, on one NCCL rank: the graphed sharded steppers
+    (tpunav_torch.parallel) against the eager sharded functions in this
+    rank. (a) FusedShardedStepper at K=4,096 over ``solves`` chained
+    solves from seed 7: the eager sharded chain's bits, within 2 ulps of
+    mppi_solve_fused, one K1 (partials) launch per replay. (b)
+    PlainShardedStepper at K=4,096 over 5 solves drawing from a generator:
+    the eager sharded solve's bits and generator. (c) ShardedPFStepper at
+    config 5 over ``updates`` updates of Rbpf.course_inputs from filter
+    seed 0: every leaf and the generator the eager sharded course's, the
+    fields K4 of the grids, one K2, K3 and K4 launch per replay. Each with
+    ms per step eager and replayed and a replayed window."""
+    import torch.distributed as dist
+
+    from tpunav_torch.parallel import (FusedShardedStepper,
+                                       PlainShardedStepper, ShardedPFStepper,
+                                       mppi_solve_fused_sharded,
+                                       mppi_solve_sharded, pf_init_sharded,
+                                       pf_slam_step_sharded)
+
+    smoke = Smoke()
+    fm, model = smoke.fm, smoke.model
+    out = {"backend": dist.get_backend(), "ranks": mesh.size}
+
+    cfg = smoke.cfg(4096)
+    u0, pose, xd, _ = smoke.tensors(cfg, u_off=(0.5, -0.2))
+    eager = mppi_solve_fused_sharded(cfg, model, mesh)
+    eager(u0, 0, pose, xd)          # the warm-up: NCCL's communicator
+    chain, u = [], u0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(solves):
+        chain.append(eager(u, 7 + i, pose, xd))
+        u = chain[-1][1]
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / solves
+    graph = FusedShardedStepper(cfg, model, mesh, u0, 7)
+    reset_counts()
+    got = [tuple(t.clone() for t in graph.step(pose, xd))
+           for _ in range(solves)]
+    counts = read_counts()
+    same = all(torch.equal(a, b) for g, e in zip(got, chain)
+               for a, b in zip(g, e))
+    ulps, u = 0.0, u0
+    for i, g in enumerate(got):
+        want = fm.mppi_solve_fused(cfg, model, u, 7 + i, pose, xd)
+        ulps = max([ulps] + [ulps_apart(a, b) for a, b in zip(g, want)])
+        u = g[1]
+    out["fused"] = {"K": cfg.rollouts, "N": cfg.steps, "solves": solves,
+                    "launches": counts, "eager_bits": same,
+                    "max_ulps_vs_mppi_solve_fused": ulps,
+                    "seed_after": int(graph.seed),
+                    "eager_ms_per_solve": eager_ms,
+                    "replayed": _replayed_window(
+                        lambda: graph.step(pose, xd), 5)}
+
+    gens = []
+    for _ in range(2):
+        gens.append(torch.Generator(device=device))
+        gens[-1].manual_seed(11)
+    eager = mppi_solve_sharded(cfg, model, mesh)
+    eager(u0, torch.Generator(device=device), pose, xd)     # the warm-up
+    graph = PlainShardedStepper(cfg, model, mesh, u0, gens[1])
+    u, same = u0, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = []
+    for _ in range(5):
+        want.append(eager(u, gens[0], pose, xd))
+        u = want[-1][1]
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / 5
+    for w in want:
+        same.append(all(torch.equal(a, b) for a, b in zip(
+            graph.step(pose, xd), w)))
+    same.append(torch.equal(gens[0].get_state(), gens[1].get_state()))
+    out["plain"] = {"K": cfg.rollouts, "N": cfg.steps, "solves": 5,
+                    "eager_bits": same, "eager_ms_per_solve": eager_ms,
+                    "replayed": _replayed_window(
+                        lambda: graph.step(pose, xd), 3)}
+
+    rb = Rbpf("")
+    u, scans, odoms, prevs = rb.course_inputs()
+    pcfg = rb.cfg
+    st = pf_init_sharded(pcfg, mesh, seed=0, device=device)
+    graph = ShardedPFStepper(pcfg, mesh, pf_init_sharded(pcfg, mesh, seed=0,
+                                                         device=device))
+    step = pf_slam_step_sharded(pcfg, mesh)
+    step(pf_init_sharded(pcfg, mesh, seed=1, device=device), scans[0], u,
+         odoms[0], prevs[0])                                 # the warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(updates):
+        st = step(st, scans[i], u, odoms[i], prevs[i])
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / updates
+    reset_counts()
+    for i in range(updates):
+        graph.step(scans[i], u, odoms[i], prevs[i])
+    counts = read_counts()
+    same = same_bits(graph.state, st, ("poses", "prev_poses", "log_weights",
+                                       "grids", "dists", "prev_scan",
+                                       "has_prev"))
+    same["generator"] = torch.equal(graph.state.generator.get_state(),
+                                    st.generator.get_state())
+    k = [0]
+
+    def update():
+        i = k[0] % updates
+        graph.step(scans[i], u, odoms[i], prevs[i])
+        k[0] += 1
+
+    out["rbpf"] = {"P": pcfg.num_particles, "updates": updates,
+                   "launches": counts, "eager_bits": same,
+                   "dists_are_k4_of_grids": torch.equal(
+                       graph.state.dists,
+                       rb.mu.edt_batch(pcfg.grid, graph.state.grids)),
+                   "eager_ms_per_update": eager_ms,
+                   "replayed": _replayed_window(update, 3)}
+    return out
+
+
 class Sharded:
     """The sharded paths on the card: ``tpunav_torch.parallel`` through
     ``runtime.distributed``, in ranks spawned by ``examples_torch.launch``.
@@ -2749,6 +2929,7 @@ class Sharded:
     def __init__(self, smoke: Smoke, rbpf: Rbpf):
         self.s, self.r = smoke, rbpf
         self.launches = {}
+        self.refused = None            # sharded_mppi's gloo check, once run
 
     def mppi(self):
         from examples_torch import launch, mppi_two_process
@@ -2766,6 +2947,10 @@ class Sharded:
 
         ranks = launch(_shard_gloo_solves, (), world=2, device="cuda",
                        backend="gloo", timeout=300)
+        self.refused = [r["graphed_steppers_raise"] for r in ranks]
+        if self.refused != [[True] * 3] * 2:
+            raise AssertionError(f"graphed sharded steppers on two gloo "
+                                 f"ranks: raised {self.refused}")
         for key in ("k196608", "plain_k4096"):
             if not np.array_equal(ranks[0][key], ranks[1][key]):
                 raise AssertionError(f"({key}) the ranks' controls differ")
@@ -2892,6 +3077,47 @@ class Sharded:
                                                     b["launches"]]},
              note="two ranks share one card through gloo's host staging: "
                   "no rate here is a scaling number")
+
+
+    def graph(self):
+        """``graph_sharded``: the graphed sharded steppers in one NCCL rank
+        (:func:`_shard_graph_rank`), each the eager sharded path's bits,
+        one replay per solve or update, with one K1 (partials) launch per
+        fused solve and one K2, K3 and K4 per update; and, from
+        ``sharded_mppi``, that each raises on two gloo ranks."""
+        from examples_torch import launch
+
+        t0 = time.perf_counter()
+        (a,) = launch(_shard_graph_rank, (SHARD_SOLVES, SHARD_UPDATES),
+                      world=1, device="cuda", backend="nccl", timeout=600)
+        fused, plain, rb = a["fused"], a["plain"], a["rbpf"]
+        none = {"K1": 0, "K1_obstacle": 0, "K2": 0, "K3": 0, "K4": 0,
+                "EIG": 0}
+        want = {"fused": dict(none, K1=SHARD_SOLVES),
+                "rbpf": dict(none, K2=SHARD_UPDATES, K3=SHARD_UPDATES,
+                             K4=SHARD_UPDATES)}
+        if fused["launches"] != want["fused"] or not fused["eager_bits"]:
+            raise AssertionError(f"graph_sharded (a): {fused}")
+        if not fused["max_ulps_vs_mppi_solve_fused"] <= 2.0:
+            raise AssertionError(f"graph_sharded (a): "
+                                 f"{fused['max_ulps_vs_mppi_solve_fused']} "
+                                 "ulps from mppi_solve_fused")
+        if fused["seed_after"] != 7 + SHARD_SOLVES:
+            raise AssertionError(f"graph_sharded (a): seed {fused}")
+        if not all(plain["eager_bits"]):
+            raise AssertionError(f"graph_sharded (b): {plain}")
+        if (rb["launches"] != want["rbpf"] or not all(
+                rb["eager_bits"].values()) or not rb["dists_are_k4_of_grids"]):
+            raise AssertionError(f"graph_sharded (c): {rb}")
+        for key in ("K1", "K2", "K3", "K4"):
+            self.launches.setdefault(key, {})[
+                "graph_sharded_nccl_1rank"] = [
+                    (fused if key == "K1" else rb)["launches"][key]]
+        emit("graph_sharded", seconds=time.perf_counter() - t0,
+             card=self.s.card, backend=a["backend"], ranks=a["ranks"],
+             fused_chain=fused, plain_solve=plain, rbpf_config5=rb,
+             gloo_two_ranks_raise=self.refused,
+             note="one NCCL rank owns the card: no scaling number")
 
 
 # Steps of the EKF demos' courses held bit for bit against the masked
@@ -3254,10 +3480,14 @@ class Demos:
              **rows)
 
     def rbpf_stages(self):
-        """examples_torch.profile_rbpf_stages: the eager exploration loop's
-        ms per scan by stage over 5 scans (the profiler's cost grows with
-        the scans it records), with launches and host syncs per scan, and
-        the stages of one config-5 update."""
+        """examples_torch.profile_rbpf_stages on its replayed stages, as
+        ``tpunav`` jits each: the exploration loop's ms per scan by stage
+        from event marks between the three chained graphs over 5 scans,
+        their sum beside the demo's one ``ScanGraph`` replay per scan over
+        5 more (the profiler's cost grows with the scans it records), with
+        launches and host syncs per chained scan; and each stage of one
+        config-5 update as its own graph, the whole update a
+        ``PFStepper`` replay."""
         from examples_torch import profile_rbpf_stages as prof
 
         t0 = time.perf_counter()
@@ -3739,14 +3969,15 @@ class CudaGraphs:
              pose_error_cm=100 * float(torch.hypot(e[1], e[2])),
              replayed_window=prof)
 
-    def ekf(self):
-        """``graph_ekf``: config 3 through ``run_slam_loop`` (``ekf_course``'s
-        graph run) against the eager per-tick loop from the same start, bit
-        for bit, the generator included; a replayed window of 60-tick
-        chunks, and of held chunks from the finished course (K1 returns at
-        once); the EKF update alone at ``bench_ekf``'s shape (n=50, 12
-        visible of 50 rows, float32) through ``EKFStepper`` without and
-        with the default SPD repair (:meth:`update_alone`)."""
+    def ekf(self, prefix=GRAPH_EKF_EAGER_PREFIX):
+        """``graph_ekf``: config 3 through ``run_slam_loop`` to ``prefix``
+        ticks (a prefix of ``ekf_course``'s graph run) against the eager
+        per-tick loop from the same start, bit for bit, the generator
+        included; a replayed window of 60-tick chunks, and of held chunks
+        from ``ekf_course``'s finished course (K1 returns at once); the EKF
+        update alone at ``bench_ekf``'s shape (n=50, 12 visible of 50
+        rows, float32) through ``EKFStepper`` without and with the default
+        SPD repair (:meth:`update_alone`)."""
         sl, ekff = self.e.sl, self.e.ekff
         t0 = time.perf_counter()
         mppi, ekf, loop, wpts, lms = self.e.config3()
@@ -3754,11 +3985,14 @@ class CudaGraphs:
         st = sl.slam_loop_init(mppi, ekf, seed=1, device=self.dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        while st.host_ticks < 6000 and not bool(st.done):
+        while st.host_ticks < prefix and not bool(st.done):
             st = sl.slam_loop_tick(mppi, ekf, loop, model, wpts, lms, st)
         torch.cuda.synchronize()
         eager_us = 1e6 * (time.perf_counter() - t1) / st.host_ticks
-        g = self.e.c3_state
+        g = sl.run_slam_loop(mppi, ekf, loop, model, wpts, lms,
+                             sl.slam_loop_init(mppi, ekf, seed=1,
+                                               device=self.dev),
+                             max_ticks=prefix)
         same = same_bits(g, st, ("true_pose", "odom", "u", "wpt_idx",
                                  "visits", "ticks", "done"))
         same.update({f"ekf.{k}": v for k, v in same_bits(
@@ -3777,7 +4011,8 @@ class CudaGraphs:
         prof = graph_window(window.step, 3, chunk, chunk_us)
         # Chunks of held ticks from ekf_course's finished state: K1 returns
         # at once on each.
-        held = sl._Chunks(mppi, ekf, loop, model, wpts, lms, g, chunk, 10**9)
+        held = sl._Chunks(mppi, ekf, loop, model, wpts, lms,
+                          self.e.c3_state, chunk, 10**9)
         held.step()
         held.step()
         held_us = wall_us(held.step, 3, warmup=0)
@@ -3795,7 +4030,7 @@ class CudaGraphs:
         self.launches["ekf_eig"] = {k: r["launches"]["EIG"]
                                     for k, r in update.items()}
         emit("graph_ekf", seconds=time.perf_counter() - t0, card=self.card,
-             ticks=st.host_ticks, bit_identical=same,
+             eager_prefix_ticks=st.host_ticks, bit_identical=same,
              eager_us_per_tick=eager_us,
              eager_ticks_per_s=1e6 / eager_us,
              graph_us_per_tick=chunk_us / chunk,
@@ -3880,6 +4115,161 @@ class CudaGraphs:
                 "float64_updates": f64_updates,
                 "replayed_window": graph_window(
                     lambda: stepper.step(meas[-1], u), 3, 1, step_us)}
+
+    def plain_course(self, prefix=240, stop=210, chunk=60, window=24):
+        """``plain_course``: the plain backend (control/mppi.py's solve, no
+        kernel; its perturbations drawn from the state's generator into a
+        static tensor before each replay) in replayed chunks. The pentagon
+        at K=1,024 (examples_torch.mppi_waypoints_demo.run(False, 1024)'s
+        configuration): the eager per-tick loop to ``prefix`` ticks;
+        run_course_chunked in chunks of ``chunk`` (a warm-up chunk, a
+        captured one, replays) to done, its first ``prefix`` ticks' state,
+        telemetry and generator the eager loop's, done at ≥ 60 steady
+        solves/s (the chunks after the warm-up and capture chunks);
+        run_course held to ``max_ticks`` = ``stop``, mid-chunk, the eager
+        loop's state and generator there; a replayed window of
+        ``window``-tick chunks (the profiler records ~2,500 kernels a
+        tick). Config 3 on the plain backend (slam_mppi_closed_loop_demo.
+        configs(True, 12, use_fused=False)): run_slam_loop to ``prefix``
+        ticks against the eager ticks bit for bit (state, filter,
+        generator), then the whole course as the demo runs it: done, EKF
+        error below odometry's. Nothing here launches a counted kernel;
+        ``part_seconds`` holds each part's host seconds, captures
+        included."""
+        from tpunav_torch.control import waypoint_loop as wl
+
+        t0 = time.perf_counter()
+        secs = {}
+
+        def lap(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            secs[name] = now - lap.t
+            lap.t = now
+
+        lap.t = t0
+        s, sl, ekff = self.s, self.e.sl, self.e.ekff
+        cfg = s.config.load_mppi_config(
+            os.path.join(CONFIGS, "mppi_params.yaml"), horizon=0.5,
+            rollouts=1024)
+        course = wl.CourseConfig(goal_thresh=0.1, tick_dt=1.0 / 60.0,
+                                 max_ticks=20_000, use_fused=False)
+        wpts = torch.as_tensor(s.config.load_waypoints(
+            os.path.join(CONFIGS, "real_waypoints.yaml")),
+            dtype=torch.float32, device=self.dev)
+        model = s.model
+
+        def start():
+            return wl.course_init(cfg, torch.zeros(3), seed=0,
+                                  device=self.dev)
+
+        reset_counts()
+        st, rows = start(), {"pose": [], "wpt_idx": [], "d2g": []}
+        lap("set_up")
+        for i in range(prefix):
+            rows["pose"].append(st.pose)
+            rows["wpt_idx"].append(st.wpt_idx)
+            rows["d2g"].append(wl._dist_to_goal(
+                st.pose, wl._active_waypoint(wpts, st.wpt_idx)))
+            st = wl.course_tick(cfg, course, model, wpts, st)
+            if i == stop - 1:
+                at_stop = (st, st.generator.get_state())
+        lap("eager_ticks")
+        eager_us = 1e6 * secs["eager_ticks"] / prefix
+        seen, marks = [], []
+
+        def on_chunk(a, tel):
+            seen.append((a, tel, a.generator.get_state()))
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        whole = wl.run_course_chunked(cfg, course, model, wpts, start(),
+                                      chunk=chunk, on_chunk=on_chunk)
+        lap("run_course_chunked")
+        ticks = int(whole.ticks)
+        steady = (ticks - 2 * chunk) / (marks[-1] - marks[1])
+        a, _, gen = seen[prefix // chunk - 1]
+        same = {"chunked": same_bits(a, st, self.COURSE_FIELDS)}
+        same["chunked"]["generator"] = torch.equal(gen,
+                                                   st.generator.get_state())
+        same["chunked"]["telemetry"] = all(
+            torch.equal(torch.cat([t[k] for _, t, _ in
+                                   seen[:prefix // chunk]]),
+                        torch.stack(v)) for k, v in rows.items())
+        got = wl.run_course(cfg, dataclasses.replace(course, max_ticks=stop),
+                            model, wpts, start(), chunk=chunk)
+        same["run_course"] = same_bits(got, at_stop[0], self.COURSE_FIELDS)
+        same["run_course"]["generator"] = torch.equal(
+            got.generator.get_state(), at_stop[1])
+        lap("run_course_to_max_ticks")
+        runner = wl._Chunks(cfg, course, model, wpts, start(), None, None,
+                            window, held=False, telemetry=True)
+        runner.step(course.max_ticks)            # the warm-up
+        runner.step(course.max_ticks)            # the capture
+        chunk_us = wall_us(lambda: runner.step(course.max_ticks), 5,
+                           warmup=0)
+        prof = graph_window(lambda: runner.step(course.max_ticks), 1, window,
+                            chunk_us)
+        prof["host_syncs_per_tick"] = syncs_per_call(
+            lambda: runner.step(course.max_ticks), 1) / window
+        lap("replayed_window")
+        counts = read_counts()
+        bad = {k: v for k, v in same.items() if not all(v.values())}
+        done = bool(whole.done) and int(whole.visits) == len(wpts)
+        if bad or not done or not steady >= 60:
+            raise AssertionError(f"plain course: bits {same}, done {done}, "
+                                 f"{steady} steady solves/s")
+        if any(counts.values()):
+            raise AssertionError(f"the plain backend launched {counts}")
+
+        demo = self.e.c3_demo
+        mppi, ekf, loop = demo.configs(True, 12, use_fused=False)
+        c3w, c3l = self.e.t(demo.WAYPOINTS), self.e.t(demo.block_world())
+        st = sl.slam_loop_init(mppi, ekf, seed=1, device=self.dev)
+        lap("config3_set_up")
+        while st.host_ticks < prefix and not bool(st.done):
+            st = sl.slam_loop_tick(mppi, ekf, loop, demo.MODEL, c3w, c3l, st)
+        lap("config3_eager_ticks")
+        c3_eager_us = 1e6 * secs["config3_eager_ticks"] / st.host_ticks
+        got = sl.run_slam_loop(mppi, ekf, loop, demo.MODEL, c3w, c3l,
+                               sl.slam_loop_init(mppi, ekf, seed=1,
+                                                 device=self.dev),
+                               max_ticks=prefix)
+        c3_same = same_bits(got, st, ("true_pose", "odom", "u", "wpt_idx",
+                                      "visits", "ticks", "done"))
+        c3_same.update({f"ekf.{k}": v for k, v in same_bits(
+            got.ekf, st.ekf, ekff.EKFState._fields).items()})
+        c3_same["generator"] = torch.equal(got.generator.get_state(),
+                                           st.generator.get_state())
+        lap("config3_run_slam_loop_prefix")
+        c3 = demo.run("config 3", demo.block_world(), True, 12,
+                      use_fused=False, verbose=False, device=self.dev)
+        lap("config3_demo_course")
+        if (not all(c3_same.values()) or got.host_ticks != st.host_ticks
+                or not c3["done"] or not c3["ekf_err_m"] < c3["odom_err_m"]):
+            raise AssertionError(f"plain config 3: bits {c3_same}, done "
+                                 f"{c3['done']}, EKF {c3['ekf_err_m']} m, "
+                                 f"odometry {c3['odom_err_m']} m")
+        self.launches["plain_course"] = read_counts()
+        emit("plain_course", seconds=time.perf_counter() - t0,
+             card=self.card, part_seconds=secs, pentagon={
+                 "K": cfg.rollouts, "N": cfg.steps, "ticks": ticks,
+                 "done": True, "steady_solves_per_s": steady,
+                 "wall_s": secs["run_course_chunked"],
+                 "eager_us_per_tick": eager_us,
+                 "replayed_us_per_tick": chunk_us / window,
+                 "bit_identical": same, "prefix_ticks": prefix,
+                 "run_course_max_ticks": stop, "chunk": chunk,
+                 "window_chunk": window, "replayed_window": prof},
+             config3={"K": mppi.rollouts, "N": mppi.steps,
+                      "ticks": c3["ticks"], "done": True,
+                      "ekf_error_m": c3["ekf_err_m"],
+                      "odometry_error_m": c3["odom_err_m"],
+                      "ticks_per_s_with_captures": c3["ticks_per_s"],
+                      "eager_us_per_tick": c3_eager_us,
+                      "bit_identical_prefix": c3_same,
+                      "prefix_ticks": prefix},
+             kernel_launches=self.launches["plain_course"])
 
     def collector(self, runners=4, chunk=30, steps=3):
         """``graph_gc``: the capture guard (``capture.Graph`` collects
@@ -4246,15 +4636,16 @@ def graph_launches(cuda_graphs: CudaGraphs, key: str) -> dict:
     """One kernel's measured launches in the CUDA-graph phases, for the
     ``kernels`` line (a graph's launches counted on every replay)."""
     g = cuda_graphs.launches
+    plain = {"launches_plain_course": g["plain_course"][key]}
     if key == "K1":
         return {"launches_graph_course": g["course"],
                 "launches_graph_solves": g["solves"],
                 "launches_graph_ekf": g["ekf"],
-                "launches_graph_rbpf": g["rbpf"]["K1"]}
+                "launches_graph_rbpf": g["rbpf"]["K1"], **plain}
     if key == "K1_obstacle":
         return {"launches_graph_course": {"config2": g["obstacle"]},
-                "launches_graph_rbpf": g["rbpf"]["K1_obstacle"]}
-    return {"launches_graph_rbpf": g["rbpf"][key]}
+                "launches_graph_rbpf": g["rbpf"]["K1_obstacle"], **plain}
+    return {"launches_graph_rbpf": g["rbpf"][key], **plain}
 
 
 def node_launches(graphs: Graphs, key: str) -> dict:
@@ -4312,6 +4703,7 @@ def main() -> int:
     cuda_graphs.rbpf()
     cuda_graphs.ekf()
     cuda_graphs.collector()
+    cuda_graphs.plain_course()
     graphs = Graphs(smoke, rbpf, ekf)
     graphs.node_course()
     graphs.slam_nodes()
@@ -4321,6 +4713,7 @@ def main() -> int:
     sharded = Sharded(smoke, rbpf)
     sharded.mppi()
     sharded.rbpf()
+    sharded.graph()
     demos = Demos(smoke)
     demos.explore()
     demos.full_stack()

@@ -22,7 +22,7 @@ which only ``plot`` functions and ``main`` import: where it is missing,
 - ``mppi_two_process``, ``rbpf_two_process``: the K-sharded MPPI solve
   and the P-sharded RBPF across processes;
 - ``profile_rbpf_stages``: the RBPF update's and the exploration loop's
-  stage times;
+  stage times, each stage a CUDA graph;
 - ``make_results``: the fidelity tables, ``RESULTS_torch.md``.
 
 :func:`kernel_profile`, :func:`launches_per_call` and

@@ -244,11 +244,12 @@ def row_budget(device):
         lines.append(f"| {name} | {v:.2f}{unit} |")
     return lines + [
         "",
-        "CUDA-event ms per scan of each stage inside the chained loop "
-        "(examples_torch/profile_rbpf_stages.py: marks between the stages "
-        "of 10 scans of the exploration's run_chunk, so the stages add up "
-        "to the whole interval). Launches per scan from torch.profiler, "
-        "host syncs from torch's sync debug mode.", ""]
+        "CUDA-event ms per scan of each stage from marks between its "
+        "CUDA graphs, chained over 10 scans of the exploration "
+        "(examples_torch/profile_rbpf_stages.py: ChainedStages), their sum "
+        "beside the exploration's one ScanGraph replay per scan. Launches "
+        "per chained scan from torch.profiler, host syncs from torch's "
+        "sync debug mode.", ""]
 
 
 def build_row(row: int, seeds, fs_seeds, steps, device):

@@ -270,6 +270,15 @@ class ScanGraph:
         """One scan interval; returns the static (5,) sample. ``noise``:
         (K1's (6, N, K, 2) perturbations, the scan's (B,) normals, the
         filter's ``PFNoise``) in place of the draws (``injected`` only)."""
+        self.draw(noise)
+        self.graph()
+        self.tick += 1
+        return self.sample
+
+    def draw(self, noise=None) -> None:
+        """The next scan's draws into the static tensors: the lidar's
+        normals and the filter's from their generators, or ``noise`` (see
+        :meth:`step`)."""
         if noise is None:
             z = self.scan_noise
             z.copy_(torch.randn(z.shape, generator=self.scan_gen,
@@ -280,9 +289,6 @@ class ScanGraph:
                 raise ValueError("K1's perturbations need injected=True")
             capture.load((self.k1_noise, self.scan_noise), noise[:2])
             self.stepper.draw(noise[2])
-        self.graph()
-        self.tick += 1
-        return self.sample
 
     def load(self, st: ExploreState) -> None:
         """``st`` into the buffers and generators, in place."""

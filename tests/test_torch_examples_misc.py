@@ -125,8 +125,10 @@ def test_live_view_demo_writes_its_png(tmp_path, rbpf):
 
 
 def test_profile_closed_loop_shortened():
+    """The eager interval's split (the replayed one is the default, held in
+    tests/test_torch_examples_rbpf.py)."""
     out = tps.profile_closed_loop(num_particles=16, reps=2, rollouts=64,
-                                  device="cpu")
+                                  device="cpu", eager=True)
     assert list(out) == [*tps.STAGES, "whole scan interval (chained)"]
     stages = [out[k] for k in tps.STAGES]     # launches and syncs: card only
     assert all(v > 0 for v in stages) and np.isfinite(list(out.values())).all()

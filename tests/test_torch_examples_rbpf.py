@@ -8,6 +8,10 @@ rbpf_explore_demo``, ``examples_torch.full_stack_demo``) against
   public functions (its ``build`` draws the noise in the kernel and cannot
   be fed); a checkpoint and resume bit-equal to the run it was saved
   from; the seed sweep.
+- The stage profile (``examples_torch.profile_rbpf_stages``): its three
+  stage graphs chained per scan leave the state, generators and samples
+  that the demo's one ``ScanGraph`` replay per scan leaves, and both of its
+  profiles run on the CPU path.
 - Full stack: ``make_world`` and ``occupancy_to_labels``; two scan
   intervals (the motion-model update, then the ICP one), each from
   ``tpunav``'s state, on both controller backends: ``tpunav``'s control
@@ -34,6 +38,7 @@ from scipy.ndimage import binary_dilation
 from examples import full_stack_demo as jfs
 from examples import rbpf_explore_demo as jex
 from examples_torch import full_stack_demo as tfs
+from examples_torch import profile_rbpf_stages as prof
 from examples_torch import rbpf_explore_demo as tex
 from examples_torch import rbpf_slam_demo as trs
 from tpunav.control import mppi as jm
@@ -266,6 +271,37 @@ def test_explore_graph_loads_a_resumed_state_in_place(tmp_path):
     for _ in range(3):
         rebound.step()
     assert tex.digests(rebound.snapshot()) != tex.digests(straight)
+
+
+def test_chained_stage_graphs_leave_the_scan_graphs_state():
+    """Four scans through ``ChainedStages``' three graphs (control chunk,
+    raycast, ``PFStepper``'s update) against four ``ScanGraph`` replays
+    from the same state: every sample, leaf and generator bit for bit; the
+    two forms then alternate on the chained runner's buffers."""
+    pf_cfg, mppi_cfg = tex.configs(8, 64)
+    start = tex.init_state(pf_cfg, mppi_cfg, device="cpu")
+    chained = prof.ChainedStages(pf_cfg, mppi_cfg, start, "cpu")
+    one = tex.ScanGraph(pf_cfg, mppi_cfg, start, "cpu")
+    for i in range(4):
+        got = (chained.step() if i % 2 == 0
+               else chained.scan_graph.step()).clone()
+        assert torch.equal(got, one.step()), i
+    _assert_explore_equal(chained.scan_graph.snapshot(), one.snapshot())
+    assert one.tick == 4
+
+
+def test_stage_profiles_run_on_the_cpu():
+    """``profile_closed_loop`` and ``stage_times`` on the CPU path of their
+    graphs, shrunk: every stage timed, the chained stages' sum beside the
+    one replay."""
+    loop = prof.profile_closed_loop(num_particles=8, reps=2, rollouts=64,
+                                    device="cpu")
+    assert set(prof.STAGES) < set(loop)
+    assert loop["stages chained (sum)"] == pytest.approx(
+        sum(loop[name] for name in prof.STAGES))
+    assert loop["ScanGraph scan (one replay)"] > 0
+    stages = prof.stage_times(num_particles=8, reps=1, device="cpu")
+    assert len(stages) == 7 and all(v > 0 for v in stages.values())
 
 
 def _jax_explore_interval(jcfg, true, odom, u, wheel, idx, rng):

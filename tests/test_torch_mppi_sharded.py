@@ -9,6 +9,14 @@ bar (1e-10); the fused solve (kernel K1's plain version on the CPU) takes
 ``tpunav``'s injected noise, held against ``tpunav``'s fused sharded
 kernel in interpret mode at 1e-5. Also the per-shard seeds, the split
 checks, the ranks' agreement and the one-shard identity.
+
+The graphed steppers (``FusedShardedStepper``, ``PlainShardedStepper``:
+``capture.Graph``'s CPU path runs the bodies the card replays) take the
+same noise to the same bars, and in the ranks chain three solves with
+the eager sharded solve's bits, the plain one drawing from the rank's
+generator, the fused one advancing its device seed; on one shard the
+fused stepper gives ``mppi_solve_fused``'s bits. A host-staged mesh makes
+them raise, and a sharded solve packs its obstacle table once.
 """
 
 import dataclasses
@@ -22,7 +30,10 @@ from tpunav_torch import interop
 from tpunav_torch.control import mppi as tm
 from tpunav_torch.models.cart import CartParams
 from tpunav_torch.ops import fused_mppi
-from tpunav_torch.parallel import (mppi_solve_fused_sharded,
+from tpunav_torch.control.obstacle_cost import (SegmentCostParams,
+                                                segments_from_polygons)
+from tpunav_torch.parallel import (FusedShardedStepper, PlainShardedStepper,
+                                   ShardMesh, mppi_solve_fused_sharded,
                                    mppi_solve_sharded, rollout_mesh,
                                    shard_seed)
 
@@ -112,6 +123,20 @@ def _rank_solves(mesh, device, inp):
             tm.init_controls(fused, device=device), 0,
             torch.tensor(POSE), torch.tensor(goal), noise=z)
         out["fused", name] = (cmd.numpy(), u_next.numpy())
+        # The graphed steppers on the same noise.
+        step = PlainShardedStepper(
+            plain, MODEL, mesh, tm.init_controls(
+                plain, dtype=torch.float64, device=device),
+            torch.Generator(), device=device)
+        cmd, u_next = step.step(
+            pose64, torch.tensor(goal, dtype=torch.float64), noise=noise)
+        out["plain_graph", name] = (cmd.numpy().copy(), u_next.numpy().copy())
+        step = FusedShardedStepper(fused, MODEL, mesh, tm.init_controls(
+            fused, device=device), 0, injected=True, device=device)
+        cmd, u_next = step.step(torch.tensor(POSE), torch.tensor(goal),
+                                noise=z)
+        out["fused_graph", name] = (cmd.numpy().copy(), u_next.numpy().copy())
+    out["chains"] = _chains(mesh, device, plain, fused)
     odd = dataclasses.replace(plain, rollouts=4 * mesh.size + 1)
     raised = []
     for build in (mppi_solve_sharded, mppi_solve_fused_sharded):
@@ -122,6 +147,43 @@ def _rank_solves(mesh, device, inp):
             raised.append(True)
     out["raised"] = raised
     return out
+
+
+def _chains(mesh, device, plain, fused):
+    """Three chained solves of each graphed stepper beside the eager
+    sharded solve from the same controls: per solve whether (cmd, u_next)
+    are the same bits; then whether the generators (plain) or the seeds
+    (fused: 7, 8, 9 taken, 10 next) end equal."""
+    pose, xd = torch.tensor(POSE), torch.tensor(GOALS["near"])
+    offset = torch.tensor([0.5, -0.2])
+    rows = {}
+
+    def gen():
+        return torch.Generator().manual_seed(20 + mesh.index)
+
+    u = tm.init_controls(plain, device=device) + offset
+    eager, g = mppi_solve_sharded(plain, MODEL, mesh), gen()
+    graph = PlainShardedStepper(plain, MODEL, mesh, u, gen(), device=device)
+    rows["plain"] = []
+    for _ in range(3):
+        want = eager(u, g, pose, xd)
+        u = want[1]
+        rows["plain"].append(all(torch.equal(a, b) for a, b in zip(
+            graph.step(pose, xd), want)))
+    rows["plain"].append(torch.equal(g.get_state(),
+                                     graph.generator.get_state()))
+
+    u = tm.init_controls(fused, device=device) + offset
+    eager = mppi_solve_fused_sharded(fused, MODEL, mesh)
+    graph = FusedShardedStepper(fused, MODEL, mesh, u, 7, device=device)
+    rows["fused"] = []
+    for i in range(3):
+        want = eager(u, 7 + i, pose, xd)
+        u = want[1]
+        rows["fused"].append(all(torch.equal(a, b) for a, b in zip(
+            graph.step(pose, xd), want)))
+    rows["fused"].append(int(graph.seed) == 10)
+    return np.array(rows["plain"]), np.array(rows["fused"])
 
 
 @pytest.fixture(scope="module")
@@ -202,3 +264,97 @@ def test_one_shard_equals_the_unsharded_port():
                          pose.double(), xd.double())
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("path,bar", [("plain", 1e-10), ("fused", 1e-5)])
+@pytest.mark.parametrize("goal", sorted(GOALS))
+def test_graphed_steppers_match_tpunav(sharded, path, goal, bar):
+    """The graphed steppers over the two ranks, on tpunav's noise, at the
+    eager sharded solves' bars."""
+    got, want = sharded
+    cmd, u_next = got[0][path + "_graph", goal]
+    np.testing.assert_allclose(cmd, want[path][goal][0], atol=bar)
+    np.testing.assert_allclose(u_next, want[path][goal][1], atol=bar)
+
+
+def test_graphed_steppers_chain_the_eager_sharded_solves(sharded):
+    """Three chained solves per stepper and rank: the eager sharded
+    solve's bits, the generators and the device seed where the eager
+    chain leaves them."""
+    got, _ = sharded
+    for rank in got:
+        plain, fused = rank["chains"]
+        assert plain.all() and len(plain) == 4, plain
+        assert fused.all() and len(fused) == 4, fused
+
+
+def test_one_shard_graphed_solve_equals_mppi_solve_fused():
+    """On the one-shard identity mesh the fused stepper chains
+    mppi_solve_fused's bits (seeds 9, 10, 11), in-kernel noise and
+    injected."""
+    mesh = rollout_mesh(device="cpu")
+    cfg = tm.MPPIConfig(rollouts=96, horizon=0.2, dt=0.01)
+    pose, xd = torch.tensor(POSE), torch.tensor(GOALS["near"])
+    u0 = tm.init_controls(cfg, device="cpu") + torch.tensor([0.5, -0.2])
+    z = torch.randn((cfg.steps, cfg.rollouts, 2),
+                    generator=torch.Generator().manual_seed(3))
+    for noise in (None, z):
+        graph = FusedShardedStepper(cfg, MODEL, mesh, u0, 9,
+                                    injected=noise is not None,
+                                    device="cpu")
+        u = u0
+        for i in range(3):
+            got = graph.step(pose, xd, noise=noise)
+            want = fused_mppi.mppi_solve_fused(cfg, MODEL, u, 9 + i, pose,
+                                               xd, noise=noise)
+            u = want[1]
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_graphed_steppers_refuse_a_host_staged_mesh():
+    """gloo on CUDA stages every collective through the host, which no
+    graph captures: each stepper's constructor raises on such a mesh."""
+    mesh = ShardMesh(None, 0, 1, torch.device("cpu"), host_staged=True)
+    cfg = tm.MPPIConfig(rollouts=32, horizon=0.1, dt=0.01)
+    u = tm.init_controls(cfg, device="cpu")
+    with pytest.raises(ValueError, match="host-staged"):
+        FusedShardedStepper(cfg, MODEL, mesh, u, 0, device="cpu")
+    with pytest.raises(ValueError, match="host-staged"):
+        PlainShardedStepper(cfg, MODEL, mesh, u, torch.Generator(),
+                            device="cpu")
+
+
+def test_sharded_solve_packs_the_obstacles_once(monkeypatch):
+    """With obstacles, the sharded solve and the fused stepper pack the
+    table when built and never per solve (a host round trip that no graph
+    can capture), and solve as mppi_solve_fused does with obstacles."""
+    calls = []
+    pack = fused_mppi.pack_obstacles
+    monkeypatch.setattr(fused_mppi, "pack_obstacles",
+                        lambda *a, **k: calls.append(1) or pack(*a, **k))
+    mesh = rollout_mesh(device="cpu")
+    cfg = tm.MPPIConfig(rollouts=64, horizon=0.2, dt=0.01)
+    segs = segments_from_polygons([[[0.2, -0.4], [0.3, -0.4], [0.3, 0.4],
+                                    [0.2, 0.4]]], device="cpu")
+    obs = SegmentCostParams(r_safe=0.05, w_hit=1e6, w_field=1e2,
+                            sigma=0.05)
+    pose, xd = torch.tensor(POSE), torch.tensor(GOALS["far"])
+    u0 = tm.init_controls(cfg, device="cpu")
+    solve = mppi_solve_fused_sharded(cfg, MODEL, mesh, segs, obs)
+    graph = FusedShardedStepper(cfg, MODEL, mesh, u0, 4, segs, obs,
+                                device="cpu")
+    assert len(calls) == 2
+    u = u0
+    for i in range(3):
+        got = solve(u, 4 + i, pose, xd)
+        for a, b in zip(graph.step(pose, xd), got):
+            assert torch.equal(a, b)
+        u = got[1]
+    assert len(calls) == 2
+    want = fused_mppi.mppi_solve_fused(cfg, MODEL, u0, 4, pose, xd,
+                                       obstacles=segs, obs_cfg=obs)
+    first = solve(u0, 4, pose, xd)
+    assert len(calls) == 3          # mppi_solve_fused packs per call
+    for a, b in zip(first, want):
+        assert torch.equal(a, b)

@@ -496,6 +496,34 @@ def _graph_entry_points(pcfg):
             pcfg_, ekf.ekf_init(pcfg_, device="cpu"), 2, known_da=False),
         **_demo_graph_entry_points(ecfg, ekf.ekf_init(
             ecfg, dtype=torch.float32, device="cpu")),
+        **_sharded_graph_entry_points(pcfg),
+    }
+
+
+def _sharded_graph_entry_points(pcfg):
+    """The graphed sharded steppers (``tpunav_torch.parallel``) on the
+    one-shard CPU mesh, given their state on the CPU and no device."""
+    from tpunav_torch.control import mppi
+    from tpunav_torch.parallel import (FusedShardedStepper,
+                                       PlainShardedStepper, ShardedPFStepper,
+                                       pf_init_sharded, rollout_mesh)
+
+    cfg = mppi.MPPIConfig(horizon=0.1)
+    model = mppi.CartParams(0.033, 0.16)
+
+    def mesh():
+        return rollout_mesh(device="cpu")
+
+    def u():
+        return mppi.init_controls(cfg, device="cpu")
+
+    return {
+        "FusedShardedStepper": lambda: FusedShardedStepper(
+            cfg, model, mesh(), u(), 0),
+        "PlainShardedStepper": lambda: PlainShardedStepper(
+            cfg, model, mesh(), u(), torch.Generator()),
+        "ShardedPFStepper": lambda: ShardedPFStepper(
+            pcfg, mesh(), pf_init_sharded(pcfg, mesh(), device="cpu")),
     }
 
 
@@ -522,9 +550,17 @@ def _demo_graph_entry_points(ecfg, ekf_state):
         return le.StepGraph(ecfg, True, lambda pose, n: n, (2, 2), 2,
                             ekf_state, z, z)
 
+    def chained():
+        from examples_torch.profile_rbpf_stages import ChainedStages
+
+        pf_cfg, mppi_cfg = ex.configs(2, 32)
+        return ChainedStages(pf_cfg, mppi_cfg, ex.init_state(
+            pf_cfg, mppi_cfg, device="cpu"))
+
     return {"examples_torch.rbpf_explore_demo.ScanGraph": explore,
             "examples_torch.full_stack_demo.ScanGraph": full_stack,
-            "examples_torch.lidar_ekf_slam_demo.StepGraph": ekf_step}
+            "examples_torch.lidar_ekf_slam_demo.StepGraph": ekf_step,
+            "examples_torch.profile_rbpf_stages.ChainedStages": chained}
 
 
 def _node_entry_points(pcfg):

@@ -12,6 +12,14 @@ test_rbpf_sharded.py's bars: poses 1e-4, log-weights 1e-3, grids 1e-3.
 On the CPU the ranks run kernels K2–K4's plain versions. Also the forced
 resample's map exchange, the rebuilt fields, the ranks' agreement, the
 split checks and the interop round trip.
+
+The graphed sharded stepper (``ShardedPFStepper``: ``capture.Graph``'s
+CPU path runs the body the card replays) over the same eight updates
+gives the eager sharded filter's bits and so meets ``tpunav``'s at the
+same bars; drawing from the replicated generator it leaves the eager
+filter's state and generator. On one shard it gives ``PFStepper``'s
+bits; a state loaded in place reaches its body, a rebound one does not,
+and a host-staged mesh makes it raise.
 """
 
 import dataclasses
@@ -26,7 +34,9 @@ from tpunav_torch import interop
 from tpunav_torch.estimation.rbpf import GridConfig, PFConfig
 from tpunav_torch.estimation.rbpf import particle_filter as tpf
 from tpunav_torch.ops.map_update import edt_batch
-from tpunav_torch.parallel import pf_init_sharded, pf_slam_step_sharded
+from tpunav_torch.parallel import (ShardedPFStepper, ShardMesh,
+                                   pf_init_sharded, pf_slam_step_sharded,
+                                   rollout_mesh)
 from tpunav_torch.sim import lidar as tlidar
 
 torch.set_num_threads(1)
@@ -104,6 +114,28 @@ def _rank_filter(mesh, device, inp):
     out["course"] = interop.pf_state_gather_to_numpy(st, mesh)
     out["dists_are_edt"] = bool(torch.equal(st.dists,
                                             edt_batch(cfg.grid, st.grids)))
+
+    # The graphed stepper: the same course and normals; then three updates
+    # drawing from the replicated generator beside the eager step's.
+    graph = ShardedPFStepper(cfg, mesh, interop.pf_state_shard_from_numpy(
+        inp["init"], mesh, device), device=device)
+    for (scan, pose, prev), noise in zip(inp["course"], inp["noises"]):
+        graph.step(torch.from_numpy(scan), u, torch.from_numpy(pose),
+                   torch.from_numpy(prev),
+                   noise=tpf.PFNoise(*map(torch.from_numpy, noise)))
+    out["graph_course"] = interop.pf_state_gather_to_numpy(graph.state, mesh)
+    st = pf_init_sharded(cfg, mesh, seed=7, device=device)
+    graph = ShardedPFStepper(cfg, mesh, pf_init_sharded(
+        cfg, mesh, seed=7, device=device), device=device)
+    for scan, pose, prev in inp["course"][:3]:
+        args = (torch.from_numpy(scan), u, torch.from_numpy(pose),
+                torch.from_numpy(prev))
+        st = step(st, *args)
+        graph.step(*args)
+    out["graph_draws"] = (interop.pf_state_gather_to_numpy(st, mesh),
+                          interop.pf_state_gather_to_numpy(graph.state, mesh),
+                          torch.equal(st.generator.get_state(),
+                                      graph.state.generator.get_state()))
 
     # tests/test_rbpf_sharded.py:77-104: particle 3 takes all the weight,
     # and its grid carries +1.5, so the exchange must copy its map.
@@ -223,3 +255,106 @@ def test_sharded_entry_point_checks_the_mesh_device():
     assert st.poses.shape == (4, 3) and st.grids.shape[0] == 4
     with pytest.raises(ValueError, match="not the mesh's"):
         pf_init_sharded(cfg, mesh, device="meta")
+
+
+def test_sharded_stepper_equals_the_eager_sharded_filter(sharded):
+    """The eight updates through the graphed stepper with tpunav's normals,
+    and three drawing from the replicated generator: the eager sharded
+    filter's bits in every leaf, the generator's state included."""
+    _, got, _ = sharded
+    for rank in got:
+        for name in _STATE:
+            np.testing.assert_array_equal(rank["graph_course"][name],
+                                          rank["course"][name])
+        eager, graph, same_generator = rank["graph_draws"]
+        for name in _STATE:
+            np.testing.assert_array_equal(graph[name], eager[name])
+        assert same_generator
+
+
+def test_sharded_stepper_matches_tpunav(sharded):
+    _, got, want = sharded
+    _hold(got[0]["graph_course"], want)
+
+
+def _small_filter():
+    grid = GridConfig(resolution=0.1, xmin=-2.0, xmax=2.0, ymin=-2.0,
+                      ymax=2.0, num_beams=90, beam_delta=2 * math.pi / 90)
+    cfg = PFConfig(num_particles=8, k_samples=6,
+                   sample_range=(1e-6, 1e-5, 1e-5),
+                   motion_noise=(1e-6, 1e-5, 1e-5), grid=grid)
+    segs = tlidar.box_segments(-1.5, -1.5, 1.5, 1.5, device="cpu")
+    pose, course = np.zeros(3, np.float32), []
+    for _ in range(4):
+        prev, pose = pose, _true_step(pose)
+        scan = tlidar.scan_segments(torch.from_numpy(pose), segs,
+                                    num_beams=grid.num_beams,
+                                    beam_delta=grid.beam_delta,
+                                    max_range=grid.range_max)
+        course.append((scan, torch.tensor(U), torch.from_numpy(pose),
+                       torch.from_numpy(prev)))
+    return cfg, course
+
+
+def _state_equal(a, b):
+    return (all(torch.equal(getattr(a, n), getattr(b, n)) for n in _STATE)
+            and torch.equal(a.generator.get_state(),
+                            b.generator.get_state()))
+
+
+def test_one_shard_stepper_equals_pf_stepper():
+    """On the one-shard identity mesh the sharded stepper (K4 rebuilding
+    the fields from the grids) gives PFStepper's bits over four updates."""
+    cfg, course = _small_filter()
+    mesh = rollout_mesh(device="cpu")
+    one = tpf.PFStepper(cfg, tpf.pf_init(cfg, seed=3, device="cpu"),
+                        device="cpu")
+    sharded = ShardedPFStepper(cfg, mesh, pf_init_sharded(
+        cfg, mesh, seed=3, device="cpu"), device="cpu")
+    for args in course:
+        assert _state_equal(sharded.step(*args), one.step(*args))
+
+
+def test_sharded_stepper_loads_a_state_in_place():
+    """A stepper given another state through ``load`` keeps the buffers
+    and the generator its graph reads, and its next two updates give the
+    eager sharded chain's state after four; a stepper whose state is
+    rebound instead replays its old buffers, and the check catches it."""
+    cfg, course = _small_filter()
+    mesh = rollout_mesh(device="cpu")
+    step = pf_slam_step_sharded(cfg, mesh)
+    st = pf_init_sharded(cfg, mesh, seed=1, device="cpu")
+    halfway = None
+    for i, args in enumerate(course):
+        if i == 2:
+            gen = torch.Generator()
+            gen.set_state(st.generator.get_state())
+            halfway = st._replace(generator=gen)
+        st = step(st, *args)
+
+    graph = ShardedPFStepper(cfg, mesh, pf_init_sharded(
+        cfg, mesh, seed=9, device="cpu"), device="cpu")
+    graph.step(*course[0])
+    buffers = [t.data_ptr() for t in graph.state[:-1]]
+    generator = graph.state.generator
+    graph.load(halfway)
+    assert [t.data_ptr() for t in graph.state[:-1]] == buffers
+    assert graph.state.generator is generator
+    for args in course[2:]:
+        graph.step(*args)
+    assert _state_equal(graph.state, st)
+
+    rebound = ShardedPFStepper(cfg, mesh, pf_init_sharded(
+        cfg, mesh, seed=9, device="cpu"), device="cpu")
+    rebound.state = halfway
+    for args in course[2:]:
+        rebound.step(*args)
+    assert not _state_equal(rebound.state, st)
+
+
+def test_sharded_stepper_refuses_a_host_staged_mesh():
+    cfg, _ = _small_filter()
+    mesh = ShardMesh(None, 0, 1, torch.device("cpu"), host_staged=True)
+    st = pf_init_sharded(cfg, rollout_mesh(device="cpu"), device="cpu")
+    with pytest.raises(ValueError, match="host-staged"):
+        ShardedPFStepper(cfg, mesh, st, device="cpu")

@@ -18,6 +18,12 @@ configs 3 and 4) against ``tpunav``'s.
   lidar → detector → EKF chains of tests/test_perception_loop.py, and the
   dense world's closed loop (config 4, shrunk as tpunav's CI shrinks it)
   through K1's plain version.
+- The plain backend's replayed chunks (``capture.Graph``'s CPU path runs
+  the body the card replays): ``run_slam_loop`` stopping mid-chunk on done
+  and on ``max_ticks``, from a tick off the sensing schedule, and
+  ``run_slam_course`` with telemetry and a short last chunk, each against
+  the eager per-tick loop bit for bit, the generator included (its MPPI
+  perturbations and the sensor's normals interleave on one stream).
 """
 
 import dataclasses
@@ -35,8 +41,9 @@ from tpunav.estimation.ekf import EKFConfig as JEKFConfig
 from tpunav.models.cart import CartParams as JCartParams
 from tpunav_torch import interop
 from tpunav_torch.control.mppi import MPPIConfig, cost_to_go, rollout_losses
-from tpunav_torch.control.slam_loop import (SlamLoopConfig, run_slam_loop,
-                                            slam_loop_init, slam_loop_tick)
+from tpunav_torch.control.slam_loop import (SlamLoopConfig, run_slam_course,
+                                            run_slam_loop, slam_loop_init,
+                                            slam_loop_tick)
 from tpunav_torch.core.angles import normalize_angle_pi
 from tpunav_torch.estimation import landmarks as tl
 from tpunav_torch.estimation.ekf import filter as tf
@@ -301,3 +308,81 @@ def test_dense_world_closed_loop_smoke():
     assert slam_xy < 0.15 and slam_xy < 0.5 * odo_xy, (slam_xy, odo_xy)
     heading = float(normalize_angle_pi(est[0] - tru[2]))
     assert math.isfinite(heading)
+
+
+# ------------------------------------- the plain backend's replayed chunks --
+
+def _plain_c3(known):
+    """Config 3's loop on the plain backend, shrunk: K=64, sensing every 4
+    ticks, a two-waypoint course done in ~80 ticks."""
+    cfg = MPPIConfig(**dict(MPPI_KW, rollouts=64))
+    ekf_cfg = tf.EKFConfig(**EKF_KW)
+    loop = SlamLoopConfig(goal_thresh=0.05, known_da=known, sensor_every=4,
+                          meas_noise_std=1e-3)
+    wpts = torch.tensor([[0.12, 0.0, 0.0], [0.12, 0.1, 1.57]])
+    return cfg, ekf_cfg, loop, wpts, torch.tensor(LANDMARKS)
+
+
+def _plain_eager(cfg, ekf_cfg, loop, wpts, lms, st, max_ticks, row=None):
+    rows = []
+    while st.host_ticks < max_ticks and not (row is None and bool(st.done)):
+        st = slam_loop_tick(cfg, ekf_cfg, loop, MODEL, wpts, lms, st)
+        if row is not None:
+            rows.append(row(st))
+    return st, rows
+
+
+def _assert_loop_state(got, want):
+    assert got.host_ticks == want.host_ticks
+    for f in ("true_pose", "odom", "u", "wpt_idx", "visits", "ticks",
+              "done"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for name, x, y in zip(tf.EKFState._fields, got.ekf, want.ekf):
+        assert torch.equal(x, y), name
+    assert torch.equal(got.generator.get_state(), want.generator.get_state())
+
+
+@pytest.mark.parametrize("known", [True, False])
+@pytest.mark.parametrize("max_ticks,chunk,lead", [(600, 24, 0),
+                                                  (50, 12, 3)])
+def test_plain_run_slam_loop_equals_eager_ticks(known, max_ticks, chunk,
+                                                lead):
+    """``run_slam_loop`` on the plain backend: held chunks stopping
+    mid-chunk on done (chunks of 24) or on ``max_ticks`` (50, from a state
+    3 ticks in, off the sensing schedule), in the eager per-tick loop's
+    state and generator."""
+    cfg, ekf_cfg, loop, wpts, lms = _plain_c3(known)
+
+    def start():
+        st = slam_loop_init(cfg, ekf_cfg, seed=1, device="cpu")
+        return _plain_eager(cfg, ekf_cfg, loop, wpts, lms, st, lead)[0]
+
+    want, _ = _plain_eager(cfg, ekf_cfg, loop, wpts, lms, start(), max_ticks)
+    assert bool(want.done) == (max_ticks == 600)
+    assert (want.host_ticks - lead) % chunk
+    got = run_slam_loop(cfg, ekf_cfg, loop, MODEL, wpts, lms, start(),
+                        max_ticks=max_ticks, chunk=chunk)
+    _assert_loop_state(got, want)
+
+
+def test_plain_run_slam_course_equals_eager_ticks():
+    """``run_slam_course`` on the plain backend: 70 ticks from a state 3
+    ticks in (eager to the sensing tick, two chunks of 24, a last one of
+    19), with a telemetry row per tick, the eager per-tick
+    loop's rows, state and generator."""
+    cfg, ekf_cfg, loop, wpts, lms = _plain_c3(False)
+
+    def row(st):
+        return torch.cat([st.ekf.state[:3], st.true_pose,
+                          st.ekf.count.to(torch.float32)[None]])
+
+    def start():
+        st = slam_loop_init(cfg, ekf_cfg, seed=2, device="cpu")
+        return _plain_eager(cfg, ekf_cfg, loop, wpts, lms, st, 3)[0]
+
+    want, rows = _plain_eager(cfg, ekf_cfg, loop, wpts, lms, start(), 73,
+                              row)
+    got, got_rows = run_slam_course(cfg, ekf_cfg, loop, MODEL, wpts, lms,
+                                    start(), 70, telemetry=row, chunk=24)
+    _assert_loop_state(got, want)
+    assert torch.equal(got_rows, torch.stack(rows))

@@ -7,6 +7,13 @@ with ``tpunav_torch.interop``. The test replays ``tpunav``'s key split and
 through ``noise=``, on both port backends (``use_fused`` False and True;
 on the CPU the fused one is the kernel's plain version). Also the course
 tests of ``tests/test_waypoint_loop.py``, ported at K=64.
+
+The plain backend's replayed chunks (``capture.Graph``'s CPU path runs
+the body the card replays) against the eager per-tick loop, bit for bit
+with the generator: ``run_course`` stopping mid-chunk on done and on
+``max_ticks``, ``run_course_chunked`` with its telemetry, with and
+without an ``extra_cost``; and a chunk fed ``tpunav``'s perturbations
+through its draw seam against ``tpunav``'s ``course_tick``.
 """
 
 import dataclasses
@@ -25,6 +32,10 @@ from tpunav_torch import interop
 from tpunav_torch.control.mppi import MPPIConfig
 from tpunav_torch.control.mppi import cost_to_go as tm_cost_to_go
 from tpunav_torch.control.mppi import rollout_losses as tm_rollout_losses
+from tpunav_torch.control import waypoint_loop as twl
+from tpunav_torch.control.obstacle_cost import (SegmentCostParams,
+                                                make_segment_obstacle_cost,
+                                                segments_from_polygons)
 from tpunav_torch.control.waypoint_loop import (
     CourseConfig,
     course_init,
@@ -250,3 +261,137 @@ def test_course_tick_guards():
     with pytest.raises(ValueError):
         course_tick(CFG, CourseConfig(use_fused=True), MODEL, wpts, st,
                     extra_cost=lambda xy: xy[..., 0])
+
+
+# ------------------------------------- the plain backend's replayed chunks --
+
+# A short course (~140 ticks) at a small width: K=32, N=10.
+SMALL = MPPIConfig(horizon=0.2, dt=0.02, rollouts=32, ul_var=4.0,
+                   ur_var=4.0)
+SHORT = torch.tensor([[0.08, 0.0, 0.0], [0.08, 0.06, 1.57],
+                      [0.0, 0.05, 3.14]])
+FIELDS = ("pose", "u", "wpt_idx", "visits", "ticks", "done", "wheel_vel")
+
+
+def _wall_cost():
+    segs = segments_from_polygons(
+        [[[-0.1, 0.11], [0.2, 0.11], [0.2, 0.13], [-0.1, 0.13]]],
+        device="cpu")
+    return make_segment_obstacle_cost(
+        SegmentCostParams(r_safe=0.02, w_hit=1e6, w_field=1e2, sigma=0.02),
+        segs, device="cpu")
+
+
+def _short(max_ticks):
+    return CourseConfig(goal_thresh=0.03, max_ticks=max_ticks)
+
+
+def _plain_start():
+    return course_init(SMALL, torch.zeros(3), seed=5, device="cpu")
+
+
+def _same(got, want):
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(got.generator.get_state(), want.generator.get_state())
+
+
+@pytest.mark.parametrize("wall", [False, True])
+@pytest.mark.parametrize("chunk,max_ticks", [(50, 400), (30, 100)])
+def test_plain_run_course_equals_eager_ticks(wall, chunk, max_ticks):
+    """``run_course`` on the plain backend stops mid-chunk on done (~140
+    ticks, chunks of 50) or on ``max_ticks`` (100, chunks of 30) in the
+    eager per-tick loop's state, its generator where that loop leaves it
+    (the held ticks' draws taken back)."""
+    course = _short(max_ticks)
+    extra = _wall_cost() if wall else None
+    want = _plain_start()
+    while int(want.ticks) < max_ticks and not bool(want.done):
+        want = course_tick(SMALL, course, MODEL, SHORT, want,
+                           extra_cost=extra)
+    assert bool(want.done) == (max_ticks == 400)
+    assert int(want.ticks) % chunk
+    got = run_course(SMALL, course, MODEL, SHORT, _plain_start(),
+                     extra_cost=extra, chunk=chunk)
+    _same(got, want)
+
+
+def test_plain_run_course_chunked_equals_eager_chunks():
+    """``run_course_chunked`` on the plain backend: tpunav's scan, each
+    chunk's state, telemetry and generator the eager chunked loop's, the
+    copies handed to ``on_chunk`` unchanged by later chunks."""
+    chunk, course = 50, _short(400)
+    st, want = _plain_start(), []
+    while True:
+        rows = {"pose": [], "wpt_idx": [], "d2g": []}
+        for _ in range(chunk):
+            wpt = SHORT[int(st.wpt_idx)]
+            rows["pose"].append(st.pose)
+            rows["wpt_idx"].append(st.wpt_idx)
+            rows["d2g"].append(torch.hypot(st.pose[0] - wpt[0],
+                                           st.pose[1] - wpt[1]))
+            st = course_tick(SMALL, course, MODEL, SHORT, st)
+        gen = st.generator.get_state()
+        want.append((st, {k: torch.stack(v) for k, v in rows.items()}, gen))
+        if bool(st.done):
+            break
+    seen = []
+    got = run_course_chunked(SMALL, course, MODEL, SHORT, _plain_start(),
+                             chunk=chunk, on_chunk=lambda s, t: seen.append(
+                                 (s, t, s.generator.get_state())))
+    assert len(seen) == len(want) >= 3
+    _same(got, want[-1][0])
+    for (s, tel, gen), (ws, wtel, wgen) in zip(seen, want):
+        for f in FIELDS:
+            assert torch.equal(getattr(s, f), getattr(ws, f)), f
+        assert torch.equal(gen, wgen)
+        for name in ("pose", "wpt_idx", "d2g"):
+            assert torch.equal(tel[name], wtel[name]), name
+
+
+def test_plain_chunk_with_injected_noise_matches_tpunav():
+    """Three plain ticks of one replayed chunk, fed tpunav's perturbations
+    through the chunk's draw seam, against tpunav's ``course_tick`` at the
+    30-tick comparison's bars (a near-tie row of u excepted, as there);
+    and the port's eager ticks on the same noise, bit for bit."""
+    kw = dict(horizon=0.5, dt=0.01, rollouts=128)
+    jcfg, jcourse = jm.MPPIConfig(**kw), jw.CourseConfig(goal_thresh=0.1)
+    jmodel = JCartParams(0.033, 0.160)
+    wpts = load_waypoints(os.path.join(REPO, "configs",
+                                       "real_waypoints.yaml"))
+    jst = jw.course_init(jcfg, jnp.zeros(3, jnp.float32), seed=3)
+    cfg = interop.config_from_fields(MPPIConfig, dataclasses.asdict(jcfg))
+    course = interop.config_from_fields(CourseConfig,
+                                        dataclasses.asdict(jcourse))
+    st = interop.course_state_from_numpy(
+        {name: np.asarray(getattr(jst, name)) for name in FIELDS},
+        device="cpu")
+    twpts = torch.as_tensor(wpts, dtype=torch.float32)
+    noise = []
+    for _ in range(3):
+        _, sub = jax.random.split(jst.key)
+        noise.append(torch.from_numpy(np.array(jm.sample_perturbations(
+            jcfg, sub, dtype=jnp.float32))))
+        jst = jw.course_tick(jcfg, jcourse, jmodel,
+                             jnp.asarray(wpts, jnp.float32), jst)
+    chunks = twl._Chunks(cfg, course, MODEL, twpts, st, None, None, 3,
+                         held=False, telemetry=False)
+    chunks.step(course.max_ticks, noise=torch.stack(noise))
+    eager = st
+    for z in noise:
+        pre = eager
+        eager = course_tick(cfg, course, MODEL, twpts, eager,
+                            noise=z.transpose(0, 1))
+    for f in FIELDS:
+        assert torch.equal(getattr(chunks.state, f), getattr(eager, f)), f
+    got = interop.course_state_to_numpy(chunks.state)
+    assert int(got["ticks"]) == int(jst.ticks) == 3
+    assert int(got["wpt_idx"]) == int(jst.wpt_idx)
+    np.testing.assert_allclose(got["pose"], np.asarray(jst.pose), rtol=0,
+                               atol=POSE_ATOL)
+    du = np.abs(got["u"] - np.asarray(jst.u)).max(axis=1)
+    bad = np.nonzero(du > U_ATOL)[0]
+    if len(bad):
+        gaps = _tie_ulps(cfg, MODEL, pre, twpts[int(got["wpt_idx"])],
+                         noise[-1].transpose(0, 1))
+        assert all(gaps[r + 1] < NEAR_TIE_ULPS for r in bad), (bad, gaps)

@@ -111,11 +111,18 @@ class Graph:
     card; ``device`` defaults to the card and raises without CUDA.
 
     ``deltas`` holds the launch counters' change per replay, ``replays``
-    the replays so far."""
+    the replays so far. ``error_mode`` is the capture's
+    ``cudaStreamCaptureMode``. The default ``"global"`` prohibits
+    potentially unsafe CUDA calls in every thread while a capture runs;
+    ProcessGroupNCCL's watchdog thread queries its collectives' events
+    all along, so a body with NCCL collectives passes ``"thread_local"``,
+    which holds the capturing thread alone to that rule."""
 
-    def __init__(self, body: Callable[[], None], device=DEFAULT_DEVICE):
+    def __init__(self, body: Callable[[], None], device=DEFAULT_DEVICE,
+                 error_mode: str = "global"):
         self.device = resolve(device)
         self._body = body
+        self._error_mode = error_mode
         self._warm = False
         self._graph = None
         self.deltas: Dict[str, int] = {}
@@ -147,7 +154,8 @@ class Graph:
         graph = torch.cuda.CUDAGraph()
 
         def record():
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph,
+                                  capture_error_mode=self._error_mode):
                 self._body()
 
         # Any CUDA call that is illegal during a capture, in any thread,

@@ -16,26 +16,28 @@ and runs the filter's prediction alone on the others, which equals the
 filter's step on all-NaN rows. The waypoint index, visit count and done
 flag stay on the device.
 
-``run_slam_loop`` on the fused backend replays a chunk of ticks captured as
-one CUDA graph (``capture.Graph``), the counterpart of ``tpunav``'s one
-device program, with one host read per chunk. The chunk is a multiple of
-the sensing period and starts on a sensing tick, so the schedule inside it
-is fixed; its sensing ticks take the filter's masked form (no host read)
-and the sensor's normals, drawn eagerly from the state's generator into a
-static tensor before each replay with the eager loop's calls. A tick whose
-incoming state is done or at ``max_ticks`` keeps every field (its hold flag
-makes K1 return at once), and the generator is set back to where the eager
-loop leaves it, so the run ends in the eager loop's state, which stops on
-the tick of ``tpunav``'s ``while_loop``. The plain backend draws its MPPI
-perturbations from the same generator and runs eager ticks, reading
-``done`` once per tick.
+``run_slam_loop`` replays a chunk of ticks captured as one CUDA graph
+(``capture.Graph``), the counterpart of ``tpunav``'s one device program,
+with one host read per chunk, on either backend. The chunk is a multiple
+of the sensing period and starts on a sensing tick, so the schedule inside
+it is fixed; its sensing ticks take the filter's masked form (no host
+read). The chunk's draws are made eagerly from the state's generator into
+static tensors before each replay, with the eager loop's calls in its
+order: each tick's (K, N, 2) MPPI perturbations on the plain backend
+(one ``sample_perturbations`` call), then on a sensing tick the sensor's
+normals. A tick whose incoming state is done or at ``max_ticks`` keeps
+every field (on the fused backend its hold flag makes K1 return at once),
+and the generator is set back to where the eager loop leaves it (the last
+chunk's draws made again for its live ticks only), so the run ends in the
+eager loop's state, which stops on the tick of ``tpunav``'s
+``while_loop``.
 
 ``run_slam_course`` is ``tpunav``'s other form, a ``lax.scan`` of a fixed
 number of ticks with per-tick telemetry and no stop at ``done``
 (``examples/dense_world_slam_demo.py``: config 4, whose ``meas_fn`` is the
-lidar → circle detector chain). On the fused backend it replays chunks of
-that scan with no host read; the ``meas_fn``'s noise is drawn eagerly into
-static tensors through its ``noise=`` seam, with the eager loop's calls.
+lidar → circle detector chain). It replays chunks of that scan with no
+host read; the ``meas_fn``'s noise is drawn eagerly into static tensors
+through its ``noise=`` seam, with the eager loop's calls.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ from ..models.cart import CartParams, kinematic_cart
 from ..ops import fused_mppi
 from ..ops.rk4 import rk4_step
 from ..sim.landmark_sensor import landmark_measurements
-from .mppi import MPPIConfig, init_controls, mppi_solve
+from .mppi import (MPPIConfig, init_controls, mppi_solve,
+                   sample_perturbations)
 from .waypoint_loop import _active_waypoint
 
 
@@ -230,8 +233,8 @@ def _held(st: SlamLoopState, new: SlamLoopState, hold) -> SlamLoopState:
 
 
 class _Chunks:
-    """``chunk`` ticks of the fused loop on static state buffers (a copy
-    of ``st``'s), as one ``capture.Graph`` step; each chunk starts on a
+    """``chunk`` ticks of the loop on static state buffers (a copy of
+    ``st``'s), as one ``capture.Graph`` step; each chunk starts on a
     sensing tick, so its schedule is fixed. With ``bound`` (an int) the
     ticks are held: a tick holds once the incoming state is done or its
     device tick count reaches ``bound``; with None they run on past done
@@ -239,16 +242,18 @@ class _Chunks:
 
     The sensor is the landmark sensor, or ``meas_fn(true_txy, generator,
     noise=...)``, whose standard normals of shape ``meas_shape`` (None:
-    it draws none) are injected; either's draws are made eagerly before
-    each step, one per sensing tick. ``telemetry(state)`` gives a 1-D row
-    per tick after the tick, stacked into ``tel`` (chunk, F)."""
+    it draws none) are injected. On the plain backend tick i takes its
+    (K, N, 2) MPPI perturbations from ``perturb[i]``. :meth:`draw` makes
+    the draws eagerly before each step, in the eager ticks' order.
+    ``telemetry(state)`` gives a 1-D row per tick after the tick, stacked
+    into ``tel`` (chunk, F)."""
 
     def __init__(self, mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
                  st, chunk: int, bound: Optional[int], meas_fn=None,
                  meas_shape=None, telemetry=None):
         dev = st.true_pose.device
-        every = cfg.sensor_every
-        self.bound = bound
+        every = self.every = cfg.sensor_every
+        self.bound, self.chunk, self.mppi_cfg = bound, chunk, mppi_cfg
         # The body holds the buffers, not self: a graph whose runner is
         # dropped is freed at once, not by the cyclic collector.
         state = self.state = _clone(st)
@@ -260,6 +265,9 @@ class _Chunks:
                                            cfg.meas_noise_std > 0.0) else 0)
         normals = self.normals = torch.zeros(
             (draws, *(shape or ())), dtype=landmarks.dtype, device=dev)
+        perturb = self.perturb = (None if cfg.use_fused else torch.zeros(
+            (chunk, mppi_cfg.rollouts, mppi_cfg.steps, 2),
+            dtype=st.u.dtype, device=dev))
         status = self.status = torch.empty(2, dtype=torch.int32, device=dev)
         tel = self.tel = (None if telemetry is None else torch.empty(
             (chunk, telemetry(st).numel()), dtype=torch.float32, device=dev))
@@ -276,9 +284,12 @@ class _Chunks:
                 slot = normals[i // every] if sense and draws else None
                 hold = (None if bound is None else
                         torch.logical_or(s.done, s.ticks >= bound))
+                # _tick takes the (N, K, 2) layout of the fused seam.
                 new = _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
                             landmarks, s, sense, slam_step,
                             meas_fn=None if meas_fn is None else sensor(slot),
+                            noise=None if perturb is None
+                            else perturb[i].transpose(0, 1),
                             meas_noise=None if meas_fn is not None else slot,
                             hold=hold)
                 s = new if hold is None else _held(s, new, hold)
@@ -297,16 +308,25 @@ class _Chunks:
         self.graph = capture.Graph(body, dev)
 
     def draw(self, n: int) -> None:
-        """The sensor's first ``n`` draws of a chunk from the generator."""
+        """The draws of the chunk's first ``n`` ticks from the generator,
+        in the eager ticks' order: each tick's MPPI perturbations (plain
+        backend), then on a sensing tick the sensor's normals."""
+        gen, normals, perturb = (self.state.generator, self.normals,
+                                 self.perturb)
         for i in range(n):
-            torch.randn(self.normals.shape[1:],
-                        generator=self.state.generator,
-                        dtype=self.normals.dtype, device=self.normals.device,
-                        out=self.normals[i])
+            if perturb is not None:
+                perturb[i].copy_(sample_perturbations(
+                    self.mppi_cfg, gen, dtype=perturb.dtype,
+                    device=perturb.device))
+            if i % self.every == 0 and i // self.every < normals.shape[0]:
+                torch.randn(normals.shape[1:], generator=gen,
+                            dtype=normals.dtype, device=normals.device,
+                            out=normals[i // self.every])
 
     def run(self) -> None:
-        """Draw the chunk's normals and run it, with no host read."""
-        self.draw(self.normals.shape[0])
+        """Draw the chunk's perturbations and normals and run it, with no
+        host read."""
+        self.draw(self.chunk)
         self.graph()
 
     def step(self):
@@ -327,10 +347,10 @@ def run_slam_loop(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
                   landmarks, st: SlamLoopState, max_ticks: int,
                   chunk: Optional[int] = None) -> SlamLoopState:
     """Run the closed loop until the course completes or ``max_ticks``,
-    ending in the state of ``tpunav``'s ``while_loop``. The fused backend
-    replays ``chunk`` ticks per host read (default
-    :func:`default_chunk`; see the module's docstring); the plain backend
-    reads ``done`` once per tick."""
+    ending in the state of ``tpunav``'s ``while_loop``, the generator where
+    the eager per-tick loop leaves it: eager ticks to the next sensing
+    tick, then ``chunk`` ticks replayed per host read (default
+    :func:`default_chunk`; see the module's docstring)."""
     dev = st.true_pose.device
     waypoints = torch.as_tensor(waypoints, dtype=torch.float32).to(dev)
     landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
@@ -347,9 +367,6 @@ def run_slam_loop(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
             st = slam_loop_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
                                 landmarks, st)
 
-    if not cfg.use_fused:
-        eager(False)
-        return st
     eager(True)                       # to the next sensing tick
     if st.host_ticks >= max_ticks or bool(st.done):
         return st
@@ -363,10 +380,10 @@ def run_slam_loop(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
         if stop:
             break
         start = ticks
-    # The eager loop draws on live sensing ticks only: the last chunk's
-    # draws again from where it began, as many as it had live.
+    # The eager loop draws on live ticks only: the last chunk's draws
+    # again from where it began, those of its live ticks.
     st.generator.set_state(before)
-    chunks.draw(min(-(-(ticks - start) // every), chunks.normals.shape[0]))
+    chunks.draw(ticks - start)
     return chunks.state._replace(host_ticks=st.host_ticks + ticks - ticks0)
 
 
@@ -383,11 +400,11 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     ``meas_fn(true_txy, generator, noise=None)`` replaces the landmark
     sensor as in :func:`slam_loop_tick`; ``meas_shape`` is the shape of the
     standard normals it draws from the generator on a sensing tick (None:
-    none), which ``noise=`` replaces. The fused backend runs eager ticks to
-    the next sensing tick, then replays ``chunk`` ticks per graph step
-    (default :func:`default_chunk`) and the rest in one shorter graph, with
-    no host read; the plain backend runs eager ticks. Either gives the
-    eager per-tick loop's state, rows and generator bit for bit."""
+    none), which ``noise=`` replaces. It runs eager ticks to the next
+    sensing tick, then replays ``chunk`` ticks per graph step (default
+    :func:`default_chunk`) and the rest in one shorter graph, with no host
+    read, and gives the eager per-tick loop's state, rows and generator bit
+    for bit on either backend."""
     dev = st.true_pose.device
     waypoints = torch.as_tensor(waypoints, dtype=torch.float32).to(dev)
     landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
@@ -397,7 +414,7 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
         raise ValueError(f"chunk {chunk} must be a positive multiple of "
                          f"sensor_every ({every})")
     rows, done = [], 0
-    while done < ticks and (not cfg.use_fused or st.host_ticks % every):
+    while done < ticks and st.host_ticks % every:
         st = slam_loop_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
                             landmarks, st, meas_fn=meas_fn)
         if telemetry is not None:

@@ -6,16 +6,21 @@ tick (``torch.where``, a device index), so a tick makes no host sync on
 either backend: the plain solver (``control/mppi.py``) or the fused CUDA
 kernel (``ops/fused_mppi.py``).
 
-On the fused backend both runners replay a chunk of ticks captured as one
+On either backend both runners replay a chunk of ticks captured as one
 CUDA graph (``capture.Graph``), the counterpart of ``tpunav``'s one device
 program per course or per chunk, and read the host once per chunk.
 ``run_course_chunked``'s chunk is ``tpunav``'s scan: ticks go on past
 ``done``. ``run_course``'s chunk is of held ticks: a tick whose incoming
 state is done or at ``max_ticks`` keeps every field, so the run ends in
-the state of ``tpunav``'s ``while_loop``; such a tick passes its hold flag
-to K1, whose blocks then return at once (the launch is still counted). The
-plain backend draws from the state's generator and runs eager ticks:
-``run_course`` reads ``done`` once per tick.
+the state of ``tpunav``'s ``while_loop``; on the fused backend such a tick
+passes its hold flag to K1, whose blocks then return at once (the launch
+is still counted). The plain backend's perturbations come from the
+state's generator: before each replay the chunk's are drawn eagerly, one
+``sample_perturbations`` call per tick in tick order, into a static
+(chunk, K, N, 2) tensor, so the graph sees the eager ticks' bits; since
+the eager loop draws on live ticks only, ``run_course`` then sets the
+generator back to where the last chunk began and draws again as many as
+that chunk ran live.
 
 Obstacles (BASELINE config 2) enter as in ``tpunav``: the plain backend
 takes an ``extra_cost`` (``control/obstacle_cost.py``), the fused backend
@@ -39,7 +44,8 @@ from ..models.cart import CartParams, kinematic_cart
 from ..ops import fused_mppi
 from ..ops.rk4 import rk4_step
 from ..sim.motor import MotorParams, track
-from .mppi import MPPIConfig, init_controls, mppi_solve
+from .mppi import (MPPIConfig, init_controls, mppi_solve,
+                   sample_perturbations)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,12 +180,13 @@ _FIELDS = ("pose", "u", "wpt_idx", "visits", "ticks", "done", "wheel_vel")
 
 
 def _held_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
-               waypoints, st: CourseState, extra_cost, table) -> CourseState:
+               waypoints, st: CourseState, extra_cost, table,
+               noise=None) -> CourseState:
     """:func:`_tick`, except that a tick whose incoming state is done or at
     ``max_ticks`` keeps every field (``tpunav``'s ``while_loop`` runs no
     such tick), and K1 skips its solve."""
     hold = torch.logical_or(st.done, st.ticks >= course.max_ticks)
-    new = _tick(cfg, course, model, waypoints, st, extra_cost, table,
+    new = _tick(cfg, course, model, waypoints, st, extra_cost, table, noise,
                 hold=hold if course.use_fused else None)
     return new._replace(**{f: torch.where(hold, getattr(st, f),
                                           getattr(new, f))
@@ -187,14 +194,17 @@ def _held_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
 
 
 class _Chunks:
-    """``chunk`` ticks of the fused backend on static state buffers (a copy
-    of ``st``'s), with per-tick telemetry where asked, as one
-    ``capture.Graph`` step. ``status`` holds [done, ticks] after a step:
-    the one host read per chunk."""
+    """``chunk`` ticks on static state buffers (a copy of ``st``'s), with
+    per-tick telemetry where asked, as one ``capture.Graph`` step.
+    ``status`` holds [done, ticks] after a step: the one host read per
+    chunk. On the plain backend tick i takes its (K, N, 2) perturbations
+    from ``perturb[i]``, which :meth:`draw` fills from the state's
+    generator."""
 
     def __init__(self, cfg, course, model, waypoints, st, extra_cost, table,
                  chunk: int, held: bool, telemetry: bool):
         dev = st.pose.device
+        self.cfg = cfg
         # The body holds the buffers, not self: a graph whose runner is
         # dropped is freed at once, not by the cyclic collector.
         state = self.state = st._replace(**{f: getattr(st, f).clone()
@@ -205,18 +215,24 @@ class _Chunks:
             "wpt_idx": torch.empty(chunk, dtype=torch.int32, device=dev),
             "d2g": torch.empty(chunk, **f32)} if telemetry else None
         status = self.status = torch.empty(2, dtype=torch.int32, device=dev)
+        perturb = self.perturb = (None if course.use_fused else torch.zeros(
+            (chunk, cfg.rollouts, cfg.steps, 2), dtype=st.u.dtype,
+            device=dev))
         tick = _held_tick if held else _tick
 
         def body():
             s = state
             rows = {"pose": [], "wpt_idx": [], "d2g": []}
-            for _ in range(chunk):
+            for i in range(chunk):
                 if telemetry:
                     rows["pose"].append(s.pose)
                     rows["wpt_idx"].append(s.wpt_idx)
                     rows["d2g"].append(_dist_to_goal(
                         s.pose, _active_waypoint(waypoints, s.wpt_idx)))
-                s = tick(cfg, course, model, waypoints, s, extra_cost, table)
+                # _tick takes the (N, K, 2) layout of the fused seam.
+                s = tick(cfg, course, model, waypoints, s, extra_cost, table,
+                         None if perturb is None
+                         else perturb[i].transpose(0, 1))
             # Row 0 is the state buffer itself: stack before it is written.
             if telemetry:
                 for name, buf in tel.items():
@@ -226,13 +242,45 @@ class _Chunks:
             status.copy_(torch.stack([s.done.to(torch.int32), s.ticks]))
 
         self.graph = capture.Graph(body, dev)
+        self.chunk, self.ticks = chunk, int(st.ticks)
 
-    def step(self, max_ticks: int) -> bool:
-        """Run one chunk; True once the course is done or at
-        ``max_ticks``."""
+    def draw(self, n: int, noise=None) -> None:
+        """The plain backend's first ``n`` ticks' perturbations, drawn from
+        the generator in tick order as the eager ticks draw them (the
+        fused backend draws none), or ``noise``: (n, K, N, 2)
+        perturbations in place of the draws."""
+        if self.perturb is None:
+            return
+        if noise is not None:
+            self.perturb[:n].copy_(noise)
+            return
+        for i in range(n):
+            self.perturb[i].copy_(sample_perturbations(
+                self.cfg, self.state.generator, dtype=self.perturb.dtype,
+                device=self.perturb.device))
+
+    def step(self, max_ticks: int, noise=None) -> bool:
+        """Draw and run one chunk (``noise``: the plain backend's (chunk, K,
+        N, 2) perturbations in place of the draws); True once the course
+        is done or at ``max_ticks``. ``ticks`` is then the tick count after
+        it, and ``began`` the generator's state and the tick count before
+        it."""
+        gen = self.state.generator
+        self.began = (gen.get_state() if self.perturb is not None else None,
+                      self.ticks)
+        self.draw(self.chunk, noise)
         self.graph()
-        done, ticks = self.status.tolist()
-        return bool(done) or ticks >= max_ticks
+        done, self.ticks = self.status.tolist()
+        return bool(done) or self.ticks >= max_ticks
+
+    def rewind(self) -> None:
+        """The eager loop draws on live ticks only: the generator set back
+        to where the last chunk began, and that chunk's live draws made
+        again."""
+        gen_state, ticks = self.began
+        if gen_state is not None:
+            self.state.generator.set_state(gen_state)
+            self.draw(self.ticks - ticks)
 
     def copies(self):
         """The state and telemetry as copies that outlive the next chunk."""
@@ -245,23 +293,18 @@ def run_course(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
                waypoints, st: CourseState, extra_cost=None, obstacles=None,
                obs_cfg=None, chunk: int = 120) -> CourseState:
     """Run ticks until the course completes or ``max_ticks``, ending in the
-    state of ``tpunav``'s ``while_loop``. The fused backend replays
-    ``chunk`` held ticks per host read (see the module's docstring); the
-    plain backend reads ``done`` once per tick."""
+    state of ``tpunav``'s ``while_loop`` and, on the plain backend, with
+    the generator where the eager per-tick loop leaves it: ``chunk`` held
+    ticks replayed per host read (see the module's docstring)."""
     table = _obstacle_table(course, st, extra_cost, obstacles, obs_cfg)
     waypoints = _waypoints_on(st, waypoints)
-    ticks = int(st.ticks)
-    if not course.use_fused:
-        while ticks < course.max_ticks and not bool(st.done):
-            st = _tick(cfg, course, model, waypoints, st, extra_cost, table)
-            ticks += 1
-        return st
-    if ticks >= course.max_ticks or bool(st.done):
+    if int(st.ticks) >= course.max_ticks or bool(st.done):
         return st
     chunks = _Chunks(cfg, course, model, waypoints, st, extra_cost, table,
                      chunk, held=True, telemetry=False)
     while not chunks.step(course.max_ticks):
         pass
+    chunks.rewind()
     return chunks.state
 
 
@@ -270,36 +313,22 @@ def run_course_chunked(cfg: MPPIConfig, course: CourseConfig,
                        chunk: int = 120, extra_cost=None, obstacles=None,
                        obs_cfg=None, on_chunk=None) -> CourseState:
     """Like :func:`run_course` but syncs to the host every ``chunk`` ticks,
-    and ticks go on past ``done`` to the chunk's end (``tpunav``'s scan).
+    and ticks go on past ``done`` to the chunk's end (``tpunav``'s scan),
+    each drawing its perturbations on the plain backend.
 
     ``on_chunk(state, telemetry)`` is called with each chunk's end state;
     ``telemetry`` is a dict of per-tick tensors {"pose": (chunk, 3),
     "wpt_idx": (chunk,), "d2g": (chunk,)}. Rows are PRE-tick samples:
     row i is the state tick i saw, so the stream starts at the initial
     state and the final post-tick pose is only in the returned state.
-    On the fused backend both are copies, which later chunks leave as
-    they are."""
+    Both are copies, which later chunks leave as they are."""
     table = _obstacle_table(course, st, extra_cost, obstacles, obs_cfg)
     waypoints = _waypoints_on(st, waypoints)
-    if course.use_fused:
-        chunks = _Chunks(cfg, course, model, waypoints, st, extra_cost,
-                         table, chunk, held=False, telemetry=True)
-        while True:
-            stop = chunks.step(course.max_ticks)
-            if on_chunk is not None:
-                on_chunk(*chunks.copies())
-            if stop:
-                return chunks.state
+    chunks = _Chunks(cfg, course, model, waypoints, st, extra_cost, table,
+                     chunk, held=False, telemetry=True)
     while True:
-        tel = {"pose": [], "wpt_idx": [], "d2g": []}
-        for _ in range(chunk):
-            tel["pose"].append(st.pose)
-            tel["wpt_idx"].append(st.wpt_idx)
-            tel["d2g"].append(_dist_to_goal(
-                st.pose, _active_waypoint(waypoints, st.wpt_idx)))
-            st = _tick(cfg, course, model, waypoints, st, extra_cost, table)
-        tel = {name: torch.stack(rows) for name, rows in tel.items()}
+        stop = chunks.step(course.max_ticks)
         if on_chunk is not None:
-            on_chunk(st, tel)
-        if bool(st.done) or int(st.ticks) >= course.max_ticks:
-            return st
+            on_chunk(*chunks.copies())
+        if stop:
+            return chunks.state

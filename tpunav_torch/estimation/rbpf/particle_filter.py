@@ -374,10 +374,18 @@ class PFStepper:
 
     ``inputs`` (the scan, the twist and the two odometry poses), ``noise``
     and ``update`` (the step's body on those tensors) let a caller run the
-    update inside a graph of its own, as the RBPF node does."""
+    update inside a graph of its own, as the RBPF node does.
 
-    def __init__(self, cfg: PFConfig, st: PFState, device=DEFAULT_DEVICE):
+    ``step_fn(st, ranges, u, cur_odom, prev_odom, noise=)`` is the update
+    the body runs (default :func:`pf_slam_step`; the sharded stepper
+    passes its sharded update), and ``error_mode`` the graph's capture
+    mode (``capture.Graph``)."""
+
+    def __init__(self, cfg: PFConfig, st: PFState, device=DEFAULT_DEVICE,
+                 step_fn=None, error_mode: str = "global"):
         dev = capture.state_device(st.poses, device)
+        if step_fn is None:
+            step_fn = functools.partial(pf_slam_step, cfg)
         self.cfg = cfg
         # The body holds the buffers, not self: a graph whose stepper is
         # dropped is freed at once, not by the cyclic collector.
@@ -395,11 +403,10 @@ class PFStepper:
             resample=torch.zeros((), **like))
 
         def update():
-            capture.load(state, pf_slam_step(cfg, state, *inputs,
-                                             noise=noise))
+            capture.load(state, step_fn(state, *inputs, noise=noise))
 
         self.update = update
-        self.graph = capture.Graph(update, dev)
+        self.graph = capture.Graph(update, dev, error_mode)
 
     def draw(self, noise: Optional[PFNoise] = None) -> None:
         """Copy the next update's normals into the static tensors: ``noise``,
@@ -416,6 +423,12 @@ class PFStepper:
         capture.load(self.inputs, (ranges, u, cur_odom, prev_odom))
         self.graph()
         return self.state
+
+    def load(self, st: PFState) -> None:
+        """``st`` into the buffers in place, its generator's state into the
+        stepper's generator (a state assigned to :attr:`state` instead
+        would never reach the graph, which reads the buffers)."""
+        capture.load(self.state, st)
 
 
 def best_particle(st: PFState):

@@ -16,6 +16,10 @@ The dataclass takes whatever group the caller brought up.
 
 A one-shard mesh with no process group is the identity: its collectives
 return their input. It is how one process runs the sharded code.
+
+A CUDA graph can capture the collectives of an NCCL mesh (and the
+identity's), never those of a host-staged one: the graphed sharded
+steppers (``mppi_sharded``, ``rbpf_sharded``) raise on it.
 """
 
 from __future__ import annotations
@@ -71,14 +75,31 @@ class ShardMesh:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every shard's ``t`` concatenated along dim 0 in shard order
-        (``lax.all_gather`` then the reshape to the global axis)."""
+        (``lax.all_gather`` then the reshape to the global axis). Under
+        NCCL the shards land in one output tensor, one collective a CUDA
+        graph can capture; gloo takes the list form."""
         if self.group is None:
             return t
         buf = self._staged(t, copy=False)
+        shape = (self.size * t.shape[0],) + tuple(t.shape[1:])
+        if dist.get_backend(self.group) == "nccl":
+            out = buf.new_empty(self.size * buf.numel())
+            dist.all_gather_into_tensor(out, buf, group=self.group)
+            return out.reshape(shape)
         parts = [torch.empty_like(buf) for _ in range(self.size)]
         dist.all_gather(parts, buf, group=self.group)
-        return torch.cat(parts).to(t.device).reshape(
-            (self.size * t.shape[0],) + tuple(t.shape[1:]))
+        return torch.cat(parts).to(t.device).reshape(shape)
+
+
+def capturable(mesh: ShardMesh) -> None:
+    """Raises unless a CUDA graph can capture ``mesh``'s collectives: a
+    host-staged mesh copies every collective's tensor to the host and
+    back, which no graph can record."""
+    if mesh.host_staged:
+        raise ValueError(
+            "a host-staged mesh (gloo on CUDA) stages every collective "
+            "through host memory, which a CUDA graph cannot capture; run "
+            "the eager sharded function, or an NCCL group")
 
 
 def rollout_mesh(group: Optional[dist.ProcessGroup] = None,

@@ -37,18 +37,28 @@ from its replicated generator and keeps its own rows, the port's form of
 ``tpunav``'s global per-particle key table sliced per shard. A sharded run
 draws what the unsharded run draws, and ``noise=`` injects the same
 global normals on every rank.
+
+:class:`ShardedPFStepper` is the counterpart of ``tpunav``'s jitted
+sharded update (``tpunav/parallel/rbpf_sharded.py:221``), as
+``PFStepper`` is of the unsharded one: the whole update above, its
+collectives and K4 included, replayed as one CUDA graph per scan on a
+state held in place. It takes an NCCL mesh or the one-shard identity and
+raises on a host-staged one.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from .. import capture
 from ..device import DEFAULT_DEVICE, resolve
 from ..estimation.rbpf.particle_filter import (
-    PARTICLE_LEAVES, PFConfig, PFNoise, PFState, _normalize_and_index,
-    _propose_and_integrate, draw_noise, pf_init)
+    PARTICLE_LEAVES, PFConfig, PFNoise, PFState, PFStepper,
+    _normalize_and_index, _propose_and_integrate, draw_noise, pf_init)
 from ..ops.map_update import edt_batch
-from .mesh import ShardMesh
+from .mesh import ShardMesh, capturable
 
 
 def _local_rows(cfg: PFConfig, mesh: ShardMesh) -> slice:
@@ -116,3 +126,33 @@ def pf_slam_step_sharded(cfg: PFConfig, mesh: ShardMesh):
                        generator=st.generator)
 
     return step
+
+
+class ShardedPFStepper(PFStepper):
+    """:func:`pf_slam_step_sharded` captured as one CUDA graph and replayed
+    once per scan: ICP, this rank's K2 and K3 launches, the log-weights'
+    all-gather, the resample index, the exchange's all-gather and gather,
+    and K4 over the local grids, on static tensors on ``device`` (default
+    the card; raises without CUDA; ``st``, from :func:`pf_init_sharded`,
+    must lie there, on the mesh's device).
+
+    As :class:`PFStepper` (whose buffers, :meth:`draw`, :meth:`step` and
+    :meth:`load` it shares): ``st`` is copied once into the stepper's
+    buffers and its generator shared; each step draws the global
+    :class:`PFNoise` of all P particles eagerly from the replicated
+    generator (or takes it injected) and copies it and the scan's inputs
+    into static tensors before the replay, so a replay gives the eager
+    sharded update's bits. Raises on a host-staged mesh, whose collectives
+    no graph can capture."""
+
+    def __init__(self, cfg: PFConfig, mesh: ShardMesh, st: PFState,
+                 device=DEFAULT_DEVICE):
+        capturable(mesh)
+        capture.state_device(st.poses, device)
+        capture.state_device(st.poses, mesh.device)
+        if st.poses.shape[0] * mesh.size != cfg.num_particles:
+            raise ValueError(f"a state of {st.poses.shape[0]} rows is not "
+                             f"this rank's share of {cfg.num_particles} "
+                             f"particles over {mesh.size} shards")
+        super().__init__(cfg, st, device, step_fn=pf_slam_step_sharded(
+            cfg, mesh), error_mode="thread_local")
