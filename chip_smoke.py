@@ -28,7 +28,7 @@ card, then drives the port's paths:
   config 4 at its stated scale (examples/dense_world_slam_demo.py: 44
   cylinders, the lidar → circle detector → unknown data association chain
   at capacity 50, K=2,048, 5,000 ticks as the demo runs it: replayed
-  chunks of its scan, through K1 and the eigensolver, its first 1,020
+  chunks of its scan, through K1 and the eigensolver, its first 600
   ticks held to the eager per-tick loop), with the filter held against its
   CPU run and the detector against its CPU run and itself;
 - the reference's node graph (tpunav_torch/runtime/, the :class:`Graphs`
@@ -78,6 +78,12 @@ card, then drives the port's paths:
   eagerly; and the exploration loop's per-scan budget split into three
   chained stage graphs beside its one replay, and each stage of the RBPF
   update as its own graph (``rbpf_stages``);
+- the seed sweeps as one program (``seed_batch``, ``tpunav``'s
+  ``jax.vmap`` of a course over seeds): K1 solving 20 (and 4) problems in
+  one launch, each its single launch's bits; config 4 over 20 seeds for
+  5,000 ticks and the lidar EKF over 20 seeds for 400 steps, one graph
+  replay per tick or step for all seeds, every seed at its course's bars
+  and two seeds equal to their serial courses;
 
 and times every kernel beside its plain version. Each phase prints one
 JSON line, and ``run`` the command's seconds; any failure raises and the
@@ -121,8 +127,8 @@ NEAR_TIE_ULPS = 16
 # The depths of the eager EKF chains (bench_ekf's course: 200 updates):
 # ekf_parity's card-against-CPU chains, ekf_times' updates per trial, and
 # graph_ekf's eager chain that the stepper is held to.
-PARITY_UPDATES = 100
-TIMES_UPDATES = 60
+PARITY_UPDATES = 50
+TIMES_UPDATES = 40
 GRAPH_EKF_EAGER_UPDATES = 60
 # The EKF nodes' first updates that slam_nodes holds to the eager node.
 EKF_NODE_EAGER = 60
@@ -132,8 +138,8 @@ EKF_NODE_EAGER = 60
 LOOP_RATE_TICKS = 100
 # The eager prefixes of config 4's course (dense_world) and config 3's
 # (graph_ekf) held bit for bit against the graph paths.
-DENSE_EAGER_PREFIX = 1020
-GRAPH_EKF_EAGER_PREFIX = 1020
+DENSE_EAGER_PREFIX = 600
+GRAPH_EKF_EAGER_PREFIX = 600
 RBPF_PROFILE_UPDATES = 8
 
 
@@ -1656,7 +1662,7 @@ class Ekf:
 
     def times(self):
         """bench.py's EKF lines (µs per update and updates/s at n=50, 12
-        visible, float32, 5 trials of TIMES_UPDATES updates) for both DAs;
+        visible, float32, 3 trials of TIMES_UPDATES updates) for both DAs;
         the two
         trip-count candidates at config 4's shape; the SPD repair at n=50,
         gated off and repairing, with no host sync; the closed-loop rates
@@ -1670,7 +1676,7 @@ class Ekf:
         for name, fn in (("known", ekff.known_correspondence_slam),
                          ("unknown", ekff.slam_unknown_da)):
             rates = []
-            for trial in range(6):             # the first 20 updates warm up
+            for trial in range(4):             # the first 20 updates warm up
                 st = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
@@ -1786,7 +1792,7 @@ class Ekf:
             box[0] = self.sl.slam_loop_tick(mppi, ekf, loop, self.s.model,
                                             wpts, lms, box[0])
 
-        tick_us = wall_us(tick3, 60, warmup=60)
+        tick_us = wall_us(tick3, 30, warmup=30)
 
         def sense3():
             st = box[0]
@@ -1796,7 +1802,7 @@ class Ekf:
             self.ekff.known_correspondence_slam(ekf, st.ekf, m,
                                                 self.t([0.01, 0.02]))
 
-        out["config3"] = self.profile_window(tick3, 60, sense3, tick_us)
+        out["config3"] = self.profile_window(tick3, 30, sense3, tick_us)
         mppi, ekf, loop, ring, world, meas_fn = self.config4()
         box4 = [self.sl.slam_loop_init(mppi, ekf, pose_xyt=[1.42, 0.0,
                                                             math.pi / 2],
@@ -1807,7 +1813,7 @@ class Ekf:
                                              ring, world, box4[0],
                                              meas_fn=meas_fn)
 
-        for _ in range(100):
+        for _ in range(40):
             tick4()
 
         def sense4():
@@ -1816,7 +1822,7 @@ class Ekf:
             m = meas_fn(torch.stack([tru[2], tru[0], tru[1]]), st.generator)
             self.ekff.slam_unknown_da(ekf, st.ekf, m, self.t([0.01, 0.02]))
 
-        out["config4"] = self.profile_window(tick4, 40, sense4,
+        out["config4"] = self.profile_window(tick4, 20, sense4,
                                              self.c4_tick_us)
         emit("ekf_profile", seconds=time.perf_counter() - t0,
              card=self.card, **out)
@@ -3123,6 +3129,8 @@ class Sharded:
 # Steps of the EKF demos' courses held bit for bit against the masked
 # update run eagerly, and against the dynamic form at the float32 bars.
 DEMO_EKF_PREFIX = 100
+SEED_BATCH = 20             # the sweeps' seeds (make_results.N_SEEDS)
+SEED_BATCH_PREFIX = 1020    # config 4's ticks compared with serial courses
 
 
 class Demos:
@@ -3498,6 +3506,278 @@ class Demos:
              closed_loop_per_scan=loop, update_stages_ms=stages,
              kernel_launches=self.launches["rbpf_stages"], card=self.card)
 
+    def seed_batch(self):
+        """The seed sweeps as one program (``tpunav``'s ``jax.vmap`` of a
+        course over seeds): K1 with its problem axis, then config 4 and the
+        lidar EKF over SEED_BATCH seeds, each tick or step one graph replay
+        for every seed. Gates: batched K1 equal to its single launches bit
+        for bit and within BAR of its plain version (``gate_rows``); one K1
+        launch per config-4 tick and two eigensolver launches per sensing
+        tick or lidar step, whatever the batch; every seed at its serial
+        course's bars; seeds 0 and SEED_BATCH - 1 equal to their serial
+        courses over the compared prefix (config 4's SEED_BATCH_PREFIX
+        ticks, the lidar's whole course) — where they part, the first tick
+        and the largest gap are reported, and the phase raises; device
+        operations per tick at B=SEED_BATCH at most 1.1 × those at B=1."""
+        t0 = time.perf_counter()
+        k1 = self.seed_batch_k1()
+        c4 = self.seed_batch_dense()
+        lidar = {tag: self.seed_batch_lidar(tag) for tag in ("known",
+                                                             "unknown")}
+        self.seed_k1 = k1
+        emit("seed_batch", seconds=time.perf_counter() - t0, B=SEED_BATCH,
+             card=self.card, k1=k1, config4=c4, lidar_ekf=lidar)
+
+    def seed_batch_k1(self):
+        """K1 over B problems in one launch at config 4's shape (B=20,
+        K=2,048, N=8) and at (B=4, K=4,096, N=50), on in-kernel Philox with
+        distinct controls, poses and goals, once with one seed for all
+        problems (config 4 seeds every solve ``fused_seed + ticks``) and
+        once with a seed per problem: the batched launch against each
+        problem's single launch (bits) and its plain version (BAR); event
+        ms of the batched launch, of the B single launches and of the plain
+        version, device µs, and the bound of B solves."""
+        from examples_torch import dense_world_slam_demo as demo
+
+        s, fm, dev = self.s, self.s.fm, self.dev
+        rows = []
+        for b, cfg in ((SEED_BATCH, demo.configs(2048)[0]),
+                       (4, s.cfg(4096))):
+            k, n = cfg.rollouts, cfg.steps
+            rng = np.random.default_rng(1000 * b + k)
+            f32 = lambda a: torch.from_numpy(  # noqa: E731
+                np.asarray(a, dtype=np.float32)).to(dev)
+            u = f32(rng.uniform(-1.0, 1.0, (b, n, 2)))
+            pose = f32(rng.uniform(-0.5, 0.5, (b, 3)))
+            xd = f32(rng.uniform(-1.5, 1.5, (b, 3)))
+            sig = (float(cfg.ul_var) ** 0.5, float(cfg.ur_var) ** 0.5)
+            case = {"B": b, "K": k, "N": n, "blocks": b * -(-k // 32)}
+            for mode, seeds in (
+                    ("one_seed", torch.full((b,), 17, dtype=torch.int32,
+                                            device=dev)),
+                    ("seed_per_problem", torch.arange(
+                        100, 100 + b, dtype=torch.int32, device=dev))):
+                reset_counts()
+                got = fm.mppi_solve_fused_batch(cfg, s.model, u, seeds, pose,
+                                                xd)
+                launched = read_counts()["K1"]
+                single = torch.stack([fm._solve_update(
+                    cfg, s.model, u[i], seeds[i], pose[i], xd[i])
+                    for i in range(b)])
+                bits = bool(torch.equal(got, single))
+                errs = []
+                for i in range(b):
+                    plain = fm._combine_reference(
+                        cfg, u[i], fm._solve_partials_reference(
+                            cfg, s.model, u[i], seeds[i], pose[i], xd[i]),
+                        False)
+                    noise = s.philox.mppi_noise(seeds[i], k, n, *sig)
+                    errs.append(gate_rows(
+                        s.mppi, cfg, s.model, got[i], plain, u[i], pose[i],
+                        xd[i], noise, None,
+                        f"batched K1 (B={b}, K={k}, N={n}) problem {i}"))
+                if not bits or launched != 1:
+                    raise AssertionError(
+                        f"batched K1 (B={b}, K={k}, N={n}, {mode}): equal "
+                        f"to the single launches {bits}, {launched} "
+                        "launches")
+                case[mode] = {
+                    "equals_single_launches": bits, "launches": launched,
+                    "max_abs_err": max(e[0] for e in errs),
+                    "exempt_rows": sum(e[1] for e in errs),
+                    "max_abs_err_all_rows": max(e[2] for e in errs)}
+                self.s.max_err = max(self.s.max_err, case[mode]["max_abs_err"])
+
+            def batched():
+                fm.mppi_solve_fused_batch(cfg, s.model, u, seeds, pose, xd)
+
+            def singles():
+                for i in range(b):
+                    fm._solve_update(cfg, s.model, u[i], seeds[i], pose[i],
+                                     xd[i])
+
+            def plain():
+                for i in range(b):
+                    fm._combine_reference(
+                        cfg, u[i], fm._solve_partials_reference(
+                            cfg, s.model, u[i], seeds[i], pose[i], xd[i]),
+                        False)
+
+            nbytes, ops = k1_work(k, n)
+            bound_ms, bound_by = bound(b * nbytes, b * ops)
+            dev_us = device_us(batched, ("mppi_rollout_partials",
+                                         "mppi_combine"), 10)
+            case.update(
+                ms=time_ms(batched), single_launches_ms=time_ms(singles),
+                plain_ms=time_ms(plain, reps=3, warmup=1),
+                device_us=(None if None in dev_us.values()
+                           else sum(dev_us.values())),
+                device_us_by_kernel=dev_us, bound_ms=bound_ms,
+                bound_by=bound_by)
+            rows.append(case)
+        return rows
+
+    def seed_batch_dense(self, ticks=5000):
+        """Config 4 (``examples_torch.dense_world_slam_demo``) over seeds 0
+        … SEED_BATCH - 1 through ``run_slam_course`` on a seed batch:
+        ``ticks`` ticks with the demo's telemetry, run as SEED_BATCH_PREFIX
+        ticks and then the rest from that state; every seed at config 4's bars (SLAM |xy|
+        < 0.5 × odometry's, 36-50 landmarks, a finite filter), one K1
+        launch per tick and two eigensolver launches per sensing tick; the
+        batch after the prefix against seeds 0 and SEED_BATCH - 1 run alone
+        (the demo's ``course``: state, telemetry rows, generator); and a
+        replayed window of 4-tick chunks (one sensing tick, a 60-tick
+        chunk's mix) at B=1 and B=SEED_BATCH: µs, device µs and operations,
+        host API calls and idle share per tick."""
+        from examples_torch import dense_world_slam_demo as demo
+        from tpunav_torch.control import slam_loop as sl
+
+        seeds, prefix = list(range(SEED_BATCH)), SEED_BATCH_PREFIX
+        course, (mppi, ekf, loop), ring, world, meas_fn = demo.build(
+            prefix, device=self.dev)
+        start = [1.42, 0.0, math.pi / 2]
+        sensing = lambda n: 2 * -(-n // loop.sensor_every)  # noqa: E731
+
+        def run(st, n):
+            return sl.run_slam_course(
+                mppi, ekf, loop, demo.MODEL, ring, world, st, n,
+                meas_fn=meas_fn, meas_shape=(360,),
+                telemetry=demo.telemetry_row)
+
+        def both():
+            st, tel = run(sl.slam_batch_init(mppi, ekf, seeds, start,
+                                             device=self.dev), prefix)
+            kept = (sl.seed_state(st, 0), sl.seed_state(st, SEED_BATCH - 1))
+            kept = [(s._replace(**{f: getattr(s, f).clone() for f in (
+                "true_pose", "odom", "u", "wpt_idx", "visits", "ticks",
+                "done")}, ekf=type(s.ekf)(*(t.clone() for t in s.ekf))),
+                s.generator.get_state(), t.clone())
+                for s, t in zip(kept, (tel[0], tel[SEED_BATCH - 1]))]
+            return run(st, ticks - prefix)[0], kept
+
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, kept = self.counted("seed_batch_config4", both)
+        wall = time.perf_counter() - t1
+        parts = {"course": wall}
+        counts = self.launches["seed_batch_config4"]
+        per_seed = []
+        for i in seeds:
+            e_s, e_o = (e.cpu().numpy() for e in demo.errors(
+                sl.seed_state(st, i)))
+            slam_xy = float(np.hypot(*e_s[1:]))
+            odo_xy = float(np.hypot(*e_o[1:]))
+            n_lm = int(st.ekf.count[i])
+            finite = all(bool(torch.isfinite(x[i]).all()) for x in (
+                st.ekf.state, st.ekf.cov, st.true_pose))
+            per_seed.append({"seed": i, "slam_xy_error_m": slam_xy,
+                             "odometry_xy_error_m": odo_xy,
+                             "landmarks_tracked": n_lm, "finite": finite})
+            if not (finite and slam_xy < 0.5 * odo_xy and 36 <= n_lm <= 50):
+                raise AssertionError(f"config 4 batched, seed {i}: "
+                                     f"{per_seed[-1]}")
+        if counts["K1"] != ticks or counts["EIG"] != sensing(ticks):
+            raise AssertionError(f"config 4 batched: launches {counts} for "
+                                 f"{ticks} ticks")
+        t1 = time.perf_counter()
+        compared = {}
+        for i, (got, gen, tel) in zip((0, SEED_BATCH - 1), kept):
+            one = course(i)
+            compared[str(i)] = seed_diff(got, one["state"], tel,
+                                         one["tel_t"])
+            compared[str(i)]["fields"]["generator"] = bool(torch.equal(
+                gen, one["state"].generator.get_state()))
+            compared[str(i)]["equal"] = all(
+                compared[str(i)]["fields"].values())
+        if not all(c["equal"] for c in compared.values()):
+            raise AssertionError(f"config 4 batched vs serial: {compared}")
+        parts["serial_prefixes"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        windows = {}
+        chunk = loop.sensor_every
+        for b in (1, SEED_BATCH):
+            window = sl._Chunks(mppi, ekf, loop, demo.MODEL, ring, world,
+                                sl.slam_batch_init(mppi, ekf, seeds[:b],
+                                                   start, device=self.dev),
+                                chunk, None, meas_fn, (360,),
+                                demo.telemetry_row)
+            window.run()                        # the warm-up
+            window.run()                        # the capture
+            chunk_us = wall_us(window.run, 15, warmup=0)
+            windows[f"B={b}"] = graph_window(window.run, 3, chunk, chunk_us)
+        parts["windows"] = time.perf_counter() - t1
+        ops = {k: v["device_ops"] for k, v in windows.items()}
+        if ops[f"B={SEED_BATCH}"] > 1.1 * ops["B=1"]:
+            raise AssertionError(f"config 4: device operations per tick "
+                                 f"{ops}")
+        return {"ticks": ticks, "K": mppi.rollouts, "N": mppi.steps,
+                "capacity": ekf.num_landmarks, "seconds": wall,
+                "us_per_tick_all_seeds": 1e6 * wall / ticks,
+                "kernel_launches": counts, "seeds": per_seed,
+                "serial_prefix_ticks": prefix,
+                "batch_vs_serial": compared, "replayed_window": windows,
+                "part_seconds": parts}
+
+    def seed_batch_lidar(self, tag, steps=400):
+        """The lidar EKF course (``examples_torch.lidar_ekf_slam_demo``,
+        ``tag`` DA) over seeds 0 … SEED_BATCH - 1 through
+        ``make_sim_batch``: every seed at the course's bars (SLAM |xy|
+        below odometry's; 12/12 landmarks known, at least 10 unknown), two
+        eigensolver launches per step, seeds 0 and SEED_BATCH - 1 against
+        their serial courses (``make_sim``) over all ``steps``; a replayed
+        window of the batch's steps (one seed's: ``lidar_ekf``)."""
+        from examples_torch import lidar_ekf_slam_demo as le
+
+        step, known, cfg = le.CONFIGS[tag]
+        seeds = list(range(SEED_BATCH))
+        sim = le.make_sim_batch(step, cfg, known, SEED_BATCH, steps,
+                                self.dev)
+        key = f"seed_batch_lidar_{tag}"
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        true_pose, odom, st, tel = self.counted(key, lambda: sim(seeds))
+        wall = time.perf_counter() - t1
+        counts = self.launches[key]
+        least = 12 if known else 10
+        per_seed = []
+        for i in seeds:
+            slam_xy = float(torch.hypot(*(st.state[i, 1:3]
+                                          - true_pose[i, 1:])))
+            odo_xy = float(torch.hypot(*(odom[i, 1:3] - true_pose[i, 1:])))
+            n_lm = int(st.count[i])
+            per_seed.append({"seed": i, "slam_xy_error_m": slam_xy,
+                             "odometry_xy_error_m": odo_xy,
+                             "landmarks_tracked": n_lm})
+            if not (slam_xy < odo_xy and n_lm >= least):
+                raise AssertionError(f"lidar EKF ({tag} DA) batched, seed "
+                                     f"{i}: {per_seed[-1]}")
+        if counts["EIG"] != 2 * steps or counts["K1"]:
+            raise AssertionError(f"lidar EKF ({tag} DA) batched: launches "
+                                 f"{counts} in {steps} steps")
+        serial = le.make_sim(step, cfg, known, steps, self.dev)
+        compared = {}
+        for i in (0, SEED_BATCH - 1):
+            one = serial(i)
+            got = (true_pose[i], odom[i], *(t[i] for t in st))
+            want = (one[0], one[1], *one[2])
+            diff = {"equal": all(torch.equal(a, b)
+                                 for a, b in zip(got, want))
+                    and bool(torch.equal(tel[i], one[3]))}
+            diff.update(tel_diff(tel[i], one[3]))
+            compared[str(i)] = diff
+        if not all(c["equal"] for c in compared.values()):
+            raise AssertionError(f"lidar EKF ({tag} DA) batched vs serial: "
+                                 f"{compared}")
+        graph = le.make_graph(step, cfg, known, self.dev, SEED_BATCH)
+        gens = tuple(torch.Generator(device=self.dev).manual_seed(j)
+                     for j in seeds)
+        window = self.window(lambda: graph.step(gens))
+        return {"steps": steps, "seconds": wall,
+                "ms_per_step_all_seeds": 1e3 * wall / steps,
+                "kernel_launches": counts, "seeds": per_seed,
+                "batch_vs_serial": compared,
+                "replayed_window": {f"B={SEED_BATCH}": window}}
+
 
 # ── The loops as CUDA graphs: tpunav_torch/capture.py on the card ──
 
@@ -3717,6 +3997,28 @@ def same_bits(a, b, names) -> dict:
     """{name: equal bits} of the named fields of two states."""
     return {n: bool(torch.equal(getattr(a, n), getattr(b, n)))
             for n in names}
+
+
+def tel_diff(got, want) -> dict:
+    """Where two telemetry streams (ticks, F) part: the first row that
+    differs and the largest gap, or nulls."""
+    rows = (got != want).any(dim=-1).nonzero()
+    return {"first_tick_apart": int(rows[0]) if len(rows) else None,
+            "max_abs_gap": float((got - want).abs().max())}
+
+
+def seed_diff(got, want, got_tel, want_tel) -> dict:
+    """A seed of a batch against its serial course: each field's bits, the
+    generator's, the telemetry's, and :func:`tel_diff`."""
+    fields = ("true_pose", "odom", "u", "wpt_idx", "visits", "ticks", "done")
+    same = same_bits(got, want, fields)
+    same.update({f"ekf.{k}": bool(torch.equal(a, b)) for k, a, b in zip(
+        got.ekf._fields, got.ekf, want.ekf)})
+    same["generator"] = bool(torch.equal(got.generator.get_state(),
+                                         want.generator.get_state()))
+    same["telemetry"] = bool(torch.equal(got_tel, want_tel))
+    return {"equal": all(same.values()), "fields": same,
+            **tel_diff(got_tel, want_tel)}
 
 
 class CudaGraphs:
@@ -4632,6 +4934,15 @@ def demo_launches(demos: Demos, key: str) -> dict:
                 if name not in ("explore", "full_stack")}}
 
 
+def seed_batch_launches(demos: Demos, key: str) -> dict:
+    """One kernel's measured launches in the ``seed_batch`` phase's
+    courses (all SEED_BATCH seeds at once), for the ``kernels`` line."""
+    return {"launches_seed_batch": {
+        name[len("seed_batch_"):]: counts[key]
+        for name, counts in demos.launches.items()
+        if name.startswith("seed_batch_")}}
+
+
 def graph_launches(cuda_graphs: CudaGraphs, key: str) -> dict:
     """One kernel's measured launches in the CUDA-graph phases, for the
     ``kernels`` line (a graph's launches counted on every replay)."""
@@ -4721,6 +5032,7 @@ def main() -> int:
     demos.lidar_ekf()
     demos.ekf_demo()
     demos.rbpf_stages()
+    demos.seed_batch()
     kernel_times(smoke, rbpf, obst)
     emit("run", seconds=time.perf_counter() - started, card=smoke.card)
 
@@ -4744,6 +5056,10 @@ def main() -> int:
         "launches_sharded": sharded.launches["K1"],
         **demo_launches(demos, "K1"),
         **graph_launches(cuda_graphs, "K1"),
+        **seed_batch_launches(demos, "K1"),
+        "seed_batch_timing": [{k: row[k] for k in (
+            "B", "K", "N", "blocks", "ms", "single_launches_ms", "plain_ms",
+            "device_us", "bound_ms", "bound_by")} for row in demos.seed_k1],
     }]
     for key, name, source, replaces in [
             ("K2", "likelihood_field (K2)", "likelihood.cu",
@@ -4793,6 +5109,7 @@ def main() -> int:
         **node_launches(graphs, "EIG"),
         "launches_graph_ekf_update_alone": cuda_graphs.launches["ekf_eig"],
         **demo_launches(demos, "EIG"),
+        **seed_batch_launches(demos, "EIG"),
         "by_shape": [{k: r.get(k) for k in (
             "case", "shape", "layout", "ms", "plain_ms", "library_ms",
             "device_us", "device_event_us", "bound_ms", "bound_by",

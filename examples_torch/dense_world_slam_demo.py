@@ -17,24 +17,31 @@ gating chain through perception rather than oracle feeds.
 chunks of that scan as CUDA graphs (``control.slam_loop.run_slam_course``,
 the EKF update in its masked form, the detector's eigensolver the port's
 kernel), bit for bit the eager per-tick loop, which ``chunked=False``
-runs. ``run_batch`` loops over seeds where ``tpunav`` vmaps its course.
+runs. ``run_batch`` runs its seeds as ``tpunav`` vmaps its course:
+``build_batch``'s course replays chunks of all B seeds' ticks
+(``control.slam_loop.run_slam_course`` on a seed batch), each tick one K1
+launch for the B solves and the detector one call for the B scans, every
+seed bit for bit its own ``course``.
 """
 
 from __future__ import annotations
 
 import math
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from examples_torch import device_parser, draw, out_path, synchronize
+from tpunav_torch import batch
 from tpunav_torch.control.mppi import MPPIConfig
 from tpunav_torch.control.slam_loop import (SlamLoopConfig, run_slam_course,
-                                            slam_loop_init, slam_loop_tick)
+                                            slam_batch_init, slam_loop_init,
+                                            slam_loop_tick)
 from tpunav_torch.core.angles import normalize_angle_pi
 from tpunav_torch.device import DEFAULT_DEVICE, resolve
-from tpunav_torch.estimation.ekf import EKFConfig, robot_pose
+from tpunav_torch.estimation.ekf import EKFConfig, EKFState, robot_pose
 from tpunav_torch.estimation.landmarks import (LandmarkConfig,
                                                circles_to_measurements,
                                                feature_detection)
@@ -91,6 +98,14 @@ def configs(rollouts=2048):
                           tick_dt=0.05, odom_bias=(1e-4, 1e-4),
                           known_da=False, use_fused=True)
     return mppi, ekf, loop
+
+
+class _Pose(NamedTuple):
+    """What :func:`errors` reads of a state: one seed's fields."""
+
+    ekf: EKFState
+    true_pose: torch.Tensor
+    odom: torch.Tensor
 
 
 def errors(st):
@@ -174,6 +189,42 @@ def build(steps=5000, rollouts=2048, device=DEFAULT_DEVICE):
     return course, (mppi, ekf, loop), waypoints, landmarks, meas_fn
 
 
+def build_batch(steps=5000, rollouts=2048, device=DEFAULT_DEVICE):
+    """:func:`build`'s course over a seed batch: ``course_batch(seeds,
+    telemetry=True)`` runs the course for every seed of the list at once
+    (``run_slam_course`` on ``slam_batch_init``'s state) and returns
+    :func:`build`'s course's dict with every array leading with B,
+    ``state`` the batch's state and ``wall_s`` the seconds of the whole
+    batch. Seed i gives the bits of ``build(...)[0](seeds[i])``."""
+    device = resolve(device)
+    _, (mppi, ekf, loop), waypoints, landmarks, meas_fn = build(
+        steps, rollouts, device)
+
+    def course_batch(seeds, telemetry=True):
+        st = slam_batch_init(mppi, ekf, seeds,
+                             pose_xyt=[1.42, 0.0, math.pi / 2], device=device)
+        synchronize(device)
+        t0 = time.perf_counter()
+        st, tel = run_slam_course(
+            mppi, ekf, loop, MODEL, waypoints, landmarks, st, steps,
+            meas_fn=meas_fn, meas_shape=(360,),
+            telemetry=telemetry_row if telemetry else None)
+        synchronize(device)
+        wall = time.perf_counter() - t0
+        e_s, e_o = batch.vmap(lambda *f: errors(_Pose(*f)))(
+            st.ekf, st.true_pose, st.odom)
+        return dict(ekf_err=e_s.cpu().numpy(), odo_err=e_o.cpu().numpy(),
+                    count=st.ekf.count.cpu().numpy(),
+                    visits=st.visits.cpu().numpy(),
+                    tel=tel.cpu().numpy() if telemetry else None, tel_t=tel,
+                    wall_s=wall,
+                    lms=st.ekf.state[:, 3:].reshape(len(seeds), -1, 2)
+                    .cpu().numpy(),
+                    lm_active=st.ekf.active.cpu().numpy(), state=st)
+
+    return course_batch
+
+
 def run(seed=0, steps=5000, rollouts=2048, device=DEFAULT_DEVICE):
     """One seed; returns (ekf_err [θ, x, y], odo_err, n_tracked, wall,
     steps, telemetry)."""
@@ -184,17 +235,17 @@ def run(seed=0, steps=5000, rollouts=2048, device=DEFAULT_DEVICE):
 
 
 def run_batch(seeds, steps=5000, rollouts=2048, device=DEFAULT_DEVICE):
-    """The course once per seed; returns ({ekf_err (S, 3), odo_err (S, 3),
-    count (S,), visits (S,)}, wall seconds)."""
+    """The course over all ``seeds`` at once (:func:`build_batch`); returns
+    ({ekf_err (S, 3), odo_err (S, 3), count (S,), visits (S,)}, wall
+    seconds, the chunks' warm-ups and captures included). Seed i's numbers
+    are those of its own course, ``build(...)[0](seeds[i])``."""
     device = resolve(device)
-    course = build(steps, rollouts, device)[0]
-    outs = []
+    course_batch = build_batch(steps, rollouts, device)
     t0 = time.perf_counter()
-    for seed in seeds:
-        outs.append(course(seed))
-    wall = time.perf_counter() - t0
-    return ({key: np.asarray([o[key] for o in outs])
-             for key in ("ekf_err", "odo_err", "count", "visits")}, wall)
+    out = course_batch([int(s) for s in seeds], telemetry=False)
+    return ({key: np.asarray(out[key]) for key in
+             ("ekf_err", "odo_err", "count", "visits")},
+            time.perf_counter() - t0)
 
 
 def plot(tel):

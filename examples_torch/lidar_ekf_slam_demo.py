@@ -19,10 +19,13 @@ The seed enters only the scan noise; the filter is deterministic
 each step here replays one CUDA graph (:class:`StepGraph`,
 ``tpunav_torch/capture.py``): the sensor, the detector (two eigensolver
 launches), the oracle and the EKF's masked update, whose fixed trip over
-the detector's rows makes no host read. ``run_many`` loops over seeds
-where ``tpunav`` vmaps its course, every seed through one graph. The
-eager form (``eager=True``) calls the dynamic update, which reads its
-count of valid rows on the host.
+the detector's rows makes no host read. ``run_many`` runs its seeds as
+``tpunav`` vmaps its course: one :class:`StepGraph` over the B seeds
+(``make_sim_batch``), each replay one step of every seed, the step's body
+mapped over the seeds (``tpunav_torch.batch``) with one detector and one
+eigensolver call per kernel for all B scans. The eager form
+(``eager=True``) calls the dynamic update, which reads its count of valid
+rows on the host.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from examples_torch import device_parser, draw, out_path, synchronize
-from tpunav_torch import capture
+from tpunav_torch import batch, capture
 from tpunav_torch.core.angles import normalize_angle_pi
 from tpunav_torch.device import DEFAULT_DEVICE, resolve
 from tpunav_torch.estimation.ekf import (EKFConfig, EKFState, ekf_init,
@@ -108,29 +111,45 @@ class StepGraph:
     ``noise`` is the sensor's static normals of ``noise_shape``: each
     :meth:`step` draws them eagerly from a generator (the eager sensor's
     call) or takes them, then replays. :meth:`load` puts a course's start
-    into the buffers in place, so one graph serves every seed."""
+    into the buffers in place, so one graph serves every seed.
+
+    A seed batch: ``st``'s fields lead with B (``ekf_init`` states
+    stacked), and every buffer with it. One replay steps all B seeds, the
+    step's body mapped over them (``batch.vmap``): one sensor, detector and
+    update for the batch, two eigensolver launches per step. :meth:`step`
+    then takes a tuple of B generators and draws each seed's normals from
+    its own."""
 
     def __init__(self, cfg: EKFConfig, known: bool, sense, noise_shape,
                  n_meas: int, st: EKFState, u_true, u_odom,
                  device=DEFAULT_DEVICE):
         dev = capture.state_device(st.state, device)
         f32 = dict(dtype=torch.float32, device=dev)
+        lead = tuple(st.state.shape[:-1])               # (B,) for a batch
         stepper = self.stepper = EKFStepper(cfg, st, n_meas, known, dev)
         # The body holds the buffers, not self.
-        carry = self.carry = (torch.zeros(3, **f32), st.state.clone())
-        noise = self.noise = torch.zeros(noise_shape, **f32)
-        tel = self.tel = torch.zeros(5, **f32)
+        carry = self.carry = (torch.zeros((*lead, 3), **f32),
+                              st.state.clone())
+        noise = self.noise = torch.zeros((*lead, *noise_shape), **f32)
+        tel = self.tel = torch.zeros((*lead, 5), **f32)
         zero3 = torch.zeros(3, **f32)
         state, update = stepper.state, stepper.update
         meas_in, u_in = stepper.inputs
         u_in.copy_(u_odom)
 
+        def sensed(pose, odom, z):
+            true_pose = ekff.motion_update(cfg, pose, u_true, zero3)
+            odom = ekff.motion_update(cfg, odom, u_odom, zero3)
+            return true_pose, odom, sense(true_pose, z)
+
+        sensed = batch.over(sensed, bool(lead))
+        row = batch.over(telemetry, bool(lead))
+
         def body():
-            true_pose = ekff.motion_update(cfg, carry[0], u_true, zero3)
-            odom = ekff.motion_update(cfg, carry[1], u_odom, zero3)
-            meas_in.copy_(sense(true_pose, noise))
+            true_pose, odom, meas = sensed(carry[0], carry[1], noise)
+            meas_in.copy_(meas)
             update()
-            tel.copy_(telemetry(state, true_pose, odom))
+            tel.copy_(row(state, true_pose, odom))
             capture.load(carry, (true_pose, odom))
 
         self.graph = capture.Graph(body, dev)
@@ -140,11 +159,19 @@ class StepGraph:
         capture.load(self.stepper.state, st)
 
     def step(self, generator=None, noise=None) -> torch.Tensor:
-        """One step, the sensor's normals drawn from ``generator`` or
-        ``noise``; returns the static telemetry row."""
+        """One step, the sensor's normals drawn from ``generator`` (a
+        batch: a tuple of B generators, one draw from each) or ``noise``;
+        returns the static telemetry row ((B, 5) for a batch)."""
         z = self.noise
-        z.copy_(torch.randn(z.shape, generator=generator, dtype=z.dtype,
-                            device=z.device) if noise is None else noise)
+        if noise is not None:
+            z.copy_(noise)
+        elif isinstance(generator, tuple):
+            for g, rows in zip(generator, z, strict=True):
+                rows.copy_(torch.randn(rows.shape, generator=g,
+                                       dtype=z.dtype, device=z.device))
+        else:
+            z.copy_(torch.randn(z.shape, generator=generator, dtype=z.dtype,
+                                device=z.device))
         self.graph()
         return self.tel
 
@@ -172,23 +199,39 @@ def eager_course(slam_step, cfg: EKFConfig, sense, u_true, u_odom,
     return true_pose, odom, st, torch.stack(tel)
 
 
-def course(graph: StepGraph, cfg: EKFConfig, seed: int, steps: int,
+def _start(cfg: EKFConfig, seeds, device):
+    """The course's start for each of ``seeds`` (an int: one seed; a list:
+    a seed batch, every field leading with B): the generators, the truth,
+    and the filter (whose state is odometry's start)."""
+    one = not isinstance(seeds, (list, tuple))
+    gens = []
+    for seed in [seeds] if one else seeds:
+        gens.append(torch.Generator(device=device))
+        gens[-1].manual_seed(int(seed))
+    st = ekf_init(cfg, dtype=torch.float32, device=device)
+    if not one:
+        st = EKFState(*(t.expand(len(gens), *t.shape).clone() for t in st))
+    pose = torch.zeros(st.state.shape[:-1] + (3,), dtype=torch.float32,
+                       device=device)
+    return gens[0] if one else tuple(gens), pose, st
+
+
+def course(graph: StepGraph, cfg: EKFConfig, seed, steps: int,
            noise=None):
     """``steps`` steps of ``graph`` from the course's start, the sensor's
     normals from a generator seeded ``seed`` (or ``noise[i]``); returns
-    copies of (true_pose, odom, ekf_state, telemetry (steps, 5))."""
-    dev = graph.tel.device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-    st = ekf_init(cfg, dtype=torch.float32, device=dev)
-    graph.load(torch.zeros(3, dtype=torch.float32, device=dev), st.state,
-               st)
-    tel = [graph.step(gen, None if noise is None else noise[i]).clone()
-           for i in range(steps)]
+    copies of (true_pose, odom, ekf_state, telemetry (steps, 5)). On a
+    seed batch's graph ``seed`` is the list of B seeds, ``noise`` (B,
+    steps, ...), and every result leads with B (telemetry (B, steps, 5))."""
+    gen, pose, st = _start(cfg, seed, graph.tel.device)
+    graph.load(pose, st.state, st)
+    axis = graph.tel.dim() - 1                      # 1 for a batch
+    tel = [graph.step(gen, None if noise is None else
+                      noise.select(axis, i)).clone() for i in range(steps)]
     true_pose, odom = (t.clone() for t in graph.carry)
     return (true_pose, odom, EKFState(*(t.clone() for t in
                                         graph.stepper.state)),
-            torch.stack(tel))
+            torch.stack(tel, dim=axis))
 
 
 def _course_parts(known: bool, device):
@@ -213,16 +256,16 @@ def _course_parts(known: bool, device):
 
 
 def make_graph(slam_step, cfg: EKFConfig, known: bool,
-               device=DEFAULT_DEVICE) -> StepGraph:
+               device=DEFAULT_DEVICE, seeds: int = 0) -> StepGraph:
     """The course's :class:`StepGraph`: the scan, the detector, the oracle
     when ``known``, and ``slam_step``'s masked form over the detector's 16
-    rows (the oracle's 12)."""
+    rows (the oracle's 12); with ``seeds`` = B > 0, over a seed batch."""
     device = resolve(device)
     scan, u_true, u_odom = _course_parts(known, device)
     rows = len(LANDMARKS) if known else 16
+    st = _start(cfg, list(range(seeds)) if seeds else 0, device)[2]
     return StepGraph(cfg, known_da(slam_step),
-                     lambda pose, z: scan(pose, noise=z), (360,), rows,
-                     ekf_init(cfg, dtype=torch.float32, device=device),
+                     lambda pose, z: scan(pose, noise=z), (360,), rows, st,
                      u_true, u_odom, device)
 
 
@@ -250,10 +293,33 @@ def make_sim(slam_step, cfg: EKFConfig, known: bool, steps=400,
                                                  seed, steps, noise)
 
 
+def make_sim_batch(slam_step, cfg: EKFConfig, known: bool, seeds: int,
+                   steps=400, device=DEFAULT_DEVICE):
+    """:func:`make_sim` over a batch of ``seeds`` = B seeds, ``tpunav``'s
+    ``jax.vmap`` of the course: ``sim(seeds, noise=None) → (true_pose (B,
+    3), odom (B, S), ekf_state (B, ...), telemetry (B, steps, 5))`` for a
+    list of B seeds, each step one replay of a seed batch's
+    :class:`StepGraph` for all of them (``noise``: (B, steps, 360)). Seed i
+    gives the bits of ``make_sim(...)(seeds[i])``. On ``device``, default
+    the card (raises without CUDA unless ``device="cpu"``)."""
+    device = resolve(device)
+    graph = make_graph(slam_step, cfg, known, device, seeds)
+    return lambda seed_list, noise=None: course(graph, cfg, list(seed_list),
+                                                steps, noise)
+
+
 def _wrapped(e):
     e = e.cpu().numpy().astype(np.float64)
-    e[0] = (e[0] + np.pi) % (2 * np.pi) - np.pi
+    e[..., 0] = (e[..., 0] + np.pi) % (2 * np.pi) - np.pi
     return e
+
+
+def errors(true_pose, odom, st: EKFState):
+    """A course's end as the filter's and odometry's pose errors [θ, x, y]
+    against the truth (numpy float64, θ wrapped to [-π, π)); every argument
+    may lead with B (a seed batch's course)."""
+    return (_wrapped(robot_pose(st) - true_pose),
+            _wrapped(odom[..., :3] - true_pose))
 
 
 def run(slam_step, cfg: EKFConfig, known: bool, steps=400, seed=0,
@@ -268,26 +334,25 @@ def run(slam_step, cfg: EKFConfig, known: bool, steps=400, seed=0,
     true_pose, odom, st, tel = sim(seed)
     synchronize(device)
     wall = time.perf_counter() - t0
-    return (_wrapped(robot_pose(st) - true_pose),
-            _wrapped(odom[:3] - true_pose),
-            int(st.count), wall, steps, tel.cpu().numpy())
+    return (*errors(true_pose, odom, st), int(st.count), wall, steps,
+            tel.cpu().numpy())
 
 
 def run_many(slam_step, cfg: EKFConfig, known: bool, seeds, steps=400,
              device=DEFAULT_DEVICE):
-    """The course once per seed, every seed through one graph; returns
-    per-seed (ekf_err (S, 3) [θ, x, y], odo_err (S, 3), counts (S,)) and
-    the wall seconds of the sweep."""
+    """The course over all ``seeds`` at once (:func:`make_sim_batch`, one
+    replay per step for every seed); returns per-seed (ekf_err (S, 3)
+    [θ, x, y], odo_err (S, 3), counts (S,)) and the wall seconds of the
+    sweep, the graph's warm-up and capture included. Seed i's numbers are
+    those of its own course, ``make_sim(...)(seeds[i])``."""
     device = resolve(device)
-    sim = make_sim(slam_step, cfg, known, steps, device)
-    errs, odos, counts = [], [], []
+    seeds = [int(s) for s in seeds]
+    synchronize(device)
     t0 = time.perf_counter()
-    for seed in seeds:
-        true_pose, odom, st, _ = sim(int(seed))
-        errs.append(_wrapped(robot_pose(st) - true_pose))
-        odos.append(_wrapped(odom[:3] - true_pose))
-        counts.append(int(st.count))
-    return (np.asarray(errs), np.asarray(odos), np.asarray(counts),
+    sim = make_sim_batch(slam_step, cfg, known, len(seeds), steps, device)
+    true_pose, odom, st, _ = sim(seeds)
+    ekf_err, odo_err = errors(true_pose, odom, st)
+    return (ekf_err, odo_err, st.count.cpu().numpy(),
             time.perf_counter() - t0)
 
 

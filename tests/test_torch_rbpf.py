@@ -445,7 +445,9 @@ def test_lidar_yaml_loads_equal_in_both_packages():
 
 def _entry_points():
     from tpunav_torch.control import mppi
+    from tpunav_torch.control.slam_loop import slam_batch_init
     from tpunav_torch.control.waypoint_loop import course_init
+    from tpunav_torch.estimation.ekf import EKFConfig
     from tpunav_torch.parallel import pf_init_sharded, rollout_mesh
 
     cfg = mppi.MPPIConfig(horizon=0.1)
@@ -457,6 +459,8 @@ def _entry_points():
         "MPPIController": lambda: mppi.MPPIController(
             cfg, mppi.CartParams(0.033, 0.16)),
         "course_init": lambda: course_init(cfg, [0.0, 0.0, 0.0]),
+        "slam_batch_init": lambda: slam_batch_init(
+            cfg, EKFConfig(num_landmarks=2), [0, 1]),
         "course_state_from_numpy": lambda: interop.course_state_from_numpy(
             {n: np.zeros(()) for n in ("pose", "u", "wpt_idx", "visits",
                                        "ticks", "done", "wheel_vel")}),
@@ -494,6 +498,9 @@ def _graph_entry_points(pcfg):
             rcfg, ekf.ekf_init(rcfg, device="cpu"), 2),
         "EKFStepper(spd_repair_per_meas)": lambda: ekf.EKFStepper(
             pcfg_, ekf.ekf_init(pcfg_, device="cpu"), 2, known_da=False),
+        "EKFStepper(seed batch)": lambda: ekf.EKFStepper(ecfg, ekf.EKFState(
+            *(t.expand(3, *t.shape).clone()
+              for t in ekf.ekf_init(ecfg, device="cpu"))), 2),
         **_demo_graph_entry_points(ecfg, ekf.ekf_init(
             ecfg, dtype=torch.float32, device="cpu")),
         **_sharded_graph_entry_points(pcfg),
@@ -533,6 +540,7 @@ def _demo_graph_entry_points(ecfg, ekf_state):
     from examples_torch import full_stack_demo as fs
     from examples_torch import lidar_ekf_slam_demo as le
     from examples_torch import rbpf_explore_demo as ex
+    from tpunav_torch.estimation.ekf import filter as ekf
 
     def explore():
         pf_cfg, mppi_cfg = ex.configs(2, 32)
@@ -550,6 +558,12 @@ def _demo_graph_entry_points(ecfg, ekf_state):
         return le.StepGraph(ecfg, True, lambda pose, n: n, (2, 2), 2,
                             ekf_state, z, z)
 
+    def ekf_step_batch():
+        z = torch.zeros(2)
+        return le.StepGraph(ecfg, True, lambda pose, n: n, (2, 2), 2,
+                            ekf.EKFState(*(t.expand(3, *t.shape).clone()
+                                           for t in ekf_state)), z, z)
+
     def chained():
         from examples_torch.profile_rbpf_stages import ChainedStages
 
@@ -560,6 +574,8 @@ def _demo_graph_entry_points(ecfg, ekf_state):
     return {"examples_torch.rbpf_explore_demo.ScanGraph": explore,
             "examples_torch.full_stack_demo.ScanGraph": full_stack,
             "examples_torch.lidar_ekf_slam_demo.StepGraph": ekf_step,
+            "examples_torch.lidar_ekf_slam_demo.StepGraph(seed batch)":
+                ekf_step_batch,
             "examples_torch.profile_rbpf_stages.ChainedStages": chained}
 
 
@@ -606,6 +622,7 @@ def _demo_entry_points():
                                 obstacle_mppi_demo, planners_demo,
                                 profile_rbpf_stages, rbpf_explore_demo,
                                 rbpf_slam_demo, rbpf_two_process,
+                                seed_batch_sweeps,
                                 slam_mppi_closed_loop_demo)
 
     ex, fs, le = rbpf_explore_demo, full_stack_demo, lidar_ekf_slam_demo
@@ -625,11 +642,19 @@ def _demo_entry_points():
         "lidar_ekf_slam_demo.run": lambda: le.run(step, ekf_cfg, known, 1),
         "lidar_ekf_slam_demo.run_many": lambda: le.run_many(
             step, ekf_cfg, known, [0], 1),
+        "lidar_ekf_slam_demo.make_sim_batch": lambda: le.make_sim_batch(
+            step, ekf_cfg, known, 2, 1),
         "dense_world_slam_demo.build": lambda: dense_world_slam_demo.build(1),
         "dense_world_slam_demo.run": lambda: dense_world_slam_demo.run(
             steps=1),
         "dense_world_slam_demo.run_batch":
             lambda: dense_world_slam_demo.run_batch([0], 1),
+        "dense_world_slam_demo.build_batch":
+            lambda: dense_world_slam_demo.build_batch(1),
+        "seed_batch_sweeps.serial":
+            lambda: seed_batch_sweeps.serial(3, [0], ticks=1, rollouts=32),
+        "seed_batch_sweeps.main":
+            lambda: seed_batch_sweeps.main(["--rows", "1", "--seeds", "1"]),
         "slam_mppi_closed_loop_demo.run":
             lambda: slam_mppi_closed_loop_demo.run(
                 "x", slam_mppi_closed_loop_demo.block_world(), True, 12),

@@ -38,6 +38,15 @@ number of ticks with per-tick telemetry and no stop at ``done``
 lidar → circle detector chain). It replays chunks of that scan with no
 host read; the ``meas_fn``'s noise is drawn eagerly into static tensors
 through its ``noise=`` seam, with the eager loop's calls.
+
+``run_slam_course`` also runs that scan over a seed batch
+(``slam_batch_init``: B states and B generators), ``tpunav``'s
+``jax.vmap`` of the course over seeds: each replayed chunk advances every
+seed, a tick's parts before and after the solve mapped over the seeds
+(``tpunav_torch.batch``) around one K1 launch for the B solves, and each
+seed's sensor normals drawn from its own generator in its serial order.
+Seed i ends in the state, rows and generator of ``run_slam_course`` from
+seed i's state.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import capture
+from .. import batch, capture
 from ..device import DEFAULT_DEVICE, resolve
 from ..estimation.ekf import filter as ekff
 from ..estimation.ekf.filter import (EKFConfig, EKFState, ekf_init,
@@ -62,7 +71,7 @@ from ..ops import fused_mppi
 from ..ops.rk4 import rk4_step
 from ..sim.landmark_sensor import landmark_measurements
 from .mppi import (MPPIConfig, init_controls, mppi_solve,
-                   sample_perturbations)
+                   sample_perturbations, shift_controls)
 from .waypoint_loop import _active_waypoint
 
 
@@ -154,6 +163,23 @@ def _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st, sense,
     """:func:`slam_loop_tick` with the schedule (``sense``, a host bool)
     and the filter's step given; ``hold``: a held tick's device bool for
     K1 (fused backend), or None."""
+    est_xyt, wpt, aim = _aim(cfg, waypoints, st)
+    if cfg.use_fused:
+        seed = cfg.fused_seed + st.ticks              # int32, on the device
+        cmd, u = fused_mppi.mppi_solve_fused_packed(
+            mppi_cfg, model, st.u, seed, est_xyt, wpt, noise, hold=hold)
+    else:
+        cmd, u = mppi_solve(mppi_cfg, model, st.u, st.generator, est_xyt,
+                            wpt, noise=None if noise is None
+                            else noise.transpose(0, 1))
+    return _act(ekf_cfg, cfg, model, landmarks, st, aim, cmd, u, sense,
+                slam_step, meas_fn, meas_noise)
+
+
+def _aim(cfg, waypoints, st):
+    """The tick's part before the solve: the filter's pose as [x, y, θ],
+    the waypoint it steers to, and (wpt_idx, visits, done) after the
+    advance."""
     n_wpts = waypoints.shape[0]
 
     # The controller sees the FILTER's pose (ref: mppi_waypoints consumes
@@ -167,16 +193,16 @@ def _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st, sense,
     visits = st.visits + arrived.to(torch.int32)
     wpt_idx = torch.where(arrived, (st.wpt_idx + 1) % n_wpts, st.wpt_idx)
     done = torch.logical_or(st.done, visits >= cfg.cycles * n_wpts)
-    wpt = _active_waypoint(waypoints, wpt_idx)
+    return est_xyt, _active_waypoint(waypoints, wpt_idx), (wpt_idx, visits,
+                                                           done)
 
-    if cfg.use_fused:
-        seed = cfg.fused_seed + st.ticks              # int32, on the device
-        cmd, u = fused_mppi.mppi_solve_fused_packed(
-            mppi_cfg, model, st.u, seed, est_xyt, wpt, noise, hold=hold)
-    else:
-        cmd, u = mppi_solve(mppi_cfg, model, st.u, st.generator, est_xyt,
-                            wpt, noise=None if noise is None
-                            else noise.transpose(0, 1))
+
+def _act(ekf_cfg, cfg, model, landmarks, st, aim, cmd, u, sense, slam_step,
+         meas_fn=None, meas_noise=None):
+    """The tick's part after the solve (wheel command ``cmd``, shifted
+    controls ``u``): plant → noisy odometry → sensor on schedule → filter.
+    """
+    wpt_idx, visits, done = aim
     cmd = torch.where(done, torch.zeros_like(cmd), cmd)
 
     # True plant (ref: fake encoders + odometer chain).
@@ -238,7 +264,7 @@ class _Chunks:
     sensing tick, so its schedule is fixed. With ``bound`` (an int) the
     ticks are held: a tick holds once the incoming state is done or its
     device tick count reaches ``bound``; with None they run on past done
-    (a scan). ``status`` holds [done, ticks] after a step.
+    (a scan). ``status`` holds [done, ticks] after a step with ``bound``.
 
     The sensor is the landmark sensor, or ``meas_fn(true_txy, generator,
     noise=...)``, whose standard normals of shape ``meas_shape`` (None:
@@ -246,7 +272,12 @@ class _Chunks:
     (K, N, 2) MPPI perturbations from ``perturb[i]``. :meth:`draw` makes
     the draws eagerly before each step, in the eager ticks' order.
     ``telemetry(state)`` gives a 1-D row per tick after the tick, stacked
-    into ``tel`` (chunk, F)."""
+    into ``tel`` (chunk, F).
+
+    A seed batch ``st`` (:func:`slam_batch_init`; the fused backend, no
+    ``bound``) runs each tick through :func:`_batch_tick`; ``normals`` and
+    ``tel`` then lead with B, and :meth:`draw` draws each seed's normals
+    from its own generator."""
 
     def __init__(self, mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
                  st, chunk: int, bound: Optional[int], meas_fn=None,
@@ -254,6 +285,12 @@ class _Chunks:
         dev = st.true_pose.device
         every = self.every = cfg.sensor_every
         self.bound, self.chunk, self.mppi_cfg = bound, chunk, mppi_cfg
+        # A seed batch (slam_batch_init): every buffer leads with B.
+        seeds = _seeds(st)
+        lead = () if seeds is None else (seeds,)
+        if seeds is not None and (bound is not None or not cfg.use_fused):
+            raise ValueError("a seed batch runs the course form on the "
+                             "fused backend only")
         # The body holds the buffers, not self: a graph whose runner is
         # dropped is freed at once, not by the cyclic collector.
         state = self.state = _clone(st)
@@ -264,46 +301,61 @@ class _Chunks:
                  if shape is not None and (meas_fn is not None or
                                            cfg.meas_noise_std > 0.0) else 0)
         normals = self.normals = torch.zeros(
-            (draws, *(shape or ())), dtype=landmarks.dtype, device=dev)
+            (*lead, draws, *(shape or ())), dtype=landmarks.dtype,
+            device=dev)
         perturb = self.perturb = (None if cfg.use_fused else torch.zeros(
             (chunk, mppi_cfg.rollouts, mppi_cfg.steps, 2),
             dtype=st.u.dtype, device=dev))
         status = self.status = torch.empty(2, dtype=torch.int32, device=dev)
+        width = (0 if telemetry is None else
+                 telemetry(st if seeds is None else seed_state(st, 0)).numel())
         tel = self.tel = (None if telemetry is None else torch.empty(
-            (chunk, telemetry(st).numel()), dtype=torch.float32, device=dev))
+            (*lead, chunk, width), dtype=torch.float32, device=dev))
         slam_step = (known_correspondence_slam_masked if cfg.known_da
                      else slam_unknown_da_masked)
 
         def sensor(slot):
             return lambda txy, _: meas_fn(txy, None, noise=slot)
 
+        def one_tick(s, i, sense, slot):
+            hold = (None if bound is None else
+                    torch.logical_or(s.done, s.ticks >= bound))
+            # _tick takes the (N, K, 2) layout of the fused seam.
+            new = _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
+                        s, sense, slam_step,
+                        meas_fn=None if meas_fn is None else sensor(slot),
+                        noise=None if perturb is None
+                        else perturb[i].transpose(0, 1),
+                        meas_noise=None if meas_fn is not None else slot,
+                        hold=hold)
+            s = new if hold is None else _held(s, new, hold)
+            return s, None if tel is None else telemetry(s)
+
+        def batch_tick(s, i, sense, slot):
+            return _batch_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
+                               landmarks, s, sense, slam_step, meas_fn, slot,
+                               telemetry)
+
+        tick = one_tick if seeds is None else batch_tick
+
         def body():
             s, rows = state, []
             for i in range(chunk):
                 sense = i % every == 0
-                slot = normals[i // every] if sense and draws else None
-                hold = (None if bound is None else
-                        torch.logical_or(s.done, s.ticks >= bound))
-                # _tick takes the (N, K, 2) layout of the fused seam.
-                new = _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
-                            landmarks, s, sense, slam_step,
-                            meas_fn=None if meas_fn is None else sensor(slot),
-                            noise=None if perturb is None
-                            else perturb[i].transpose(0, 1),
-                            meas_noise=None if meas_fn is not None else slot,
-                            hold=hold)
-                s = new if hold is None else _held(s, new, hold)
-                if tel is not None:
-                    rows.append(telemetry(s))
+                slot = (normals.select(len(lead), i // every)
+                        if sense and draws else None)
+                s, row = tick(s, i, sense, slot)
+                rows.append(row)
             # Stacked before the state buffers are written.
             if tel is not None:
-                tel.copy_(torch.stack(rows))
+                tel.copy_(torch.stack(rows, dim=len(lead)))
             for f in _FIELDS:
                 if f != "ekf":
                     getattr(state, f).copy_(getattr(s, f))
             for buf, val in zip(state.ekf, s.ekf):
                 buf.copy_(val)
-            status.copy_(torch.stack([s.done.to(torch.int32), s.ticks]))
+            if bound is not None:
+                status.copy_(torch.stack([s.done.to(torch.int32), s.ticks]))
 
         self.graph = capture.Graph(body, dev)
 
@@ -313,6 +365,13 @@ class _Chunks:
         backend), then on a sensing tick the sensor's normals."""
         gen, normals, perturb = (self.state.generator, self.normals,
                                  self.perturb)
+        if isinstance(gen, tuple):           # a seed batch: seed by seed
+            for g, rows in zip(gen, normals):
+                self._draw(n, g, rows, perturb)
+        else:
+            self._draw(n, gen, normals, perturb)
+
+    def _draw(self, n, gen, normals, perturb):
         for i in range(n):
             if perturb is not None:
                 perturb[i].copy_(sample_perturbations(
@@ -404,7 +463,18 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     sensing tick, then replays ``chunk`` ticks per graph step (default
     :func:`default_chunk`) and the rest in one shorter graph, with no host
     read, and gives the eager per-tick loop's state, rows and generator bit
-    for bit on either backend."""
+    for bit on either backend.
+
+    A seed batch ``st`` (:func:`slam_batch_init`; the fused backend, from a
+    sensing tick) runs as ``tpunav``'s ``jax.vmap`` of the course over
+    seeds: each replayed chunk advances all B seeds, every tick one mapped
+    body and one K1 launch for the B solves, and the detector's eigensolver
+    one call for the B scans. Each seed's sensor normals are drawn eagerly
+    from its own generator in its serial course's order, so seed i ends in
+    the state, rows and generator of this function from ``seed_state(st,
+    i)``. ``telemetry(state)`` and ``meas_fn`` are then one seed's; the
+    state's fields and the rows lead with B (rows (B, ticks, F)).
+    """
     dev = st.true_pose.device
     waypoints = torch.as_tensor(waypoints, dtype=torch.float32).to(dev)
     landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
@@ -413,6 +483,9 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     if chunk < 1 or chunk % every:
         raise ValueError(f"chunk {chunk} must be a positive multiple of "
                          f"sensor_every ({every})")
+    batched = _seeds(st) is not None
+    if batched and st.host_ticks % every:
+        raise ValueError("a seed batch's course starts on a sensing tick")
     rows, done = [], 0
     while done < ticks and st.host_ticks % every:
         st = slam_loop_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
@@ -432,4 +505,85 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
                 rows.append(chunks.tel.clone())
         st = chunks.state._replace(host_ticks=st.host_ticks + length * count)
         done += length * count
-    return st, (torch.cat(rows) if rows else None)
+    return st, (torch.cat(rows, dim=int(batched)) if rows else None)
+
+
+# ── Seed batches: ``tpunav``'s vmap of the course over seeds ──
+
+
+def _seeds(st: SlamLoopState) -> Optional[int]:
+    """B for a seed batch (its ``generator`` is a tuple), else None."""
+    return len(st.generator) if isinstance(st.generator, tuple) else None
+
+
+def stack_states(states) -> SlamLoopState:
+    """Serial states of one schedule as one seed batch: every tensor field
+    stacked on a leading B, ``generator`` the tuple of their generators."""
+    first = states[0]
+    if any(s.host_ticks != first.host_ticks for s in states):
+        raise ValueError("a seed batch's states share one tick count")
+    return first._replace(
+        **{f: torch.stack([getattr(s, f) for s in states])
+           for f in _FIELDS if f != "ekf"},
+        ekf=EKFState(*(torch.stack(t) for t in zip(*(s.ekf for s in
+                                                      states)))),
+        generator=tuple(s.generator for s in states))
+
+
+def seed_state(st: SlamLoopState, i: int) -> SlamLoopState:
+    """Seed ``i`` of a batch as a serial state (views of the batch's
+    tensors, and its generator)."""
+    return st._replace(
+        **{f: getattr(st, f)[i] for f in _FIELDS if f != "ekf"},
+        ekf=EKFState(*(t[i] for t in st.ekf)), generator=st.generator[i])
+
+
+def slam_batch_init(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig, seeds,
+                    pose_xyt=None, device=DEFAULT_DEVICE) -> SlamLoopState:
+    """The loop's start for each of ``seeds`` as one seed batch
+    (:func:`stack_states` of :func:`slam_loop_init`'s states: each seed's
+    generator seeded as its serial start seeds it), on ``device`` (default
+    the CUDA card; raises without CUDA unless ``device="cpu"``)."""
+    device = resolve(device)
+    seeds = [int(s) for s in seeds]
+    if not seeds:
+        raise ValueError("a seed batch needs at least one seed")
+    return stack_states([slam_loop_init(mppi_cfg, ekf_cfg, pose_xyt, seed=s,
+                                        device=device) for s in seeds])
+
+
+def _as_state(fields) -> SlamLoopState:
+    """One seed's tensor fields as a state with no generator (a mapped
+    body draws nothing)."""
+    return SlamLoopState(generator=None, host_ticks=0,
+                         **dict(zip(_FIELDS, fields)))
+
+
+def _batch_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st,
+                sense, slam_step, meas_fn, slot, telemetry):
+    """One tick of every seed of the batch ``st``: the tick's parts before
+    and after the solve mapped over the seeds (:mod:`tpunav_torch.batch`),
+    and one K1 launch for all B solves between them. ``slot``: the sensing
+    tick's (B, ...) injected normals, or None. Returns (state, the (B, F)
+    telemetry rows or None)."""
+    fields = tuple(getattr(st, f) for f in _FIELDS)
+    est_xyt, wpt, aim = batch.vmap(
+        lambda f: _aim(cfg, waypoints, _as_state(f)))(fields)
+    u_new = fused_mppi.mppi_solve_fused_batch(
+        mppi_cfg, model, st.u, cfg.fused_seed + st.ticks,
+        est_xyt.contiguous(), wpt.contiguous())
+
+    def act(f, aim, u_new, slot):
+        sensor = (None if meas_fn is None else
+                  lambda txy, _: meas_fn(txy, None, noise=slot))
+        new = _act(ekf_cfg, cfg, model, landmarks, _as_state(f), aim,
+                   u_new[0], shift_controls(mppi_cfg, u_new), sense,
+                   slam_step, sensor, None if meas_fn is not None else slot)
+        out = tuple(getattr(new, name) for name in _FIELDS)
+        return out, (() if telemetry is None else telemetry(new))
+
+    out, rows = batch.vmap(act, (0, 0, 0, None if slot is None else 0))(
+        fields, aim, u_new, slot)
+    return (st._replace(**dict(zip(_FIELDS, out))),
+            None if telemetry is None else rows)
+

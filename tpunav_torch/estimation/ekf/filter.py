@@ -28,7 +28,12 @@ kernel of its own.
   and KH are products with that block.
 - The covariance update is the factored Joseph sandwich (I−KH)σ̄(I−KH)ᵀ +
   KRKᵀ: the rank-2 expansion loses the 1e3 → 1e-5 collapse of a fresh
-  landmark in float32.
+  landmark in float32. I−KH and the motion Jacobian G differ from the
+  identity in five columns and one, so their products with σ̄ are written
+  as those terms alone (elementwise operations and 5-term sums), not as
+  dense matrix products: a library's product rounds a batch of states
+  otherwise than one, and a seed batch (``batch.vmap``) gives each state
+  its serial update's bits.
 - Each update runs with float32 matmuls at full precision (no TF32), and
   the caller's setting is restored afterwards: reduced-precision products
   break the Mahalanobis gates.
@@ -48,7 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ... import capture
+from ... import batch, capture
 from ...core.angles import normalize_angle_pi
 from ...device import DEFAULT_DEVICE, constant, full_precision_matmul, resolve
 from .spd import repair_if_needed
@@ -148,12 +153,16 @@ def uncertainty_update(cfg: EKFConfig, state, cov, u):
     g20 = torch.where(small, vx * torch.cos(theta),
                       (-vx / om_safe) * torch.sin(theta) +
                       k * torch.sin(theta + om))
-    s = cfg.state_size
-    G = torch.eye(s, dtype=cov.dtype, device=cov.device)
-    G[1:3, 0] = torch.stack([g10, g20])
-    q = torch.zeros((s,), dtype=cov.dtype, device=cov.device)
-    q[:3] = _const(cfg.motion_noise, cov)
-    return G @ cov @ G.T + torch.diag(q)
+    # G is the identity but for g = (0, g10, g20, 0, …) in column 0, so
+    # G Σ adds g_i · (row 0) to row i, and (G Σ) Gᵀ adds g_j · (column 0)
+    # to column j: the dense products' only nonzero terms, as elementwise
+    # operations, which round alike for one state and a batch of them.
+    zero = torch.zeros_like(g10)[None]
+    g = torch.cat([zero, g10[None], g20[None], zero.expand(
+        cfg.state_size - 3)])
+    g_sigma = cov + g[:, None] * cov[0]
+    q = _const(tuple(cfg.motion_noise) + (0.0,) * (cfg.state_size - 3), cov)
+    return g_sigma + g_sigma[:, :1] * g + torch.diag(q)
 
 
 # ── Measurement model at slot j. ``idx`` is the (5,) long device index
@@ -233,16 +242,25 @@ def _measurement_jacobian(cfg: EKFConfig, k: _Update, state, idx):
     return H.index_copy_(1, idx, _h_block(k, _h_terms(state, idx)))
 
 
+def _dot(a, b):
+    """a @ b for a contraction of a few terms (H's five columns, the two
+    measurement components), as a product and a sum over the last axis:
+    a library's matrix product of this size takes another kernel in a
+    batch than alone, and the filter gives each state of a batch the bits
+    of its own serial update (``batch.vmap``)."""
+    return (a[..., :, None, :] * b.transpose(-1, -2)[..., None, :, :]).sum(-1)
+
+
 def _hc(cov, block, idx):
     """H @ σ̄ as a (2, S) tensor without building H: H's (2, 5) block
     times the five rows [0, 1, 2, jx, jy] of σ̄."""
-    return block @ cov.index_select(0, idx)
+    return _dot(block, cov.index_select(0, idx))
 
 
 def _psi_hh(hc, block, idx):
     """Ψ_hh = H σ̄ Hᵀ = (Hσ̄) Hᵀ (2, 2): H's block applied to the five
     columns of Hσ̄."""
-    return hc.index_select(1, idx) @ block.T
+    return _dot(hc.index_select(1, idx), block.T)
 
 
 def _heading(state, v):
@@ -293,12 +311,18 @@ def _kalman_update(cfg: EKFConfig, k: _Update, state, cov, idx, r, b_norm,
     block = _h_block(k, terms)
     hc = _hc(cov, block, idx)
     psi = _psi_hh(hc, block, idx) + k.R
-    K = hc.T @ _inv2(psi)                                   # (S, 2)
+    K = _dot(hc.T, _inv2(psi))                              # (S, 2)
     dz = torch.stack(_innovation(r, b_norm, _z_hat(terms, heading, v)))
-    new_state = state + K @ dz
-    KH = torch.zeros_like(cov).index_copy_(1, idx, K @ block)
-    IKH = k.eye - KH
-    new_cov = IKH @ cov @ IKH.T + (K * k.r_diag[None, :]) @ K.T
+    new_state = state + _dot(K, dz[:, None])[:, 0]
+    # I − KH is the identity but in H's five columns: (I − KH) σ̄ sums five
+    # rows of σ̄ into each row (plus the row itself off those columns), and
+    # the sandwich's right factor likewise — the dense products' only
+    # nonzero terms, the diagonal 1 − KH_ii kept as one factor.
+    ikh = k.eye.index_select(1, idx) - _dot(K, block)       # (S, 5)
+    off = torch.ones_like(state).index_fill(0, idx, 0.0)    # 0 in H's columns
+    left = _dot(ikh, cov.index_select(0, idx)) + off[:, None] * cov
+    new_cov = (_dot(left.index_select(1, idx), ikh.T) + left * off +
+               _dot(K * k.r_diag[None, :], K.T))
     return new_state, new_cov
 
 
@@ -326,7 +350,8 @@ def _maha_all(cfg: EKFConfig, k: _Update, state, cov, r, b_norm, v_i,
     terms = (d, q, torch.sqrt(q))
     B = _h_block(k, terms)                                  # (n, 2, 5)
     h = k.h_table
-    psi = B @ cov[h[:, :, None], h[:, None, :]] @ B.transpose(1, 2) + k.R
+    psi = _dot(_dot(B, cov[h[:, :, None], h[:, None, :]]),
+               B.transpose(1, 2)) + k.R
     # ẑ per slot with the measurement's sampled noise pair
     # (ref: predictedMeasurement ekf_filter.cpp:600-624).
     dz0, dz1 = _innovation(r, b_norm, _z_hat(terms, heading, v_i))
@@ -590,7 +615,10 @@ class EKFStepper:
     """The EKF update captured as one CUDA graph and replayed once per
     update (``capture.Graph``), the counterpart of ``tpunav``'s jitted
     update: the masked form over ``n_meas`` measurement rows, known or
-    unknown DA, without noise draws (the parity mode).
+    unknown DA, without noise draws (the parity mode). A seed batch of B
+    states (every field of ``st`` leading with B) steps as one update
+    mapped over the batch (``batch.vmap``): its inputs are (B, n_meas, 2)
+    and (B, 2), and each state gets the bits of its own serial update.
 
     ``st`` is copied once into the stepper's buffers on ``device`` (default
     the card; raises without CUDA; ``st`` must lie there). From then on the
@@ -611,30 +639,33 @@ class EKFStepper:
         # The body holds the buffers, not self: a graph whose stepper is
         # dropped is freed at once, not by the cyclic collector.
         state = self.state = EKFState(*(t.clone() for t in st))
+        lead = tuple(st.state.shape[:-1])               # (B,) for a batch
         like = dict(dtype=st.state.dtype, device=dev)
-        inputs = self.inputs = (torch.zeros((n_meas, 2), **like),
-                                torch.zeros(2, **like))
-        step = (known_correspondence_slam_masked if known_da
-                else slam_unknown_da_masked)
+        inputs = self.inputs = (torch.zeros((*lead, n_meas, 2), **like),
+                                torch.zeros((*lead, 2), **like))
+        masked = (known_correspondence_slam_masked if known_da
+                  else slam_unknown_da_masked)
+        step = batch.over(lambda s, m, u: masked(cfg, s, m, u), bool(lead))
 
         def update():
-            capture.load(state, step(cfg, state, *inputs))
+            capture.load(state, step(state, *inputs))
 
         self.update = update
         self.graph = capture.Graph(update, dev)
 
     def step(self, meas_xy, u) -> EKFState:
         """One update from (n_meas, 2) robot-frame measurements (NaN rows
-        skipped) and the (2,) twist [w, vx]; returns the state in place."""
+        skipped) and the (2,) twist [w, vx] (a batch: (B, n_meas, 2) and
+        (B, 2) or (2,)); returns the state in place."""
         capture.load(self.inputs, (meas_xy, u))
         self.graph()
         return self.state
 
 
 def robot_pose(st: EKFState):
-    """Map→robot transform [theta, x, y]
+    """Map→robot transform [theta, x, y] ((B, 3) for a seed batch)
     (ref: EKF::getRobotState ekf_filter.cpp:414-419)."""
-    return st.state[:3]
+    return st.state[..., :3]
 
 
 def landmark_map(cfg: EKFConfig, st: EKFState):

@@ -40,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..device import full_precision_matmul
+from ..device import constant, full_precision_matmul
 from ..ops import sym_eig
 
 # The circle fit's dtype (see the module's docstring). float64 always in
@@ -49,6 +49,11 @@ from ..ops import sym_eig
 FIT_DTYPE = torch.float64
 
 _SIGMA4_EPS = 1e-12   # small-singular-value branch (ref: landmarks.cpp:168)
+# H⁻¹ of the hyper-accurate fit but its (3, 3) entry, −2·z̄, which the mask
+# _CORNER marks.
+_HINV = ((0.0, 0.0, 0.0, 0.5), (0.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 0.0),
+         (0.5, 0.0, 0.0, 0.0))
+_CORNER = tuple(tuple(i == j == 3 for j in range(4)) for i in range(4))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,12 +163,12 @@ def _fit_from_moments(S, z_bar):
 
     # Branch 2: Y = sqrt(S), Q = Y H⁻¹ Y, smallest positive eigenvalue.
     Y = (V * sigma[..., None, :]) @ V.transpose(-1, -2)
-    hinv = torch.zeros(S.shape, dtype=S.dtype, device=S.device)
-    hinv[..., 0, 3] = 0.5
-    hinv[..., 3, 0] = 0.5
-    hinv[..., 1, 1] = 1.0
-    hinv[..., 2, 2] = 1.0
-    hinv[..., 3, 3] = -2.0 * z_bar
+    # H⁻¹ with its (3, 3) entry −2·z̄ per cluster, built out of place from
+    # cached constants (so the fit maps over a batch of scans under
+    # torch.func.vmap, and a graph capture makes no host copy).
+    hinv = torch.where(constant(_CORNER, torch.bool, S.device),
+                       (-2.0 * z_bar)[..., None, None],
+                       constant(_HINV, S.dtype, S.device))
     Q = Y @ hinv @ Y
     # Symmetrized first, as jnp.linalg.eigh takes its input.
     q_eig, W = sym_eig.eigh(0.5 * (Q + Q.transpose(-1, -2)))

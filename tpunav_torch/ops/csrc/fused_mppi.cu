@@ -38,6 +38,14 @@
 //      applies the +1e-8 weight floor, adds du to u and clamps to
 //      ±max_wheel_vel, writing u_new (N, 2).
 //
+// Problems: one launch solves P independent problems (tpunav's vmap of the
+// solve over a batch of seeds), each with its own u, pose, xd and seed:
+// blockIdx.y is the problem in both kernels, so kernel A runs ceil(K/32)·P
+// blocks and B runs N·P. Each problem's Philox stream is keyed by its own
+// seed exactly as a launch of that problem alone keys it, and no block
+// reads another problem's data, so every problem gets its single launch's
+// bits. P = 1 is the single solve.
+//
 // What bounds it on this card: latency, not bytes. The solve reads only u,
 // pose, xd, the seed and the obstacle table. Its real recurrences are θ,
 // x, y and the reverse sum, a few adds per step each; everything else (the
@@ -97,6 +105,7 @@ struct MppiParams {
   float max_wheel_vel;
   int chunk;         // T: steps per chunk of the horizon
   int horizon_smem;  // 1: z and J in shared memory; 0: in the global scratch
+  int problems;      // P: independent problems of the launch (blockIdx.y)
 };
 
 namespace {
@@ -286,7 +295,15 @@ mppi_rollout_partials(MppiParams p, const float* __restrict__ u,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int k0 = blockIdx.x * R;
-  const uint32_t seed = noise == nullptr ? (uint32_t)seed_ptr[0] : 0u;
+  // This block's problem: its inputs, noise, scratch and partials.
+  const size_t prob = blockIdx.y;
+  u += prob * N * 2;
+  pose += prob * 3;
+  xd += prob * 3;
+  if (noise != nullptr) noise += prob * N * K * 2;
+  if (scratch != nullptr) scratch += prob * 3 * N * K;
+  parts += prob * gridDim.x * N * 6;
+  const uint32_t seed = noise == nullptr ? (uint32_t)seed_ptr[prob] : 0u;
 
   float* sh_obs = smem;
   float* th_c = smem + (n_obs > 0 ? kSegFloats * n_obs + 4 : 0);
@@ -437,6 +454,11 @@ mppi_combine(MppiParams p, const float* __restrict__ u,
   const int t = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // This block's problem.
+  const size_t prob = blockIdx.y;
+  u += prob * N * 2;
+  parts += prob * blocks * N * 6;
+  out += prob * N * (p.partial_out ? 6 : 2);
 
   float m = INFINITY;
   for (int b = threadIdx.x; b < blocks; b += kCombineThreads)
@@ -495,15 +517,17 @@ mppi_combine(MppiParams p, const float* __restrict__ u,
 
 extern "C" {
 
-// One fused MPPI solve on `stream`. Pointers are device pointers; `noise`
-// may be null (in-kernel Philox); `obstacles` is the packed (O+1, 5) table
-// with O = params->n_obs, or null when n_obs is 0. `hold` is a device
-// bool or null: where it is set, every block of both kernels returns at
-// once and `out` is left as it was (a held tick, whose solve the caller
-// discards). `scratch` holds the
-// (3, N, K) horizon planes when params->horizon_smem is 0, else it may be
-// null; `parts` holds ceil(K/32)·N·6 floats, `out` N·2 floats (N·6 with
-// partial_out). Returns cudaGetLastError() after both launches.
+// P = params->problems fused MPPI solves on `stream`. Pointers are device
+// pointers to P problems each: u (P, N, 2), pose and xd (P, 3), seed (P,);
+// `noise` may be null (in-kernel Philox), else (P, N, K, 2); `obstacles` is
+// the packed (O+1, 5) table with O = params->n_obs, shared by the
+// problems, or null when n_obs is 0. `hold` is a device bool or null: where
+// it is set, every block of both kernels returns at once and `out` is left
+// as it was (a held tick, whose solve the caller discards). `scratch` holds
+// the (P, 3, N, K) horizon planes when params->horizon_smem is 0, else it
+// may be null; `parts` holds P·ceil(K/32)·N·6 floats, `out` P·N·2 floats
+// (P·N·6 with partial_out). Returns cudaGetLastError() after both
+// launches.
 int tpunav_mppi_solve(const MppiParams* params, const float* u,
                       const float* pose, const float* xd, const int* seed,
                       const float* noise, const float* obstacles,
@@ -521,12 +545,12 @@ int tpunav_mppi_solve(const MppiParams* params, const float* u,
       mppi_rollout_partials, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mppi_rollout_partials<<<blocks, kThreads, smem, s>>>(
+  mppi_rollout_partials<<<dim3(blocks, p.problems), kThreads, smem, s>>>(
       p, u, pose, xd, seed, noise, obstacles, hold, scratch, parts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mppi_combine<<<p.steps, kCombineThreads, 0, s>>>(p, u, parts, blocks, hold,
-                                                   out);
+  mppi_combine<<<dim3(p.steps, p.problems), kCombineThreads, 0, s>>>(
+      p, u, parts, blocks, hold, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,9 +15,16 @@ the θ, x, y and cost-to-go recurrences serial. The horizon's noise and
 cost-to-go stay in shared memory up to N = 256 steps, and beyond that in a
 (3, N, K) f32 scratch that the wrapper allocates.
 
+Problems: :func:`mppi_solve_fused_batch` solves P independent problems
+(``tpunav``'s ``vmap`` of the solve over a batch of seeds: each its own u,
+pose, goal and seed) in one launch of both kernels, the problem in
+``blockIdx.y``; each problem gets its single launch's bits, the Philox
+stream keyed by its own seed. The obstacle mode takes one problem.
+
 A CPU tensor takes the plain version (``_solve_partials_reference`` then
-``_combine_reference``, in the kernel's own decomposition); a CUDA tensor
-launches the kernel, or raises. ``KERNEL_LAUNCHES`` counts kernel solves,
+``_combine_reference``, in the kernel's own decomposition, problem by
+problem); a CUDA tensor launches the kernel, or raises.
+``KERNEL_LAUNCHES`` counts kernel launches (one for P problems),
 ``OBSTACLE_LAUNCHES`` those of them in obstacle mode.
 
 Held ticks: a loop's tick whose result it discards (``tpunav``'s
@@ -80,11 +87,12 @@ class _KernelParams(ctypes.Structure):
         ("inv_lambda", ctypes.c_float), ("floor_k", ctypes.c_float),
         ("max_wheel_vel", ctypes.c_float),
         ("chunk", ctypes.c_int), ("horizon_smem", ctypes.c_int),
+        ("problems", ctypes.c_int),
     ]
 
 
 def _kernel_params(cfg: MPPIConfig, model: CartParams, partial_out: bool,
-                   n_obs: int) -> _KernelParams:
+                   n_obs: int, problems: int) -> _KernelParams:
     return _KernelParams(
         cfg.rollouts, cfg.steps, int(partial_out), n_obs,
         cfg.dt, 0.5 * cfg.dt, cfg.dt / 6.0,
@@ -92,7 +100,7 @@ def _kernel_params(cfg: MPPIConfig, model: CartParams, partial_out: bool,
         float(cfg.ul_var) ** 0.5, float(cfg.ur_var) ** 0.5,
         *cfg.q_diag, *cfg.r_diag, *cfg.p1_diag,
         1.0 / cfg.lambda_, 1e-8 * cfg.rollouts, cfg.max_wheel_vel,
-        min(cfg.steps, _CHUNK), int(cfg.steps <= _SMEM_HORIZON))
+        min(cfg.steps, _CHUNK), int(cfg.steps <= _SMEM_HORIZON), problems)
 
 
 def _shared_bytes(n: int, n_obs: int) -> int:
@@ -107,22 +115,32 @@ def _shared_bytes(n: int, n_obs: int) -> int:
     return 4 * floats
 
 
-def _check_inputs(cfg: MPPIConfig, u, seed, pose_xyt, xd, noise, table):
+def _check_inputs(cfg: MPPIConfig, u, seed, pose_xyt, xd, noise, table,
+                  lead=()):
+    """The shapes of one solve, each under the leading problem shape
+    ``lead`` (``()``: a single solve; ``(P,)``: P problems); ``seed`` holds
+    one value, or with P problems one per problem."""
     n, k = cfg.steps, cfg.rollouts
     if k < 1 or n < 1:
         raise ValueError(f"need rollouts >= 1 and steps >= 1, got K={k} N={n}")
     dev = u.device
-    named = [("u", u, (n, 2)), ("pose_xyt", pose_xyt, (3,)), ("xd", xd, (3,))]
+    named = [("u", u, (*lead, n, 2)), ("pose_xyt", pose_xyt, (*lead, 3)),
+             ("xd", xd, (*lead, 3))]
     if noise is not None:
-        named.append(("noise", noise, (n, k, 2)))
+        named.append(("noise", noise, (*lead, n, k, 2)))
     if table is not None:
+        if lead:
+            raise ValueError("the obstacle mode solves one problem per "
+                             "launch")
         if table.dim() != 2 or table.shape[0] < 1:
             raise ValueError("the obstacle table must be (O+1, 5), from "
                              "pack_obstacles")
         named.append(("obstacle table", table, (table.shape[0], 5)))
     check_tensors(named, dev)
-    if seed.device != dev or seed.dtype != torch.int32 or seed.numel() != 1:
-        raise ValueError("seed must be one int32 value on u's device")
+    if (seed.device != dev or seed.dtype != torch.int32 or
+            seed.numel() not in {1, *lead}):
+        raise ValueError("seed must be one int32 value on u's device, or "
+                         "one per problem")
 
 
 # ── The plain version: the kernel's decomposition in plain torch ──
@@ -257,19 +275,30 @@ def _combine_reference(cfg: MPPIConfig, u, parts, partial_out: bool):
 
 def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
             noise, table, partial_out: bool, hold=None):
+    """One launch of both kernels over the problems of u's leading shape
+    (none: one problem)."""
     global KERNEL_LAUNCHES, OBSTACLE_LAUNCHES
     lib = load()
     n, k = cfg.steps, cfg.rollouts
+    lead = u.shape[:-2]
+    problems = u.numel() // (2 * n)
+    if problems > 65535:
+        raise ValueError(f"at most 65,535 problems per launch, got "
+                         f"{problems}")
     n_obs = 0 if table is None else table.shape[0] - 1
     check_shared_memory(lib, _shared_bytes(n, n_obs),
                         f"the fused MPPI solve (N={n}, O={n_obs})")
     blocks = -(-k // _BLOCK)
+    if seed.numel() != problems:
+        seed = seed.reshape(1).expand(problems).contiguous()
     scratch = (None if n <= _SMEM_HORIZON else
-               torch.empty((3, n, k), dtype=torch.float32, device=u.device))
-    parts = torch.empty((blocks, n, 6), dtype=torch.float32, device=u.device)
-    out = torch.empty((n, 6 if partial_out else 2), dtype=torch.float32,
-                      device=u.device)
-    params = _kernel_params(cfg, model, partial_out, n_obs)
+               torch.empty((*lead, 3, n, k), dtype=torch.float32,
+                           device=u.device))
+    parts = torch.empty((*lead, blocks, n, 6), dtype=torch.float32,
+                        device=u.device)
+    out = torch.empty((*lead, n, 6 if partial_out else 2),
+                      dtype=torch.float32, device=u.device)
+    params = _kernel_params(cfg, model, partial_out, n_obs, problems)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpunav_mppi_solve(
@@ -287,13 +316,16 @@ def _launch(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt, xd,
 
 
 def _solve_update(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt,
-                  xd, noise=None, table=None, partial_out=False, hold=None):
+                  xd, noise=None, table=None, partial_out=False, hold=None,
+                  lead=()):
     """One fused solve; returns the updated (N, 2) controls before the
     shift, or the merged (N, 6) partials with ``partial_out``. ``table``:
     the packed obstacles of :func:`pack_obstacles`, or None. ``hold``: a
-    held tick's device bool, or None (see the module's docstring)."""
+    held tick's device bool, or None (see the module's docstring).
+    ``lead``: ``(P,)`` for P problems in one launch (every tensor, and the
+    result, then leads with P)."""
     seed = torch.as_tensor(seed, dtype=torch.int32, device=u.device)
-    _check_inputs(cfg, u, seed, pose_xyt, xd, noise, table)
+    _check_inputs(cfg, u, seed, pose_xyt, xd, noise, table, lead)
     if hold is not None and (hold.device != u.device or
                              hold.dtype != torch.bool or hold.numel() != 1):
         raise ValueError("hold must be one bool value on u's device")
@@ -302,6 +334,14 @@ def _solve_update(cfg: MPPIConfig, model: CartParams, u, seed, pose_xyt,
                        partial_out, hold)
     if u.device.type != "cpu":
         raise ValueError(f"no fused MPPI path for device {u.device}")
+    if lead:
+        # The kernel's problems are independent: the plain version solves
+        # them one by one, each as its single solve.
+        seeds = seed.reshape(-1).expand(lead[0])
+        return torch.stack([_solve_update(
+            cfg, model, u[i], seeds[i], pose_xyt[i], xd[i],
+            None if noise is None else noise[i], table, partial_out)
+            for i in range(lead[0])])
     parts = _solve_partials_reference(cfg, model, u, seed, pose_xyt, xd,
                                       noise, table)
     return _combine_reference(cfg, u, parts, partial_out)
@@ -376,3 +416,20 @@ def mppi_solve_fused_packed(cfg: MPPIConfig, model: CartParams, u, seed,
     u_new = _solve_update(cfg, model, u, seed, pose_xyt, xd, noise, table,
                           hold=hold)
     return u_new[0], shift_controls(cfg, u_new)
+
+
+def mppi_solve_fused_batch(cfg: MPPIConfig, model: CartParams, u, seed,
+                           pose_xyt, xd, noise=None):
+    """P independent fused solves in one launch of K1 (``tpunav``'s
+    ``vmap`` of the solve over a batch of seeds): u (P, N, 2), pose_xyt and
+    xd (P, 3), ``seed`` one int32 value for all problems or (P,) int32, and
+    ``noise`` None or (P, N, K, 2). Returns the updated (P, N, 2) controls
+    before the shift (each problem's first row is its wheel command, and
+    :func:`~tpunav_torch.control.mppi.shift_controls` shifts one problem).
+    Each problem gives the bits of its own single solve. A CPU tensor takes
+    the plain version, problem by problem; a CUDA tensor launches the
+    kernel, or raises. No obstacle mode."""
+    if u.dim() != 3:
+        raise ValueError(f"u must be (P, N, 2), got {tuple(u.shape)}")
+    return _solve_update(cfg, model, u, seed, pose_xyt, xd, noise,
+                         lead=(u.shape[0],))

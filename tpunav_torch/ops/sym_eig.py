@@ -52,7 +52,10 @@ round), and for S > 8 ``sym_eig_kernel`` (A's sweeps, one block per
 matrix, each round's rotations logged to a device scratch) then
 ``sym_eig_vectors`` (V from the log, a block per eight columns);
 :func:`layout` places A. ``EIG_LAUNCHES`` counts the kernels' launches
-(:func:`kernels_per_call` per call).
+(:func:`kernels_per_call` per call). ``eigh`` goes through a
+``torch.library`` op (``tpunav_torch::sym_eig``) whose batching rule folds
+a ``torch.func.vmap`` batch into its own: a seed batch's detector makes
+one call for all its scans.
 """
 
 from __future__ import annotations
@@ -303,22 +306,45 @@ def _launch(a, skip):
     return w, v
 
 
-def eigh(a, skip: Optional[torch.Tensor] = None):
-    """(w ascending, V) of the float64 symmetric (..., S, S) ``a`` (its
-    lower triangle), eigenvector signs free. ``skip``: an optional one-value
-    bool tensor on ``a``'s device; where True, no sweep runs (see the
-    module's docstring). A CUDA tensor launches ``csrc/sym_eig.cu``."""
-    if a.dtype != torch.float64:
-        raise TypeError(f"eigh takes float64, got {a.dtype}")
-    if a.dim() < 2 or a.shape[-1] != a.shape[-2]:
-        raise ValueError(f"eigh takes (..., S, S), got {tuple(a.shape)}")
+@torch.library.custom_op("tpunav_torch::sym_eig", mutates_args=())
+def _eigh_op(a: torch.Tensor, skip: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     if not a.is_contiguous():
         raise ValueError("eigh takes a contiguous tensor")
-    if skip is not None and (skip.device != a.device or
-                             skip.dtype != torch.bool or skip.numel() != 1):
-        raise ValueError("skip must be one bool value on a's device")
     if a.is_cuda:
         return _launch(a, skip)
     if a.device.type != "cpu":
         raise ValueError(f"no eigensolver for device {a.device}")
     return eigh_reference(a, skip)
+
+
+@_eigh_op.register_vmap
+def _eigh_vmap(info, in_dims, a, skip):
+    """Under ``torch.func.vmap``: one call on the batch folded into the
+    leading dimensions. A per-matrix ``skip`` becomes one flag, set only
+    where every matrix may skip: a matrix that might have skipped then runs
+    its sweeps, and its caller discards the result (``spd.py``)."""
+    a_dim, skip_dim = in_dims
+    a = (a.expand(info.batch_size, *a.shape) if a_dim is None
+         else a.movedim(a_dim, 0))
+    if skip is not None and skip_dim is not None:
+        skip = skip.all()
+    return _eigh_op(a.contiguous(), skip), (0, 0)
+
+
+def eigh(a, skip: Optional[torch.Tensor] = None):
+    """(w ascending, V) of the float64 symmetric (..., S, S) ``a`` (its
+    lower triangle), eigenvector signs free; the leading dimensions fold
+    into one batch, one call of the kernels. ``skip``: an optional one-value
+    bool tensor on ``a``'s device; where True, no sweep runs (see the
+    module's docstring). A CUDA tensor launches ``csrc/sym_eig.cu``. Under
+    ``torch.func.vmap`` the mapped batch joins the leading dimensions: one
+    call for the whole batch."""
+    if a.dtype != torch.float64:
+        raise TypeError(f"eigh takes float64, got {a.dtype}")
+    if a.dim() < 2 or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"eigh takes (..., S, S), got {tuple(a.shape)}")
+    if skip is not None and (skip.device != a.device or
+                             skip.dtype != torch.bool or skip.numel() != 1):
+        raise ValueError("skip must be one bool value on a's device")
+    return _eigh_op(a, skip)
