@@ -57,6 +57,7 @@ from tpunav_torch.estimation.rbpf.particle_filter import PFStepper
 from tpunav_torch.models.cart import CartParams, kinematic_cart
 from tpunav_torch.ops.fused_mppi import mppi_solve_fused
 from tpunav_torch.ops.rk4 import rk4_step
+from tpunav_torch.runtime import profiling
 from tpunav_torch.runtime.checkpoint import load_pytree, save_pytree
 from tpunav_torch.sim.lidar import box_segments, scan_segments
 from tpunav_torch.sim.motor import MotorParams, track
@@ -279,16 +280,17 @@ class ScanGraph:
         """The next scan's draws into the static tensors: the lidar's
         normals and the filter's from their generators, or ``noise`` (see
         :meth:`step`)."""
-        if noise is None:
-            z = self.scan_noise
-            z.copy_(torch.randn(z.shape, generator=self.scan_gen,
-                                dtype=z.dtype, device=z.device))
-            self.stepper.draw()
-        else:
-            if self.k1_noise is None:
-                raise ValueError("K1's perturbations need injected=True")
-            capture.load((self.k1_noise, self.scan_noise), noise[:2])
-            self.stepper.draw(noise[2])
+        if noise is not None and self.k1_noise is None:
+            raise ValueError("K1's perturbations need injected=True")
+        with profiling.span("step.draw", self.graph):
+            if noise is None:
+                z = self.scan_noise
+                z.copy_(torch.randn(z.shape, generator=self.scan_gen,
+                                    dtype=z.dtype, device=z.device))
+                self.stepper.draw()
+            else:
+                capture.load((self.k1_noise, self.scan_noise), noise[:2])
+                self.stepper.draw(noise[2])
 
     def load(self, st: ExploreState) -> None:
         """``st`` into the buffers and generators, in place."""

@@ -390,11 +390,15 @@ def test_solve_profiler_records_rate():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    from tpunav_torch.runtime import annotate, trace
+    from tpunav_torch.runtime import enable, span, trace
 
-    with trace(str(tmp_path)):
-        with annotate("region"):
-            (torch.ones(8) * 2).sum()
+    enable(True)
+    try:
+        with trace(str(tmp_path)):
+            with span("region"):
+                (torch.ones(8) * 2).sum()
+    finally:
+        enable(False)
     files = list(tmp_path.glob("*.pt.trace.json"))
     assert len(files) == 1
     with open(files[0]) as f:

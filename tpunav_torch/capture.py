@@ -39,6 +39,7 @@ from typing import Callable, Dict
 import torch
 
 from .device import DEFAULT_DEVICE, resolve
+from .runtime import profiling
 
 # Each kernel's launch counter: (module of tpunav_torch.ops, attribute).
 COUNTERS = {"K1": ("fused_mppi", "KERNEL_LAUNCHES"),
@@ -111,7 +112,11 @@ class Graph:
     card; ``device`` defaults to the card and raises without CUDA.
 
     ``deltas`` holds the launch counters' change per replay, ``replays``
-    the replays so far. ``error_mode`` is the capture's
+    the replays so far, ``steps`` the steps run (the warm-up and the CPU's
+    included: the tracer's step id). While ``runtime.profiling``'s tracer
+    is on, each replay is timed on the device and its launch is a
+    ``graph.launch`` span; ``phases`` holds the device phases captured
+    into the graph. ``error_mode`` is the capture's
     ``cudaStreamCaptureMode``. The default ``"global"`` prohibits
     potentially unsafe CUDA calls in every thread while a capture runs;
     ProcessGroupNCCL's watchdog thread queries its collectives' events
@@ -127,19 +132,29 @@ class Graph:
         self._graph = None
         self.deltas: Dict[str, int] = {}
         self.replays = 0
+        self.steps = 0
+        self.phases = []
+        self.phase_step = None
 
     def __call__(self) -> None:
         """Run one step."""
         if self.device.type != "cuda":
-            self._body()
+            if profiling.ON:
+                profiling.run_on_host(self, self._body)
+            else:
+                self._body()
         elif not self._warm:
             self._warm_up()
         else:
             if self._graph is None:
                 self._capture()
-            self._graph.replay()
+            if profiling.ON:
+                profiling.replay(self, self._graph.replay)
+            else:
+                self._graph.replay()
             add_counts(self.deltas)
             self.replays += 1
+        self.steps += 1
 
     def _warm_up(self) -> None:
         main = torch.cuda.current_stream(self.device)
@@ -156,7 +171,8 @@ class Graph:
         def record():
             with torch.cuda.graph(graph,
                                   capture_error_mode=self._error_mode):
-                self._body()
+                with profiling.capturing(self):
+                    self._body()
 
         # Any CUDA call that is illegal during a capture, in any thread,
         # invalidates it; the cyclic collector dropping an earlier graph

@@ -48,6 +48,7 @@ from ...device import DEFAULT_DEVICE, resolve
 from ...ops.beams import beam_table
 from ...ops.likelihood import likelihood_field_batch
 from ...ops.map_update import edt_batch, map_update_batch
+from ...runtime import profiling
 from .grid import GridConfig, grid_init
 from .icp import ICPConfig, icp_match, scan_to_points
 
@@ -288,13 +289,15 @@ def _propose_and_integrate(cfg: PFConfig, st: PFState, ranges, u,
     used. Returns (new poses, unnormalised log-weights, grids, dists)."""
     gcfg = cfg.grid
     k = cfg.k_samples
-    src, src_ok = scan_to_points(ranges, gcfg.range_min, gcfg.range_max,
-                                 gcfg.beam_min, gcfg.beam_delta)
-    dst, dst_ok = scan_to_points(st.prev_scan, gcfg.range_min,
-                                 gcfg.range_max, gcfg.beam_min,
-                                 gcfg.beam_delta)
-    icp = icp_match(cfg.icp, src, src_ok, dst, dst_ok,
-                    _icp_init_guess(cur_odom, prev_odom))
+    with profiling.phase("pf.icp"):
+        src, src_ok = scan_to_points(ranges, gcfg.range_min,
+                                     gcfg.range_max, gcfg.beam_min,
+                                     gcfg.beam_delta)
+        dst, dst_ok = scan_to_points(st.prev_scan, gcfg.range_min,
+                                     gcfg.range_max, gcfg.beam_min,
+                                     gcfg.beam_delta)
+        icp = icp_match(cfg.icp, src, src_ok, dst, dst_ok,
+                        _icp_init_guess(cur_odom, prev_odom))
     matcher_ok = torch.logical_and(icp.converged, st.has_prev)
 
     # Both branches of tpunav's lax.cond; the motion-model pose is sample
@@ -411,8 +414,9 @@ class PFStepper:
     def draw(self, noise: Optional[PFNoise] = None) -> None:
         """Copy the next update's normals into the static tensors: ``noise``,
         or those :func:`draw_noise` draws from the generator."""
-        capture.load(self.noise, draw_noise(self.cfg, self.state)
-                     if noise is None else noise)
+        with profiling.span("step.draw", self.graph):
+            capture.load(self.noise, draw_noise(self.cfg, self.state)
+                         if noise is None else noise)
 
     def step(self, ranges, u, cur_odom, prev_odom,
              noise: Optional[PFNoise] = None) -> PFState:
@@ -420,7 +424,8 @@ class PFStepper:
         odometry poses, as :func:`pf_slam_step` takes them; returns the
         state in place."""
         self.draw(noise)
-        capture.load(self.inputs, (ranges, u, cur_odom, prev_odom))
+        with profiling.span("step.load", self.graph):
+            capture.load(self.inputs, (ranges, u, cur_odom, prev_odom))
         self.graph()
         return self.state
 

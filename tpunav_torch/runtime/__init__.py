@@ -10,6 +10,8 @@ config dataclasses + YAML; ros::Rate loops → a deterministic virtual-time
 scheduler (or wall-clock); rosbag-less state → state checkpoints.
 """
 
+import importlib
+
 from .config import (  # noqa: F401
     LidarConfig,
     RobotConfig,
@@ -23,9 +25,17 @@ from .config import (  # noqa: F401
     save_yaml_config,
 )
 from .channels import Channel, Node, Scheduler  # noqa: F401
-from . import nodes  # noqa: F401
-from . import slam_nodes  # noqa: F401
-from . import distributed  # noqa: F401
 from .checkpoint import load_pytree, save_pytree  # noqa: F401
 from .metrics import Metrics, PoseError  # noqa: F401
-from .profiling import SolveProfiler, annotate, trace  # noqa: F401
+from .profiling import (SolveProfiler, enable, phase, span,  # noqa: F401
+                        summary, trace)
+
+# The nodes import the filters and loops, which import the tracer from
+# here: loaded on first use, so importing a filter first is no cycle.
+_LAZY = ("nodes", "slam_nodes", "distributed")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
