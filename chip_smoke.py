@@ -5,10 +5,11 @@
 Builds the port's kernels (``tpunav_torch/ops/csrc/``) from source with
 nvcc: K1 the fused MPPI solve (with its obstacle mode), K2 the likelihood
 field, K3 the map update with its distance field, K4 the distance field
-alone, and the port's own batched Jacobi eigensolver (``sym_eig.cu``,
+alone, the port's own batched Jacobi eigensolver (``sym_eig.cu``,
 where ``tpunav`` calls XLA's ``eigh``: the circle detector's fit and the
-EKF's SPD repair). Checks each against its plain PyTorch version on the
-card, then drives the port's paths:
+EKF's SPD repair) and its ICP scan matcher (``icp.cu``, a whole match in
+one launch, where ``tpunav`` leaves ICP to XLA). Checks each against its
+plain PyTorch version on the card, then drives the port's paths:
 
 - the MPPI waypoint course (the demo's flagship configuration:
   configs/mppi_params.yaml at horizon 0.5 s and K=4,096, the pentagon of
@@ -619,6 +620,93 @@ class Rbpf:
                   "beam_index_mismatches": 0, "k4_vs_k3": "bit-identical"},
              cases=cases)
 
+    def icp_kernel(self, updates=(1, 10, 11, 60, 119)):
+        """ICP (``ops/csrc/icp.cu``, one launch a match) against its plain
+        version (``ops/icp.py:_icp_reference``) on the course's scan pairs
+        (360 beams, each scan onto the one before with the update's
+        odometry guess) through ``icp_match_scans``, at the config's 25
+        iterations and the benchmark's 30: where ``ops/icp.py:bit_exact``
+        holds, transform, converged, inlier_frac and normal_eig bit for bit
+        and rmse and delta_norm within 1e-5; elsewhere every field within
+        1e-5 and normal_eig within 1e-5 + √(8·2⁻²⁵) (tests/test_torch_icp.py
+        gives both bars' reasons). Then the event time of a match beside the
+        plain version's, the kernel's device µs and the operations' bound
+        (7·N² an iteration: the search's ~6·N² and the rank's N²)."""
+        from tpunav_torch.estimation.rbpf.icp import (ICPConfig,
+                                                      icp_match_scans,
+                                                      scan_to_points)
+        from tpunav_torch.estimation.rbpf.particle_filter import (
+            _icp_init_guess)
+        from tpunav_torch.ops import icp as ik
+
+        t0 = time.perf_counter()
+        g = self.g80
+        n, geometry = g.num_beams, (g.range_min, g.range_max, g.beam_min,
+                                    g.beam_delta)
+        u, scans, odoms, prevs = self.course_inputs()
+        exact = ik.bit_exact(n, self.dev)
+        names = ("transform", "converged", "rmse", "inlier_frac",
+                 "delta_norm", "normal_eig")
+        held = ("transform", "converged", "inlier_frac", "normal_eig")
+        eig_bar = 1e-5 + math.sqrt(8 * 2.0 ** -25)
+        self.max_err["ICP"], rows = 0.0, []
+        for cfg in (self.cfg.icp, ICPConfig(max_iter=30)):
+            for i in updates:
+                guess = _icp_init_guess(odoms[i], prevs[i])
+                before = ik.ICP_LAUNCHES
+                got = icp_match_scans(cfg, scans[i], scans[i - 1], guess,
+                                      *geometry)
+                launches = ik.ICP_LAUNCHES - before
+                want = ik._icp_reference(
+                    cfg, *scan_to_points(scans[i], *geometry),
+                    *scan_to_points(scans[i - 1], *geometry), guess)
+                err = {k: float(torch.max(torch.abs(a.float() - b.float())))
+                       for k, a, b in zip(names, got, want, strict=True)}
+                bits = {k: bool(torch.equal(a, b))
+                        for k, a, b in zip(names, got, want, strict=True)}
+                ok = launches == 1 and bits["converged"] and all(
+                    (bits[k] if exact and k in held else
+                     err[k] <= (eig_bar if k == "normal_eig" else 1e-5))
+                    for k in names)
+                if not ok:
+                    raise AssertionError(
+                        f"ICP vs plain at update {i}, {cfg.max_iter} "
+                        f"iterations (bit_exact {exact}): launches "
+                        f"{launches}, errors {err}, bits {bits}")
+                self.max_err["ICP"] = max(self.max_err["ICP"], *err.values())
+            i = updates[-1]
+            guess = _icp_init_guess(odoms[i], prevs[i])
+            src = scan_to_points(scans[i], *geometry)
+            dst = scan_to_points(scans[i - 1], *geometry)
+
+            def kernel(cfg=cfg, i=i, guess=guess):
+                return icp_match_scans(cfg, scans[i], scans[i - 1], guess,
+                                       *geometry)
+
+            def plain(cfg=cfg, src=src, dst=dst, guess=guess):
+                return ik._icp_reference(cfg, *src, *dst, guess)
+
+            # Bytes: two scans and the guess in, seven floats and a flag out.
+            bound_ms, bound_by = bound(4 * (2 * n + 3 + 7) + 1,
+                                       7.0 * n * n * cfg.max_iter)
+            rows.append({
+                "N": n, "max_iter": cfg.max_iter,
+                "plan": ik.plan(n, smem_limit())[:4],
+                "ms": time_ms(kernel),
+                "plain_ms": time_ms(plain, reps=5, warmup=1),
+                "device_us": device_us(kernel, ("icp_kernel",),
+                                       10)["icp_kernel"],
+                "bound_ms": bound_ms, "bound_by": bound_by})
+        self.icp_rows = rows
+        emit("icp_kernel", seconds=time.perf_counter() - t0, card=self.card,
+             bit_exact=exact, cuda=torch.version.cuda, updates=list(updates),
+             bar=({"bits": list(held), "1e-5": ["rmse", "delta_norm"]}
+                  if exact else
+                  {"equal": ["converged"], "normal_eig": eig_bar,
+                   "1e-5": ["transform", "rmse", "inlier_frac",
+                            "delta_norm"]}),
+             max_abs_err=self.max_err["ICP"], rows=rows)
+
     def course_inputs(self, seed: int = 7):
         """The demo's and bench's course (examples_torch.rbpf_slam_demo,
         bench.py:bench_rbpf) on config 5's 80×80 map, 120 updates, scan
@@ -666,7 +754,7 @@ class Rbpf:
         if not xy_err < 0.2:
             raise AssertionError(f"pose diverged: |xy| error {xy_err} m")
         want = {"K1": 0, "K1_obstacle": 0, "K2": self.UPDATES,
-                "K3": self.UPDATES, "K4": 1, "EIG": 0}
+                "K3": self.UPDATES, "K4": 1, "EIG": 0, "ICP": self.UPDATES}
         if counts != want:
             raise AssertionError(f"launches {counts}, expected {want}: one "
                                  "K2 and one K3 per update, K4 in pf_init")
@@ -955,7 +1043,7 @@ class Obstacle:
             raise AssertionError(f"the course scraped the wall: clearance "
                                  f"{clear[0]} m")
         if counts != {"K1": ticks, "K1_obstacle": ticks, "K2": 0, "K3": 0,
-                      "K4": 0, "EIG": 0}:
+                      "K4": 0, "EIG": 0, "ICP": 0}:
             raise AssertionError(f"launches {counts} for {ticks} ticks: the "
                                  "course did not run on K1's obstacle mode")
         # The first chunk runs eagerly (the graph's warm-up) and the second
@@ -1481,7 +1569,7 @@ class Ekf:
         chunk = self.sl.default_chunk(loop.sensor_every)
         ran = chunk * -(-ticks // chunk)
         if counts != {"K1": ran, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0, "EIG": 0}:
+                      "K4": 0, "EIG": 0, "ICP": 0}:
             raise AssertionError(f"launches {counts} for {ran} ticks run "
                                  f"({ticks} to done): the loop did not solve "
                                  "on K1 once per tick")
@@ -1521,7 +1609,7 @@ class Ekf:
 
         def want(n):
             return {"K1": n, "K1_obstacle": 0, "K2": 0, "K3": 0, "K4": 0,
-                    "EIG": 2 * -(-n // loop.sensor_every)}
+                    "EIG": 2 * -(-n // loop.sensor_every), "ICP": 0}
 
         runs = {}
         for name, n in (("eager", prefix), ("chunked_prefix", prefix),
@@ -1949,7 +2037,7 @@ class Graphs:
             raise AssertionError(f"odometry {odom} ends {d_last} m from the "
                                  "last waypoint")
         if counts != {"K1": commands, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0, "EIG": 0} or len(calls) != commands:
+                      "K4": 0, "EIG": 0, "ICP": 0} or len(calls) != commands:
             raise AssertionError(f"launches {counts} for {commands} commands:"
                                  " the driver did not solve on K1 once each")
         self.k1_course = counts["K1"]
@@ -2100,7 +2188,7 @@ class Graphs:
             raise AssertionError("RBPF node: no walls or no free cells in "
                                  "the grid, or no map→odom")
         want = {"K1": 0, "K1_obstacle": 0, "K2": updates, "K3": updates,
-                "K4": 1, "EIG": 0}
+                "K4": 1, "EIG": 0, "ICP": updates}
         if updates != Rbpf.UPDATES or counts != want:
             raise AssertionError(f"RBPF node: launches {counts} over "
                                  f"{updates} updates, expected {want}")
@@ -2235,7 +2323,7 @@ class Graphs:
             raise AssertionError(f"EKF node: error {ekf_err} m not below "
                                  f"odometry's {odo_err} m")
         if counts != {"K1": commands, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0, "EIG": 0}:
+                      "K4": 0, "EIG": 0, "ICP": 0}:
             raise AssertionError(f"EKF node: launches {counts} for {commands}"
                                  " commands")
         out = {"K": mppi.rollouts, "N": mppi.steps,
@@ -2405,7 +2493,7 @@ class Graphs:
         self.slam_counts = {k: rbpf["kernel_launches"][k]
                             + ekf["kernel_launches"][k]
                             + det["kernel_launches"][k] for k in
-                            ("K1", "K2", "K3", "K4", "EIG")}
+                            ("K1", "K2", "K3", "K4", "EIG", "ICP")}
         self.node_counts = {"rbpf_node": rbpf["kernel_launches"],
                             "ekf_node": ekf["kernel_launches"],
                             "detector_chain": det["kernel_launches"],
@@ -3021,7 +3109,8 @@ class Sharded:
         if ranks[0]["digest"] != ranks[1]["digest"]:
             raise AssertionError("the ranks' gathered states differ")
         want_counts = {"K1": 0, "K1_obstacle": 0, "K2": SHARD_UPDATES,
-                       "K3": SHARD_UPDATES, "K4": SHARD_UPDATES, "EIG": 0}
+                       "K3": SHARD_UPDATES, "K4": SHARD_UPDATES, "EIG": 0,
+                       "ICP": SHARD_UPDATES}
         for rk in ranks:
             if rk["launches"] != want_counts:
                 raise AssertionError(f"launches {rk['launches']}, expected "
@@ -3063,6 +3152,8 @@ class Sharded:
             "sharded_rbpf_2ranks": [rk["launches"][key] for rk in ranks],
             "rbpf_two_process_2ranks": [x["launches"][i] for x in (a, b)]}
             for i, key in enumerate(("K2", "K3", "K4"))})
+        self.launches["ICP"] = {"sharded_rbpf_2ranks": [
+            rk["launches"]["ICP"] for rk in ranks]}
         emit("sharded_rbpf", seconds=time.perf_counter() - t0, card=r.card,
              P=r.P, per_rank=r.P // 2, k=r.K,
              map=[r.g80.height, r.g80.width], beams=r.g80.num_beams,
@@ -3098,10 +3189,10 @@ class Sharded:
                       world=1, device="cuda", backend="nccl", timeout=600)
         fused, plain, rb = a["fused"], a["plain"], a["rbpf"]
         none = {"K1": 0, "K1_obstacle": 0, "K2": 0, "K3": 0, "K4": 0,
-                "EIG": 0}
+                "EIG": 0, "ICP": 0}
         want = {"fused": dict(none, K1=SHARD_SOLVES),
                 "rbpf": dict(none, K2=SHARD_UPDATES, K3=SHARD_UPDATES,
-                             K4=SHARD_UPDATES)}
+                             K4=SHARD_UPDATES, ICP=SHARD_UPDATES)}
         if fused["launches"] != want["fused"] or not fused["eager_bits"]:
             raise AssertionError(f"graph_sharded (a): {fused}")
         if not fused["max_ulps_vs_mppi_solve_fused"] <= 2.0:
@@ -3115,7 +3206,7 @@ class Sharded:
         if (rb["launches"] != want["rbpf"] or not all(
                 rb["eager_bits"].values()) or not rb["dists_are_k4_of_grids"]):
             raise AssertionError(f"graph_sharded (c): {rb}")
-        for key in ("K1", "K2", "K3", "K4"):
+        for key in ("K1", "K2", "K3", "K4", "ICP"):
             self.launches.setdefault(key, {})[
                 "graph_sharded_nccl_1rank"] = [
                     (fused if key == "K1" else rb)["launches"][key]]
@@ -3209,7 +3300,7 @@ class Demos:
                                  f"{odo_xy} m")
         scans = r["scans_run"]
         want = {"K1": ex.TICKS_PER_SCAN * scans, "K2": scans, "K3": scans,
-                "K4": r["pf_inits"], "K1_obstacle": 0, "EIG": 0}
+                "K4": r["pf_inits"], "K1_obstacle": 0, "EIG": 0, "ICP": scans}
         if counts != want:
             raise AssertionError(f"explore: launches {counts}, expected "
                                  f"{want} for {scans} scans")
@@ -3276,7 +3367,7 @@ class Demos:
                 f"scans, goal error {out['final_goal_err_m']} m, finite "
                 f"{finite}")
         want = {"K1": 12 * n, "K2": n, "K3": n, "K4": 1, "K1_obstacle": 0,
-                "EIG": 0}
+                "EIG": 0, "ICP": n}
         if counts != want:
             raise AssertionError(f"full stack: launches {counts}, expected "
                                  f"{want} for {n} scan updates")
@@ -3341,7 +3432,7 @@ class Demos:
             g.num_beams, torch.cuda.get_device_properties(
                 self.dev).multi_processor_count, smem_limit())
         want = {"K1": 0, "K1_obstacle": 0, "K2": per_update * n, "K3": n,
-                "K4": 1, "EIG": 0}
+                "K4": 1, "EIG": 0, "ICP": n}
         if not all(same.values()) or counts != want or not err < 0.2:
             raise AssertionError(f"RBPF course: graph vs eager {same}, "
                                  f"launches {counts} (want {want}), pose "
@@ -3818,7 +3909,8 @@ def trace_window(fn, reps: int):
 # The launch counter of each kernel family, and the profiler tags of the
 # kernels it counts (K1's combine kernel follows its partials one for one).
 COUNTED = {"K1": "mppi_rollout_partials", "K2": "likelihood_",
-           "K3": "map_update_kernel", "K4": "edt_kernel", "EIG": "sym_eig"}
+           "K3": "map_update_kernel", "K4": "edt_kernel", "EIG": "sym_eig",
+           "ICP": "icp_kernel"}
 
 
 def eager_window(fn, reps: int):
@@ -4244,7 +4336,7 @@ class CudaGraphs:
         same = same_bits(st, r.state, ("poses", "log_weights", "grids",
                                        "dists", "prev_poses"))
         want = {"K1": 0, "K1_obstacle": 0, "K2": r.UPDATES,
-                "K3": r.UPDATES, "K4": 0, "EIG": 0}
+                "K3": r.UPDATES, "K4": 0, "EIG": 0, "ICP": r.UPDATES}
         if not all(same.values()) or counts != want:
             raise AssertionError(f"RBPF stepper vs eager: {same}, launches "
                                  f"{counts} (want {want})")
@@ -4687,7 +4779,7 @@ def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
 # The launch counter of the kernels whose names hold each profiler tag.
 TAG_COUNTERS = {"mppi_rollout_partials": "K1", "mppi_combine": "K1",
                 "likelihood_": "K2", "map_update_kernel": "K3",
-                "edt_kernel": "K4", "sym_eig": "EIG"}
+                "edt_kernel": "K4", "sym_eig": "EIG", "icp_kernel": "ICP"}
 
 
 def device_us(fn, tags, reps: int, attempts: int = 3) -> dict:
@@ -4991,6 +5083,7 @@ def main() -> int:
     rbpf = Rbpf(smoke.card)
     rbpf.lik_kernel()
     rbpf.map_kernel()
+    rbpf.icp_kernel()
     rbpf.course()
     rbpf.times()
     rbpf.profile()
@@ -5115,6 +5208,22 @@ def main() -> int:
             "device_us", "device_event_us", "bound_ms", "bound_by",
             "gated_off_device_event_us")}
             for r in ekf.eig_rows]})
+    icp = rbpf.icp_rows[0]               # the course's 25 iterations
+    kernels.append({
+        "name": "icp (a whole scan match in one launch)", "route": "cuda",
+        "source": "tpunav_torch/ops/csrc/icp.cu",
+        "replaces": "tpunav/estimation/rbpf/icp.py (XLA's lax.scan over the "
+                    "iterations; no Pallas kernel)",
+        "launches": rbpf.counts["ICP"], "max_abs_err": rbpf.max_err["ICP"],
+        "ms": icp["ms"], "plain_ms": icp["plain_ms"],
+        "bound_ms": icp["bound_ms"], "bound_by": icp["bound_by"],
+        "library_ms": None,
+        "launches_slam_nodes": graphs.slam_counts["ICP"],
+        **node_launches(graphs, "ICP"),
+        "launches_sharded": sharded.launches["ICP"],
+        **demo_launches(demos, "ICP"),
+        **graph_launches(cuda_graphs, "ICP"),
+        "by_iterations": rbpf.icp_rows})
     print(json.dumps({"kernels": kernels}))
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {

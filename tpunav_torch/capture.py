@@ -47,7 +47,8 @@ COUNTERS = {"K1": ("fused_mppi", "KERNEL_LAUNCHES"),
             "K2": ("likelihood", "LIK_LAUNCHES"),
             "K3": ("map_update", "MAP_LAUNCHES"),
             "K4": ("map_update", "EDT_LAUNCHES"),
-            "EIG": ("sym_eig", "EIG_LAUNCHES")}
+            "EIG": ("sym_eig", "EIG_LAUNCHES"),
+            "ICP": ("icp", "ICP_LAUNCHES")}
 
 
 def _module(name: str):

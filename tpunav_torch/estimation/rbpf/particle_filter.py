@@ -50,7 +50,7 @@ from ...ops.likelihood import likelihood_field_batch
 from ...ops.map_update import edt_batch, map_update_batch
 from ...runtime import profiling
 from .grid import GridConfig, grid_init
-from .icp import ICPConfig, icp_match, scan_to_points
+from .icp import ICPConfig, icp_match_scans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,15 +289,11 @@ def _propose_and_integrate(cfg: PFConfig, st: PFState, ranges, u,
     used. Returns (new poses, unnormalised log-weights, grids, dists)."""
     gcfg = cfg.grid
     k = cfg.k_samples
+    guess = _icp_init_guess(cur_odom, prev_odom)
     with profiling.phase("pf.icp"):
-        src, src_ok = scan_to_points(ranges, gcfg.range_min,
-                                     gcfg.range_max, gcfg.beam_min,
-                                     gcfg.beam_delta)
-        dst, dst_ok = scan_to_points(st.prev_scan, gcfg.range_min,
-                                     gcfg.range_max, gcfg.beam_min,
-                                     gcfg.beam_delta)
-        icp = icp_match(cfg.icp, src, src_ok, dst, dst_ok,
-                        _icp_init_guess(cur_odom, prev_odom))
+        icp = icp_match_scans(cfg.icp, ranges, st.prev_scan, guess,
+                              gcfg.range_min, gcfg.range_max,
+                              gcfg.beam_min, gcfg.beam_delta)
     matcher_ok = torch.logical_and(icp.converged, st.has_prev)
 
     # Both branches of tpunav's lax.cond; the motion-model pose is sample
