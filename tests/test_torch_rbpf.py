@@ -449,6 +449,7 @@ def _entry_points():
     from tpunav_torch.control.waypoint_loop import course_init
     from tpunav_torch.estimation.ekf import EKFConfig
     from tpunav_torch.parallel import pf_init_sharded, rollout_mesh
+    from tpunav_torch.sim import dense_world
 
     cfg = mppi.MPPIConfig(horizon=0.1)
     pcfg = PFConfig(num_particles=2, k_samples=2, grid=GridConfig(**SMALL))
@@ -473,6 +474,7 @@ def _entry_points():
         "rollout_mesh": lambda: rollout_mesh(),
         "pf_init_sharded": lambda: pf_init_sharded(
             pcfg, rollout_mesh(device="cpu")),
+        "dense_world.deployment": lambda: dense_world.deployment(16),
         **_graph_entry_points(pcfg),
         **_node_entry_points(pcfg),
         **_demo_entry_points(),
@@ -504,7 +506,20 @@ def _graph_entry_points(pcfg):
         **_demo_graph_entry_points(ecfg, ekf.ekf_init(
             ecfg, dtype=torch.float32, device="cpu")),
         **_sharded_graph_entry_points(pcfg),
+        "SlamCourseRunner": _slam_course_runner,
     }
+
+
+def _slam_course_runner():
+    """Config 4's course runner given a seed batch on the CPU and no
+    device."""
+    from tpunav_torch.control import slam_loop as sl
+    from tpunav_torch.sim import dense_world
+
+    dep = dense_world.deployment(16, device="cpu")
+    st = sl.slam_batch_init(dep.mppi, dep.ekf, [0, 1], device="cpu")
+    return sl.SlamCourseRunner(dep.mppi, dep.ekf, dep.loop, dep.model,
+                               dep.waypoints, dep.landmarks, st)
 
 
 def _sharded_graph_entry_points(pcfg):

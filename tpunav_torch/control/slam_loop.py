@@ -35,9 +35,18 @@ eager loop's state, which stops on the tick of ``tpunav``'s
 ``run_slam_course`` is ``tpunav``'s other form, a ``lax.scan`` of a fixed
 number of ticks with per-tick telemetry and no stop at ``done``
 (``examples/dense_world_slam_demo.py``: config 4, whose ``meas_fn`` is the
-lidar → circle detector chain). It replays chunks of that scan with no
-host read; the ``meas_fn``'s noise is drawn eagerly into static tensors
-through its ``noise=`` seam, with the eager loop's calls.
+lidar → circle detector chain, ``sim/dense_world.py``). It replays
+chunks of that scan with no host read; the ``meas_fn``'s noise is drawn
+eagerly into static tensors through its ``noise=`` seam, with the eager
+loop's calls. It runs on :class:`SlamCourseRunner`, which captures a chunk
+graph (and a shorter tail) once and takes each new course's state into its
+buffers in place, as a seed sweep runs course after course.
+
+While ``runtime.profiling``'s tracer is on, a sensing tick's sensor chain
+and filter step are its device phases ``slam.sense`` and ``ekf.update``
+(on a seed batch once per sensing tick for all B seeds, inside the mapped
+body), and a runner's eager draws and loads its ``step.draw`` and
+``step.load`` spans.
 
 ``run_slam_course`` also runs that scan over a seed batch
 (``slam_batch_init``: B states and B generators), ``tpunav``'s
@@ -69,6 +78,7 @@ from ..models.cart import CartParams, kinematic_cart
 # here would fail when ops.fused_mppi is imported first.
 from ..ops import fused_mppi
 from ..ops.rk4 import rk4_step
+from ..runtime import profiling
 from ..sim.landmark_sensor import landmark_measurements
 from .mppi import (MPPIConfig, init_controls, mppi_solve,
                    sample_perturbations, shift_controls)
@@ -219,18 +229,23 @@ def _act(ekf_cfg, cfg, model, landmarks, st, aim, cmd, u, sense, slam_step,
     odom = ekff.motion_update(ekf_cfg, st.odom, u_odom,
                               torch.zeros_like(st.odom))
 
-    # Landmark frame on schedule; the prediction alone off schedule.
+    # Landmark frame on schedule; the prediction alone off schedule. On a
+    # sensing tick the sensor chain and the filter's step are the tracer's
+    # device phases (no-ops while it is off or outside a graph's step).
     if sense:
         true_txy = torch.stack([true_pose[2], true_pose[0], true_pose[1]])
-        if meas_fn is None:
-            meas = landmark_measurements(
-                landmarks, true_txy, cfg.visibility, generator=st.generator,
-                noise_std=cfg.meas_noise_std, noise=meas_noise)
-        else:
-            meas = meas_fn(true_txy, st.generator)
+        with profiling.phase("slam.sense"):
+            if meas_fn is None:
+                meas = landmark_measurements(
+                    landmarks, true_txy, cfg.visibility,
+                    generator=st.generator, noise_std=cfg.meas_noise_std,
+                    noise=meas_noise)
+            else:
+                meas = meas_fn(true_txy, st.generator)
+        with profiling.phase("ekf.update"):
+            ekf = slam_step(ekf_cfg, st.ekf, meas, u_odom)
     else:
-        meas = st.odom.new_empty((0, 2))
-    ekf = slam_step(ekf_cfg, st.ekf, meas, u_odom)
+        ekf = slam_step(ekf_cfg, st.ekf, st.odom.new_empty((0, 2)), u_odom)
 
     return st._replace(true_pose=true_pose, odom=odom, ekf=ekf, u=u,
                        wpt_idx=wpt_idx, visits=visits, ticks=st.ticks + 1,
@@ -385,7 +400,8 @@ class _Chunks:
     def run(self) -> None:
         """Draw the chunk's perturbations and normals and run it, with no
         host read."""
-        self.draw(self.chunk)
+        with profiling.span("step.draw", self.graph):
+            self.draw(self.chunk)
         self.graph()
 
     def step(self):
@@ -415,9 +431,7 @@ def run_slam_loop(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
     every = cfg.sensor_every
     chunk = default_chunk(every) if chunk is None else chunk
-    if chunk < 1 or chunk % every:
-        raise ValueError(f"chunk {chunk} must be a positive multiple of "
-                         f"sensor_every ({every})")
+    _check_chunk(chunk, every)
 
     def eager(until_aligned: bool):
         nonlocal st
@@ -460,10 +474,10 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     sensor as in :func:`slam_loop_tick`; ``meas_shape`` is the shape of the
     standard normals it draws from the generator on a sensing tick (None:
     none), which ``noise=`` replaces. It runs eager ticks to the next
-    sensing tick, then replays ``chunk`` ticks per graph step (default
-    :func:`default_chunk`) and the rest in one shorter graph, with no host
-    read, and gives the eager per-tick loop's state, rows and generator bit
-    for bit on either backend.
+    sensing tick, then a :class:`SlamCourseRunner`'s replays: ``chunk``
+    ticks per graph step (default :func:`default_chunk`) and the rest in
+    its one shorter graph, with no host read, and gives the eager per-tick
+    loop's state, rows and generator bit for bit on either backend.
 
     A seed batch ``st`` (:func:`slam_batch_init`; the fused backend, from a
     sensing tick) runs as ``tpunav``'s ``jax.vmap`` of the course over
@@ -480,9 +494,7 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
     every = cfg.sensor_every
     chunk = default_chunk(every) if chunk is None else chunk
-    if chunk < 1 or chunk % every:
-        raise ValueError(f"chunk {chunk} must be a positive multiple of "
-                         f"sensor_every ({every})")
+    _check_chunk(chunk, every)
     batched = _seeds(st) is not None
     if batched and st.host_ticks % every:
         raise ValueError("a seed batch's course starts on a sensing tick")
@@ -493,19 +505,129 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
         if telemetry is not None:
             rows.append(telemetry(st)[None])
         done += 1
-    for length, count in ((chunk, (ticks - done) // chunk),
-                          ((ticks - done) % chunk, 1)):
-        if not length or not count:
-            continue
-        chunks = _Chunks(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
-                         st, length, None, meas_fn, meas_shape, telemetry)
-        for _ in range(count):
-            chunks.run()
+    length, tail, steps = course_plan(ticks - done, chunk)
+    if steps:
+        runner = SlamCourseRunner(
+            mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st,
+            chunk=length, tail=tail, meas_fn=meas_fn, meas_shape=meas_shape,
+            telemetry=telemetry, device=dev)
+        for last in steps:
+            runner.run(tail=last)
             if telemetry is not None:
-                rows.append(chunks.tel.clone())
-        st = chunks.state._replace(host_ticks=st.host_ticks + length * count)
-        done += length * count
+                rows.append(runner.rows.clone())
+        st = runner.state
     return st, (torch.cat(rows, dim=int(batched)) if rows else None)
+
+
+def course_plan(ticks: int, chunk: int):
+    """A course of ``ticks`` from a sensing tick on a
+    :class:`SlamCourseRunner`: (the runner's chunk, its tail, each step's
+    ``tail`` flag). Whole chunks, then the rest in the tail graph; a
+    course shorter than a chunk is one chunk of its length."""
+    full, rest = divmod(ticks, chunk)
+    if not full:
+        return rest, 0, [False] * bool(rest)
+    return chunk, rest, [False] * full + [True] * bool(rest)
+
+
+def _check_chunk(chunk: int, every: int) -> None:
+    if chunk < 1 or chunk % every:
+        raise ValueError(f"chunk {chunk} must be a positive multiple of "
+                         f"sensor_every ({every})")
+
+
+def _load_state(buffers: SlamLoopState, st: SlamLoopState) -> None:
+    """``st``'s fields into the state ``buffers`` in place
+    (``capture.load``), the generators' states with them."""
+    def flat(s):
+        gens = s.generator if isinstance(s.generator, tuple) else (
+            s.generator,)
+        return [*(getattr(s, f) for f in _FIELDS if f != "ekf"), *s.ekf,
+                *gens]
+
+    capture.load(flat(buffers), flat(st))
+
+
+class SlamCourseRunner:
+    """The course form of the loop (:func:`run_slam_course`'s ticks, on
+    past ``done``) as replayed graphs on static state buffers, for a serial
+    state or a seed batch: ``chunk`` ticks per step (default
+    :func:`default_chunk`), and where ``tail`` > 0 one shorter graph of
+    ``tail`` ticks that ends a course whose length is no whole number of
+    chunks. Each graph is captured once, on its second step (the first is
+    the warm-up, itself a real step); a new course is loaded into the
+    buffers in place (:meth:`load`), so nothing is captured again.
+
+    ``st`` (on ``device``, default the card, which raises without CUDA)
+    starts on a sensing tick and is copied into the buffers; a seed batch
+    runs on the fused backend, as in :func:`run_slam_course`. Every step
+    starts on a sensing tick, so a ``chunk`` that is no multiple of the
+    sensing period ends the course. Each
+    :meth:`run` draws its ticks' normals eagerly from the state's
+    generators (a ``step.draw`` span), then replays, with no host read;
+    :attr:`rows` holds the telemetry rows of the last run ((chunk, F), or
+    (B, chunk, F) for a batch) and :attr:`state` the state after it."""
+
+    def __init__(self, mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
+                 cfg: SlamLoopConfig, model: CartParams, waypoints,
+                 landmarks, st: SlamLoopState, chunk: Optional[int] = None,
+                 tail: int = 0, meas_fn=None, meas_shape=None,
+                 telemetry=None, device=DEFAULT_DEVICE):
+        capture.state_device(st.true_pose, device)
+        chunk = default_chunk(cfg.sensor_every) if chunk is None else chunk
+        if chunk < 1 or tail < 0:
+            raise ValueError(f"chunk {chunk} must be positive and tail "
+                             f"{tail} not negative")
+        self.every = cfg.sensor_every
+        self._aligned(st.host_ticks)
+
+        def runner(length):
+            return _Chunks(mppi_cfg, ekf_cfg, cfg, model, waypoints,
+                           landmarks, st, length, None, meas_fn, meas_shape,
+                           telemetry)
+
+        self._main = self._current = runner(chunk)
+        self._tail = runner(tail) if tail > 0 else None
+        self.host_ticks = st.host_ticks
+
+    @property
+    def state(self) -> SlamLoopState:
+        """The state after the last run (the buffers, not a copy)."""
+        return self._current.state._replace(host_ticks=self.host_ticks)
+
+    @property
+    def rows(self) -> Optional[torch.Tensor]:
+        """The last run's telemetry rows (a static buffer, not a copy), or
+        None without ``telemetry``."""
+        return self._current.tel
+
+    def _aligned(self, host_ticks: int) -> None:
+        if host_ticks % self.every:
+            raise ValueError("a course runner's step starts on a sensing "
+                             "tick")
+
+    def load(self, st: SlamLoopState) -> None:
+        """Start a course from ``st`` (on a sensing tick, of the runner's
+        shape): its fields and its generators' states into the buffers, in
+        place (a ``step.load`` span)."""
+        self._aligned(st.host_ticks)
+        with profiling.span("step.load", self._main.graph):
+            _load_state(self._main.state, st)
+        self._current = self._main
+        self.host_ticks = st.host_ticks
+
+    def run(self, tail: bool = False) -> None:
+        """One step: ``chunk`` ticks, or with ``tail`` the tail graph's
+        ticks, from the state the last step (or :meth:`load`) left."""
+        nxt = self._tail if tail else self._main
+        if nxt is None:
+            raise ValueError("the runner has no tail graph")
+        self._aligned(self.host_ticks)
+        if nxt is not self._current:
+            _load_state(nxt.state, self._current.state)
+            self._current = nxt
+        nxt.run()
+        self.host_ticks += nxt.chunk
 
 
 # ── Seed batches: ``tpunav``'s vmap of the course over seeds ──
