@@ -131,6 +131,10 @@ NEAR_TIE_ULPS = 16
 PARITY_UPDATES = 50
 TIMES_UPDATES = 40
 GRAPH_EKF_EAGER_UPDATES = 60
+ROWS_KERNEL_STEPS = 6      # chained steps of ekf_rows_kernel at config 4
+ROWS_TWIST = (0.04, 0.03)  # ekf_rows_kernel's twist between steps
+WIDE_SLOTS = 120           # ekf_rows_kernel's capacity past shared memory
+MAX_FLIP_SHARE = 0.02      # ekf_rows_kernel's near-tie unknown-DA states
 # The EKF nodes' first updates that slam_nodes holds to the eager node.
 EKF_NODE_EAGER = 60
 # ekf_times' closed-loop ticks per trial (bench.py's bench_slam_loop: 240)
@@ -754,7 +758,8 @@ class Rbpf:
         if not xy_err < 0.2:
             raise AssertionError(f"pose diverged: |xy| error {xy_err} m")
         want = {"K1": 0, "K1_obstacle": 0, "K2": self.UPDATES,
-                "K3": self.UPDATES, "K4": 1, "EIG": 0, "ICP": self.UPDATES}
+                "K3": self.UPDATES, "K4": 1, "EIG": 0, "ICP": self.UPDATES,
+                "EKF": 0}
         if counts != want:
             raise AssertionError(f"launches {counts}, expected {want}: one "
                                  "K2 and one K3 per update, K4 in pf_init")
@@ -1043,7 +1048,7 @@ class Obstacle:
             raise AssertionError(f"the course scraped the wall: clearance "
                                  f"{clear[0]} m")
         if counts != {"K1": ticks, "K1_obstacle": ticks, "K2": 0, "K3": 0,
-                      "K4": 0, "EIG": 0, "ICP": 0}:
+                      "K4": 0, "EIG": 0, "ICP": 0, "EKF": 0}:
             raise AssertionError(f"launches {counts} for {ticks} ticks: the "
                                  "course did not run on K1's obstacle mode")
         # The first chunk runs eagerly (the graph's warm-up) and the second
@@ -1371,6 +1376,263 @@ class Ekf:
         emit("ekf_parity", seconds=time.perf_counter() - t0, ekf=rows,
              k1_bar=BAR, k1=k1)
 
+    def rows_inputs(self, known, steps):
+        """Config 4's shape: SEED_BATCH true poses along the waypoint ring,
+        each advanced by ROWS_TWIST per step; per step the (B, 32, 2) rows
+        of the dense world's lidar and circle detector on the card (unknown
+        DA) or cylinder i in row i within 1.2 m (known DA)."""
+        ring = self.c4_demo.waypoint_ring()
+        a = np.linspace(0.0, 2 * np.pi, SEED_BATCH, endpoint=False)
+        rad = np.hypot(ring[:, 0], ring[:, 1]).mean()
+        poses = np.stack([a + np.pi / 2, rad * np.cos(a), rad * np.sin(a)],
+                         -1)
+        meas_fn = self.config4()[-1]
+        out = []
+        for step in range(steps):
+            rows = []
+            for i, (th, x, y) in enumerate(poses):
+                if known:
+                    rel = self.world[:32] - [x, y]
+                    c, s = np.cos(th), np.sin(th)
+                    rf = np.stack([c * rel[:, 0] + s * rel[:, 1],
+                                   -s * rel[:, 0] + c * rel[:, 1]], -1)
+                    vis = np.hypot(rel[:, 0], rel[:, 1]) < 1.2
+                    rows.append(self.t(np.where(vis[:, None], rf, np.nan)))
+                else:
+                    gen = torch.Generator(device=self.dev).manual_seed(
+                        1000 * step + i)
+                    rows.append(meas_fn(self.t([th, x, y]), gen))
+            out.append(torch.stack(rows).cpu().double())
+            th = poses[:, 0] + ROWS_TWIST[0]
+            poses = np.stack([th, poses[:, 1] + ROWS_TWIST[1] * np.cos(th),
+                              poses[:, 2] + ROWS_TWIST[1] * np.sin(th)], -1)
+        return out
+
+    def gate_margin(self, cfg, st, meas, u):
+        """The smallest relative distance of any valid row's float64 d*
+        from dmin or dmax in one state's unknown-DA step (the PyTorch row
+        chain on the CPU): a gate decision may differ only where it is
+        under 1%."""
+        ekff = self.ekff
+        cfg = dataclasses.replace(cfg, spd_repair=False)
+        st = ekff.EKFState(*(t.cpu() for t in st))
+        st = st._replace(state=st.state.double(), cov=st.cov.double())
+        meas, v_all, state, cov = ekff._predict(
+            cfg, st, meas.cpu().double(), u.cpu().double(), None)
+        valid, r_all, b_all, bn_all = ekff.ekf_rows.polar_rows(meas)
+        k = ekff._update_consts(cfg, state)
+        carry, margin = (state, cov, st.active, st.count), math.inf
+        for i in torch.nonzero(valid).flatten().tolist():
+            cov = 0.5 * (carry[1] + carry[1].T)
+            row = (r_all[i], b_all[i], bn_all[i], v_all[i])
+            d = ekff._maha_all(cfg, k, carry[0], cov, row[0], row[2], row[3],
+                               ekff._heading(carry[0], row[3]), carry[2])
+            dstar = 1e12 if int(carry[3]) == 0 else float(d.min())
+            margin = min(margin, *(abs(dstar - g) / g
+                                   for g in (cfg.dmin, cfg.dmax)))
+            carry = ekff._unknown_row(cfg, k, carry, row)
+        return margin
+
+    def rows_kernel(self, steps=ROWS_KERNEL_STEPS):
+        """``ekf_rows_kernel``: the filter step's kernel
+        (``ops/csrc/ekf_rows.cu``, one launch a step for a batch of states)
+        against its plain version (``ops/ekf_rows.py``, on the CPU), step by
+        step from the plain version's state, at config 4's shape (SEED_BATCH
+        states, capacity 50, 32 rows; :meth:`rows_inputs`) and at
+        ``bench_ekf``'s (capacity 50, 12 visible of 50 rows, 1 mm noise and
+        sampled noise draws) and at capacity WIDE_SLOTS, where the
+        covariance lies in device memory (:func:`ops.ekf_rows.plan`), known
+        and unknown DA, float32 and float64:
+        known DA's ``active`` and ``count`` equal on every state (it has no
+        gate); unknown DA's gate decisions equal wherever no valid row's d*
+        lies within 1% of dmin or dmax (:meth:`gate_margin`), such near-tie
+        states dropped from the comparison but at most MAX_FLIP_SHARE of
+        the unknown-DA states compared; float64 within 1e-9; float32
+        pose 1e-5, landmarks 1e-4, covariance rtol 1e-3 + 1e-7·max|Σ|.
+        The batch in one launch equal, bit for bit, to each state's own
+        launch. At config 4's batch (float32, unknown DA): device µs
+        (profiler), event ms, the bound, the plain version's ms on the CPU
+        and the PyTorch row chain's on the card (the path this kernel
+        replaced, eager), and the launches per replay of an EKFStepper."""
+        from tpunav_torch import batch
+        from tpunav_torch.ops import ekf_rows as er
+
+        t0 = time.perf_counter()
+        ekff = self.ekff
+        c4, bench = self.config4()[1], self.bench_cfg()
+        rng = np.random.default_rng(3)
+        cases, flips, compared, rows, finals = [], 0, 0, [], {}
+        for known in (True, False):
+            c4_meas = self.rows_inputs(known, steps)
+            bench_meas = [torch.as_tensor(m)[None] for m in
+                          bench_ekf_course(updates=2 * steps)]
+            # Past the shared-memory plan (S = 243: the covariance in
+            # device memory): 120 slots, a ring of 24 landmarks in view.
+            wide = [torch.as_tensor(m)[None] for m in bench_ekf_course(
+                n=WIDE_SLOTS, n_visible=24, updates=3)]
+            cases += [("config4", c4, known, c4_meas, np.zeros(3), 0.0),
+                      ("bench_ekf", bench, known, bench_meas,
+                       (0.02, 0.01), 1e-3),
+                      ("global", dataclasses.replace(
+                          bench, num_landmarks=WIDE_SLOTS), known, wide,
+                       (0.02, 0.01), 1e-3)]
+        for shape, cfg, known, meas_seq, u0, noise in cases:
+            for dtype in (torch.float64, torch.float32):
+                f64 = dtype == torch.float64
+                bars = ({"pose": 1e-9, "landmarks": 1e-9, "cov": 1e-9}
+                        if f64 else {"pose": 1e-5, "landmarks": 1e-4,
+                                     "cov": 1e-7})
+                rtol = 0.0 if f64 else 1e-3
+                b = meas_seq[0].shape[0]
+                st = ekff.ekf_init(cfg, dtype=dtype, device="cpu")
+                st = ekff.EKFState(*(t.expand(b, *t.shape).clone()
+                                     for t in st))
+                u = (torch.tensor(ROWS_TWIST if shape == "config4" else u0,
+                                  dtype=dtype).expand(b, 2).contiguous())
+                kw = dict(known=known, dmin=cfg.dmin, dmax=cfg.dmax,
+                          motion_noise=cfg.motion_noise,
+                          measurement_noise=cfg.measurement_noise)
+                worst = dict.fromkeys(bars, 0.0)
+                for m in meas_seq:
+                    m = m.to(dtype)
+                    w = torch.as_tensor(rng.normal(0, noise, (b, 3)),
+                                        dtype=dtype)
+                    v = torch.as_tensor(rng.normal(0, noise, m.shape),
+                                        dtype=dtype)
+                    args = (st.state, 0.5 * (st.cov + st.cov.transpose(1, 2)),
+                            st.active, st.count, m, u, w, v)
+                    want = ekff.EKFState(*er.ekf_step(*args, **kw))
+                    card = tuple(a.to(self.dev) for a in args)
+                    before = er.EKF_LAUNCHES
+                    got = er.ekf_step(*card, **kw)
+                    if er.EKF_LAUNCHES - before != 1:
+                        raise AssertionError("the EKF step took "
+                                             f"{er.EKF_LAUNCHES - before} "
+                                             "launches for a batch")
+                    single = [er.ekf_step(*(a[i] for a in card), **kw)
+                              for i in range(b)]
+                    if not all(torch.equal(x, torch.stack(y)) for x, y in
+                               zip(got, zip(*single))):
+                        raise AssertionError(f"EKF kernel ({shape}, known="
+                                             f"{known}, {dtype}): the batch's "
+                                             "launch differs from its states' "
+                                             "own launches")
+                    got = ekff.EKFState(*(x.cpu() for x in got))
+                    same = torch.logical_and(
+                        (got.active == want.active).all(-1),
+                        got.count == want.count)
+                    for i in torch.nonzero(~same).flatten().tolist():
+                        if known:
+                            raise AssertionError(
+                                f"EKF kernel ({shape}, known DA, {dtype}): "
+                                f"active or count differ for state {i}")
+                        margin = self.gate_margin(
+                            cfg, ekff.EKFState(*(t[i] for t in st)), m[i],
+                            u[i])
+                        if not margin < 0.01:
+                            raise AssertionError(
+                                f"EKF kernel ({shape}, known={known}, "
+                                f"{dtype}): gate decisions differ for state "
+                                f"{i}, d* {margin:.2%} from a gate")
+                        flips += 1
+                    compared += 0 if known else b
+                    keep = same[:, None]
+                    worst["pose"] = max(worst["pose"], float(torch.where(
+                        keep, (got.state[:, :3] - want.state[:, :3]).abs(),
+                        0.0).max()))
+                    worst["landmarks"] = max(worst["landmarks"], float(
+                        torch.where(keep, (got.state[:, 3:] -
+                                           want.state[:, 3:]).abs(),
+                                    0.0).max()))
+                    excess = ((got.cov - want.cov).abs() -
+                              rtol * want.cov.abs()).amax((1, 2))
+                    scale = 1.0 if f64 else float(want.cov.abs().max())
+                    worst["cov"] = max(worst["cov"], float(torch.where(
+                        same, excess, 0.0).max()) / scale)
+                    st = want
+                if any(worst[k] > bars[k] for k in bars):
+                    raise AssertionError(f"EKF kernel vs plain ({shape}, "
+                                         f"known={known}, {dtype}): {worst} "
+                                         f"over {bars}")
+                finals[shape, known, dtype] = st
+                layout = er.plan(st.state.shape[1], meas_seq[0].shape[1],
+                                 dtype, smem_limit())[0]
+                if (layout == "global") != (shape == "global"):
+                    raise AssertionError(f"EKF kernel ({shape}, {dtype}): "
+                                         f"the covariance planned {layout}")
+                rows.append({"shape": shape, "B": b, "known_da": known,
+                             "layout": layout,
+                             "dtype": str(dtype)[6:], "steps": len(meas_seq),
+                             "final_count_min": int(st.count.min()),
+                             "max_abs_err": worst, "bar": bars})
+        if flips > MAX_FLIP_SHARE * compared:
+            raise AssertionError(f"EKF kernel: {flips} near-tie gate flips "
+                                 f"in {compared} unknown-DA states")
+        self.rows_err = {
+            dt: {k: max(r["max_abs_err"][k] for r in rows
+                        if r["dtype"] == dt) for k in ("pose", "landmarks",
+                                                       "cov")}
+            for dt in ("float32", "float64")}
+        # Timing at config 4's batch: the last unknown-DA float32 inputs.
+        cfg = c4
+        st32 = finals["config4", False, torch.float32]
+        m = c4_meas[-1].float()
+        b, s_size = m.shape[0], st32.state.shape[1]
+        u = torch.tensor(ROWS_TWIST).expand(b, 2).contiguous()
+        kw = dict(known=False, dmin=cfg.dmin, dmax=cfg.dmax,
+                  motion_noise=cfg.motion_noise,
+                  measurement_noise=cfg.measurement_noise)
+        zw, zv = torch.zeros(b, 3), torch.zeros_like(m)
+        args = (st32.state, st32.cov, st32.active, st32.count, m, u, zw, zv)
+        card = tuple(a.to(self.dev) for a in args)
+
+        def kernel():
+            return er.ekf_step(*card, **kw)
+
+        t1 = time.perf_counter()
+        for _ in range(3):
+            er.ekf_step(*args, **kw)
+        plain_cpu_ms = 1e3 * (time.perf_counter() - t1) / 3
+        chain = batch.vmap(lambda x, c, a, n, mm, uu: tuple(ekff._masked(
+            cfg, ekff.EKFState(x, c, a, n), mm, uu, None, False)))
+        valid = int(torch.isfinite(m).all(-1).sum())
+        n_lm = cfg.num_landmarks
+        # Operations: the least the step needs, each valid row's gate (~150
+        # a slot) and update (~12 a covariance entry: the symmetrisation,
+        # the rank-2 update by K and Hσ̄ and the KΨKᵀ term; the kernel's
+        # factored Joseph sums take ~28); bytes: each state's inputs read
+        # and outputs written once.
+        ops = valid * (150.0 * n_lm + 12.0 * s_size * s_size)
+        nbytes = b * (4 * (2 * s_size * s_size + 2 * s_size + 4 * 32 + 5) +
+                      2 * n_lm + 8)
+        bound_ms, bound_by = bound(nbytes, ops)
+        stepper = ekff.EKFStepper(cfg, ekff.EKFState(*card[:4]), 32, False,
+                                  self.dev)
+        for _ in range(2):
+            stepper.step(card[4], card[5])
+        before = er.EKF_LAUNCHES
+        for _ in range(3):
+            stepper.step(card[4], card[5])
+        per_replay = (er.EKF_LAUNCHES - before) / 3
+        timing = {
+            "B": b, "S": s_size, "rows": 32, "valid_rows": valid,
+            "plan": er.plan(s_size, 32, torch.float32, smem_limit()),
+            "device_us": device_us(kernel, ("ekf_step_kernel",),
+                                   20)["ekf_step_kernel"],
+            "device_event_us": device_event_us(kernel, 20),
+            "ms": time_ms(kernel),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_cpu_ms": plain_cpu_ms,
+            "row_chain_ms": time_ms(lambda: chain(*card[:5], card[5]),
+                                    reps=3, warmup=1),
+            "launches_per_replay": per_replay}
+        if timing["launches_per_replay"] != 1:
+            raise AssertionError(f"EKFStepper: {timing} launches per replay")
+        self.rows_timing = timing
+        emit("ekf_rows_kernel", seconds=time.perf_counter() - t0,
+             card=self.card, rows=rows, near_tie_flips=flips,
+             unknown_states_compared=compared, timing=timing)
+
     def scans(self, device, dtype=torch.float32):
         """Scans of the dense world from 8 poses on a 1.2 m circle, with
         1 mm noise from a numpy seed (the same draws on every device)."""
@@ -1569,11 +1831,13 @@ class Ekf:
         chunk = self.sl.default_chunk(loop.sensor_every)
         ran = chunk * -(-ticks // chunk)
         if counts != {"K1": ran, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0, "EIG": 0, "ICP": 0}:
+                      "K4": 0, "EIG": 0, "ICP": 0, "EKF": ran}:
             raise AssertionError(f"launches {counts} for {ran} ticks run "
                                  f"({ticks} to done): the loop did not solve "
-                                 "on K1 once per tick")
+                                 "on K1 and step the filter on its kernel "
+                                 "once per tick")
         self.k1_course, self.c3_state = counts["K1"], st
+        self.ekf_course = counts["EKF"]
         emit("ekf_course", seconds=wall, K=mppi.rollouts, N=mppi.steps,
              landmarks=len(demo.block_world()), slots=ekf.num_landmarks,
              known_da=True, sensor_every=loop.sensor_every, ticks=ticks,
@@ -1609,7 +1873,8 @@ class Ekf:
 
         def want(n):
             return {"K1": n, "K1_obstacle": 0, "K2": 0, "K3": 0, "K4": 0,
-                    "EIG": 2 * -(-n // loop.sensor_every), "ICP": 0}
+                    "EIG": 2 * -(-n // loop.sensor_every), "ICP": 0,
+                    "EKF": n}
 
         runs = {}
         for name, n in (("eager", prefix), ("chunked_prefix", prefix),
@@ -1662,6 +1927,7 @@ class Ekf:
         self.dense_state = full["state"]
         self.c4_tick_us = runs["eager"]["us_per_tick"]
         self.k1_dense = runs["chunked"]["kernel_launches"]["K1"]
+        self.ekf_dense = runs["chunked"]["kernel_launches"]["EKF"]
         self.eig_dense = runs["chunked"]["kernel_launches"]["EIG"]
         chunk = sl.default_chunk(loop.sensor_every)
         window = sl._Chunks(mppi, ekf, loop, demo.MODEL, ring, world,
@@ -1748,44 +2014,76 @@ class Ekf:
                 "unit": "ticks/s", "value": statistics.median(rates),
                 "trials": rates}
 
+    def step_kernel_us(self, cfg, st, meas, u, known):
+        """Device µs (events) of the filter step's kernel alone on ``st``'s
+        symmetrised covariance, without noise."""
+        from tpunav_torch.ops import ekf_rows as er
+
+        args = (st.state, 0.5 * (st.cov + st.cov.T), st.active, st.count,
+                meas, u, torch.zeros_like(st.state[:3]),
+                torch.zeros_like(meas))
+        return device_event_us(lambda: er.ekf_step(
+            *args, known=known, dmin=cfg.dmin, dmax=cfg.dmax,
+            motion_noise=cfg.motion_noise,
+            measurement_noise=cfg.measurement_noise), 20)
+
     def times(self):
         """bench.py's EKF lines (µs per update and updates/s at n=50, 12
-        visible, float32, 3 trials of TIMES_UPDATES updates) for both DAs;
+        visible, float32, 3 trials of TIMES_UPDATES updates, the two DAs'
+        trials interleaved) for both DAs, each update one launch of the
+        filter step's kernel, and that kernel's device µs on each DA's last
+        update;
         the two
         trip-count candidates at config 4's shape; the SPD repair at n=50,
         gated off and repairing, with no host sync; the closed-loop rates
         of configs 3 and 4 at bench_slam_loop's shape; ms per detector
         call."""
+        from tpunav_torch.ops import ekf_rows as er
+
         t0 = time.perf_counter()
         ekff, cfg = self.ekff, self.bench_cfg()
         meas = [self.t(m) for m in bench_ekf_course(updates=TIMES_UPDATES)]
         u = self.t([0.02, 0.01])
-        lines = {}
-        for name, fn in (("known", ekff.known_correspondence_slam),
-                         ("unknown", ekff.slam_unknown_da)):
-            rates = []
-            for trial in range(4):             # the first 20 updates warm up
-                st = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                for m in meas[:20] if trial == 0 else meas:
-                    st = fn(cfg, st, m, u)
-                torch.cuda.synchronize()
-                if trial:
-                    rates.append(len(meas) / (time.perf_counter() - t1))
-            self.final_bench = st
+        fns = {"known": ekff.known_correspondence_slam,
+               "unknown": ekff.slam_unknown_da}
+        rates, finals, lines = {name: [] for name in fns}, {}, {}
+        # A warm-up of 20 updates each, then the trials in the order known,
+        # unknown, unknown, known, known, unknown: a process's slow and
+        # fast stretches (PERF.md §5) fall on both alike. Each update of
+        # either DA is the same host work and one launch of the same
+        # kernel, so neither rate is bound to be the higher.
+        for i, name in enumerate(("known", "unknown") +
+                                 ("known", "unknown", "unknown", "known") +
+                                 ("known", "unknown")):
+            st = ekff.ekf_init(cfg, dtype=torch.float32, device=self.dev)
+            steps = meas[:20] if i < 2 else meas
+            before = er.EKF_LAUNCHES
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for m in steps:
+                st = fns[name](cfg, st, m, u)
+            torch.cuda.synchronize()
+            if er.EKF_LAUNCHES - before != len(steps):
+                raise AssertionError(f"{name} DA: {er.EKF_LAUNCHES - before} "
+                                     f"EKF launches over {len(steps)} "
+                                     "updates")
+            if i >= 2:
+                rates[name].append(len(meas) / (time.perf_counter() - t1))
+            finals[name] = st
+        self.final_bench = finals["unknown"]
+        for name, fn in fns.items():
+            r, st = rates[name], finals[name]
             lines[name] = {
                 "metric": f"ekf_slam{'' if name == 'known' else '_unknown_da'}"
                           f"_updates_per_sec (n=50 capacity, 12 meas/update, "
                           f"f32, {name} DA)",
-                "unit": "updates/s", "value": statistics.median(rates),
-                "trials": rates, "min": min(rates), "max": max(rates),
-                "us_per_update": 1e6 / statistics.median(rates),
+                "unit": "updates/s", "value": statistics.median(r),
+                "trials": r, "min": min(r), "max": max(r),
+                "us_per_update": 1e6 / statistics.median(r),
                 "launches_per_update": launches(
-                    lambda: fn(cfg, st, meas[-1], u))}
-        if not lines["known"]["value"] >= lines["unknown"]["value"]:
-            raise AssertionError("known DA slower than unknown DA: "
-                                 f"{lines}")
+                    lambda: fn(cfg, st, meas[-1], u)),
+                "kernel_device_event_us": self.step_kernel_us(
+                    cfg, st, meas[-1], u, name == "known")}
         # The update's two trip counts at config 4's shape (capacity 50, 32
         # detector rows of the dense world, unknown DA) and at bench_ekf's.
         _, c4, _, _, _, meas_fn = self.config4()
@@ -1842,7 +2140,7 @@ class Ekf:
         self.timing = {"lines": lines, "trip_count": trips,
                        "spd_repair": repair, "loops": loops}
         emit("ekf_times", seconds=time.perf_counter() - t0, card=self.card,
-             ekf=lines, known_ge_unknown=True, trip_count=trips,
+             ekf=lines, one_kernel_launch_per_update=True, trip_count=trips,
              spd_repair=repair, closed_loop=loops,
              detector_ms_per_call=self.detector_ms)
 
@@ -2037,7 +2335,8 @@ class Graphs:
             raise AssertionError(f"odometry {odom} ends {d_last} m from the "
                                  "last waypoint")
         if counts != {"K1": commands, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0, "EIG": 0, "ICP": 0} or len(calls) != commands:
+                      "K4": 0, "EIG": 0, "ICP": 0, "EKF": 0} or \
+                len(calls) != commands:
             raise AssertionError(f"launches {counts} for {commands} commands:"
                                  " the driver did not solve on K1 once each")
         self.k1_course = counts["K1"]
@@ -2188,7 +2487,7 @@ class Graphs:
             raise AssertionError("RBPF node: no walls or no free cells in "
                                  "the grid, or no map→odom")
         want = {"K1": 0, "K1_obstacle": 0, "K2": updates, "K3": updates,
-                "K4": 1, "EIG": 0, "ICP": updates}
+                "K4": 1, "EIG": 0, "ICP": updates, "EKF": 0}
         if updates != Rbpf.UPDATES or counts != want:
             raise AssertionError(f"RBPF node: launches {counts} over "
                                  f"{updates} updates, expected {want}")
@@ -2314,6 +2613,7 @@ class Graphs:
         wall = time.perf_counter() - t1
         counts = read_counts()
         commands = ch["cmd_vel"].seq - int(driver.done)
+        updates = ch["slam_pose"].seq
         s.run(0.5)                     # the robot stops; the filter catches up
         tru, est, odo = (plant.pose, ch["slam_pose"].latest(),
                          ch["odom_pose"].latest())
@@ -2323,9 +2623,9 @@ class Graphs:
             raise AssertionError(f"EKF node: error {ekf_err} m not below "
                                  f"odometry's {odo_err} m")
         if counts != {"K1": commands, "K1_obstacle": 0, "K2": 0, "K3": 0,
-                      "K4": 0, "EIG": 0, "ICP": 0}:
+                      "K4": 0, "EIG": 0, "ICP": 0, "EKF": updates}:
             raise AssertionError(f"EKF node: launches {counts} for {commands}"
-                                 " commands")
+                                 f" commands and {updates} updates")
         out = {"K": mppi.rollouts, "N": mppi.steps,
                "landmarks": len(centers), "virtual_seconds": s.t,
                "done": driver.done, "visits": driver.ctr,
@@ -2493,7 +2793,7 @@ class Graphs:
         self.slam_counts = {k: rbpf["kernel_launches"][k]
                             + ekf["kernel_launches"][k]
                             + det["kernel_launches"][k] for k in
-                            ("K1", "K2", "K3", "K4", "EIG", "ICP")}
+                            ("K1", "K2", "K3", "K4", "EIG", "ICP", "EKF")}
         self.node_counts = {"rbpf_node": rbpf["kernel_launches"],
                             "ekf_node": ekf["kernel_launches"],
                             "detector_chain": det["kernel_launches"],
@@ -3110,7 +3410,7 @@ class Sharded:
             raise AssertionError("the ranks' gathered states differ")
         want_counts = {"K1": 0, "K1_obstacle": 0, "K2": SHARD_UPDATES,
                        "K3": SHARD_UPDATES, "K4": SHARD_UPDATES, "EIG": 0,
-                       "ICP": SHARD_UPDATES}
+                       "ICP": SHARD_UPDATES, "EKF": 0}
         for rk in ranks:
             if rk["launches"] != want_counts:
                 raise AssertionError(f"launches {rk['launches']}, expected "
@@ -3189,7 +3489,7 @@ class Sharded:
                       world=1, device="cuda", backend="nccl", timeout=600)
         fused, plain, rb = a["fused"], a["plain"], a["rbpf"]
         none = {"K1": 0, "K1_obstacle": 0, "K2": 0, "K3": 0, "K4": 0,
-                "EIG": 0, "ICP": 0}
+                "EIG": 0, "ICP": 0, "EKF": 0}
         want = {"fused": dict(none, K1=SHARD_SOLVES),
                 "rbpf": dict(none, K2=SHARD_UPDATES, K3=SHARD_UPDATES,
                              K4=SHARD_UPDATES, ICP=SHARD_UPDATES)}
@@ -3300,7 +3600,8 @@ class Demos:
                                  f"{odo_xy} m")
         scans = r["scans_run"]
         want = {"K1": ex.TICKS_PER_SCAN * scans, "K2": scans, "K3": scans,
-                "K4": r["pf_inits"], "K1_obstacle": 0, "EIG": 0, "ICP": scans}
+                "K4": r["pf_inits"], "K1_obstacle": 0, "EIG": 0, "ICP": scans,
+                "EKF": 0}
         if counts != want:
             raise AssertionError(f"explore: launches {counts}, expected "
                                  f"{want} for {scans} scans")
@@ -3367,7 +3668,7 @@ class Demos:
                 f"scans, goal error {out['final_goal_err_m']} m, finite "
                 f"{finite}")
         want = {"K1": 12 * n, "K2": n, "K3": n, "K4": 1, "K1_obstacle": 0,
-                "EIG": 0, "ICP": n}
+                "EIG": 0, "ICP": n, "EKF": 0}
         if counts != want:
             raise AssertionError(f"full stack: launches {counts}, expected "
                                  f"{want} for {n} scan updates")
@@ -3432,7 +3733,7 @@ class Demos:
             g.num_beams, torch.cuda.get_device_properties(
                 self.dev).multi_processor_count, smem_limit())
         want = {"K1": 0, "K1_obstacle": 0, "K2": per_update * n, "K3": n,
-                "K4": 1, "EIG": 0, "ICP": n}
+                "K4": 1, "EIG": 0, "ICP": n, "EKF": 0}
         if not all(same.values()) or counts != want or not err < 0.2:
             raise AssertionError(f"RBPF course: graph vs eager {same}, "
                                  f"launches {counts} (want {want}), pose "
@@ -3767,7 +4068,8 @@ class Demos:
             if not (finite and slam_xy < 0.5 * odo_xy and 36 <= n_lm <= 50):
                 raise AssertionError(f"config 4 batched, seed {i}: "
                                      f"{per_seed[-1]}")
-        if counts["K1"] != ticks or counts["EIG"] != sensing(ticks):
+        if counts["K1"] != ticks or counts["EIG"] != sensing(ticks) or \
+                counts["EKF"] != ticks:
             raise AssertionError(f"config 4 batched: launches {counts} for "
                                  f"{ticks} ticks")
         t1 = time.perf_counter()
@@ -3842,7 +4144,8 @@ class Demos:
             if not (slam_xy < odo_xy and n_lm >= least):
                 raise AssertionError(f"lidar EKF ({tag} DA) batched, seed "
                                      f"{i}: {per_seed[-1]}")
-        if counts["EIG"] != 2 * steps or counts["K1"]:
+        if counts["EIG"] != 2 * steps or counts["K1"] or \
+                counts["EKF"] != steps:
             raise AssertionError(f"lidar EKF ({tag} DA) batched: launches "
                                  f"{counts} in {steps} steps")
         serial = le.make_sim(step, cfg, known, steps, self.dev)
@@ -3910,7 +4213,7 @@ def trace_window(fn, reps: int):
 # kernels it counts (K1's combine kernel follows its partials one for one).
 COUNTED = {"K1": "mppi_rollout_partials", "K2": "likelihood_",
            "K3": "map_update_kernel", "K4": "edt_kernel", "EIG": "sym_eig",
-           "ICP": "icp_kernel"}
+           "ICP": "icp_kernel", "EKF": "ekf_step_kernel"}
 
 
 def eager_window(fn, reps: int):
@@ -4336,7 +4639,8 @@ class CudaGraphs:
         same = same_bits(st, r.state, ("poses", "log_weights", "grids",
                                        "dists", "prev_poses"))
         want = {"K1": 0, "K1_obstacle": 0, "K2": r.UPDATES,
-                "K3": r.UPDATES, "K4": 0, "EIG": 0, "ICP": r.UPDATES}
+                "K3": r.UPDATES, "K4": 0, "EIG": 0, "ICP": r.UPDATES,
+                "EKF": 0}
         if not all(same.values()) or counts != want:
             raise AssertionError(f"RBPF stepper vs eager: {same}, launches "
                                  f"{counts} (want {want})")
@@ -4423,6 +4727,8 @@ class CudaGraphs:
         self.launches["ekf"] = self.e.k1_course
         self.launches["ekf_eig"] = {k: r["launches"]["EIG"]
                                     for k, r in update.items()}
+        self.launches["ekf_step"] = {k: r["launches"]["EKF"]
+                                     for k, r in update.items()}
         emit("graph_ekf", seconds=time.perf_counter() - t0, card=self.card,
              eager_prefix_ticks=st.host_ticks, bit_identical=same,
              eager_us_per_tick=eager_us,
@@ -4779,7 +5085,8 @@ def kernel_times(smoke: Smoke, rbpf: Rbpf, obst: Obstacle):
 # The launch counter of the kernels whose names hold each profiler tag.
 TAG_COUNTERS = {"mppi_rollout_partials": "K1", "mppi_combine": "K1",
                 "likelihood_": "K2", "map_update_kernel": "K3",
-                "edt_kernel": "K4", "sym_eig": "EIG", "icp_kernel": "ICP"}
+                "edt_kernel": "K4", "sym_eig": "EIG", "icp_kernel": "ICP",
+                "ekf_step_kernel": "EKF"}
 
 
 def device_us(fn, tags, reps: int, attempts: int = 3) -> dict:
@@ -5095,6 +5402,7 @@ def main() -> int:
     obst.profile()
     ekf = Ekf(smoke)
     ekf.parity()
+    ekf.rows_kernel()
     ekf.detector()
     ekf.sym_eig()
     ekf.course()
@@ -5224,6 +5532,25 @@ def main() -> int:
         **demo_launches(demos, "ICP"),
         **graph_launches(cuda_graphs, "ICP"),
         "by_iterations": rbpf.icp_rows})
+    rt = ekf.rows_timing                 # config 4's 20 states, unknown DA
+    kernels.append({
+        "name": "ekf_step (a whole filter step in one launch)",
+        "route": "cuda",
+        "source": "tpunav_torch/ops/csrc/ekf_rows.cu",
+        "replaces": "tpunav/estimation/ekf/filter.py (XLA's; no Pallas "
+                    "kernel)",
+        "launches": ekf.ekf_course, "max_abs_err": ekf.rows_err,
+        "ms": rt["ms"], "plain_ms": rt["row_chain_ms"],
+        "plain_cpu_ms": rt["plain_cpu_ms"], "bound_ms": rt["bound_ms"],
+        "bound_by": rt["bound_by"], "library_ms": None,
+        "launches_dense_world": ekf.ekf_dense,
+        "launches_slam_nodes": graphs.slam_counts["EKF"],
+        **node_launches(graphs, "EKF"),
+        "launches_graph_ekf_update_alone": cuda_graphs.launches["ekf_step"],
+        **demo_launches(demos, "EKF"),
+        **graph_launches(cuda_graphs, "EKF"),
+        **seed_batch_launches(demos, "EKF"),
+        "launches_per_replay": rt["launches_per_replay"]})
     print(json.dumps({"kernels": kernels}))
     print(smoke.card)
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,7 @@ from tpunav_torch import interop
 from tpunav_torch.core.angles import normalize_angle_pi
 from tpunav_torch.estimation.ekf import filter as tf
 from tpunav_torch.estimation.ekf import spd
+from tpunav_torch.ops import ekf_rows
 from tpunav_torch.sim import landmark_sensor as sensor
 
 torch.set_num_threads(1)
@@ -305,19 +306,21 @@ def test_float64_courses_match_tpunav_and_the_c_oracle(known):
 def _gate_margin(tcfg, st64, meas, u):
     """The smallest relative distance of the float64 d* of any valid row of
     this update from dmin or dmax, replaying the port's unknown-DA chain."""
-    p = tf._prepare(tcfg, st64, _t(meas), _t(u), None)
-    k = tf._update_consts(tcfg, p.state)
-    carry = (p.state, p.cov, st64.active, st64.count)
+    meas, v_all, state, cov = tf._predict(tcfg, st64, _t(meas), _t(u), None)
+    valid, r_all, b_all, bn_all = ekf_rows.polar_rows(meas)
+    k = tf._update_consts(tcfg, state)
+    carry = (state, cov, st64.active, st64.count)
     margin = np.inf
-    for i in range(p.n_valid):
+    for i in torch.nonzero(valid).flatten().tolist():
         cov = 0.5 * (carry[1] + carry[1].T)
-        r, _, b_norm, v = p.row(i)
+        row = (r_all[i], b_all[i], bn_all[i], v_all[i])
+        r, _, b_norm, v = row
         d = tf._maha_all(tcfg, k, carry[0], cov, r, b_norm, v,
                          tf._heading(carry[0], v), carry[2])
         dstar = 1e12 if int(carry[3]) == 0 else float(d.min())
         for gate in (tcfg.dmin, tcfg.dmax):
             margin = min(margin, abs(dstar - gate) / gate)
-        carry = tf._unknown_row(tcfg, k, carry, p.row(i))
+        carry = tf._unknown_row(tcfg, k, carry, row)
     return margin
 
 

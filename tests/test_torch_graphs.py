@@ -63,7 +63,8 @@ from tpunav_torch.estimation.ekf import spd
 from tpunav_torch.estimation.rbpf import grid as tg
 from tpunav_torch.estimation.rbpf import particle_filter as tpf
 from tpunav_torch.models.cart import CartParams
-from tpunav_torch.ops import fused_mppi, icp, likelihood, map_update, sym_eig
+from tpunav_torch.ops import (ekf_rows, fused_mppi, icp, likelihood, map_update,
+                              sym_eig)
 from tpunav_torch.sim import lidar as tlidar
 
 torch.set_num_threads(1)
@@ -509,7 +510,8 @@ def test_counters_advance_by_the_captured_change_per_replay(monkeypatch):
                       (map_update, "MAP_LAUNCHES"),
                       (map_update, "EDT_LAUNCHES"),
                       (sym_eig, "EIG_LAUNCHES"),
-                      (icp, "ICP_LAUNCHES")]:
+                      (icp, "ICP_LAUNCHES"),
+                      (ekf_rows, "EKF_LAUNCHES")]:
         monkeypatch.setattr(mod, attr, 10)
 
     def body():
@@ -518,15 +520,17 @@ def test_counters_advance_by_the_captured_change_per_replay(monkeypatch):
         map_update.MAP_LAUNCHES += 1
         sym_eig.EIG_LAUNCHES += 2
         icp.ICP_LAUNCHES += 1
+        ekf_rows.EKF_LAUNCHES += 3
 
     deltas = capture.counted(body)
     assert deltas == {"K1": 2, "K1_obstacle": 0, "K2": 1, "K3": 1, "K4": 0,
-                      "EIG": 2, "ICP": 1}
+                      "EIG": 2, "ICP": 1, "EKF": 3}
     assert set(capture.read_counts().values()) == {10}
     for _ in range(3):
         capture.add_counts(deltas)
     assert capture.read_counts() == {"K1": 16, "K1_obstacle": 10, "K2": 13,
-                                     "K3": 13, "K4": 10, "EIG": 16, "ICP": 13}
+                                     "K3": 13, "K4": 10, "EIG": 16, "ICP": 13,
+                                     "EKF": 19}
 
 
 def test_graph_runs_its_body_every_step_on_the_cpu():

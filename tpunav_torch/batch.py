@@ -7,8 +7,9 @@ the whole batch, and a CUDA graph of the mapped step (``capture.Graph``)
 replays all B seeds' tick with one launch. The kernels join the batch
 through their wrappers: K1 takes a problem axis
 (``ops.fused_mppi.mppi_solve_fused_batch``, called between two mapped
-halves of a tick), and the eigensolver is a ``torch.library`` op whose
-batching rule folds the mapped batch into its own (``ops.sym_eig.eigh``).
+halves of a tick), and the eigensolver and the EKF step are
+``torch.library`` ops whose batching rules fold the mapped batch into their
+own (``ops.sym_eig.eigh``, ``ops.ekf_rows.ekf_step``).
 
 :func:`vmap` refuses what would break that:
 

@@ -48,7 +48,8 @@ COUNTERS = {"K1": ("fused_mppi", "KERNEL_LAUNCHES"),
             "K3": ("map_update", "MAP_LAUNCHES"),
             "K4": ("map_update", "EDT_LAUNCHES"),
             "EIG": ("sym_eig", "EIG_LAUNCHES"),
-            "ICP": ("icp", "ICP_LAUNCHES")}
+            "ICP": ("icp", "ICP_LAUNCHES"),
+            "EKF": ("ekf_rows", "EKF_LAUNCHES")}
 
 
 def _module(name: str):

@@ -2,30 +2,35 @@
 
 Port of ``tpunav/estimation/ekf/filter.py`` (the reference's ``nuslam::EKF``,
 nuslam/include/nuslam/ekf_filter.hpp:62-155, nuslam/src/nuslam/ekf_filter.cpp).
-``tpunav`` leaves this filter to XLA, so it is plain torch here; it has no
-kernel of its own.
+``tpunav`` leaves this filter to XLA. On the card a whole step — the
+prediction and every measurement row — is one operation,
+``ops.ekf_rows.ekf_step``: one launch of a hand-written kernel
+(``ops/csrc/ekf_rows.cu``) for a state or a seed batch of them. All four
+steps take it there (:func:`known_correspondence_slam`,
+:func:`slam_unknown_da` and their masked forms), so an eager step and a
+replayed one give the same bits. A CPU tensor, and the repair of every row
+(``spd_repair_per_meas``, which needs the eigensolver between rows) on any
+device, take the row chain below in PyTorch (:func:`_masked`), which the
+tests hold to ``tpunav``; the op's own plain version
+(``ops/ekf_rows.py``) follows the kernel's decomposition and is what the
+kernel is held to.
 
 - The state is a fixed-capacity dense vector (3 + 2n,) as in the reference
   (ekf_filter.cpp:103); an ``active`` bool mask replaces the C++ ``lm_j``
   seen-ID list.
-- Measurements are compacted (valid rows to the front, in their order),
-  and the sequential update runs once per valid row: the number of valid
-  rows is the one host read of an update. An update with no measurement
-  rows (the slam loop's off-schedule ticks) makes none. The masked form
-  (:func:`known_correspondence_slam_masked`, :func:`slam_unknown_da_masked`)
-  takes a fixed trip over all rows, the invalid ones exact no-ops through
-  ``torch.where``, with the same bits and no host read, so it can be
-  captured as a CUDA graph (:class:`EKFStepper`, the slam loop's chunks),
-  the SPD repair included (``spd.py``: a ``torch.where`` whose flag gates
-  the eigensolver kernel).
-  Eager, each row costs ~190 launches: at config 4's shape (32 rows, ~13
-  valid) it took 2.4–3.6× as long on the card (``chip_smoke.py``'s
-  ``ekf_times``, two runs), so the eager path keeps the dynamic form.
-- Every read and write of landmark slot j goes through a one-element
-  device index (``index_select``, ``index_copy``), so no slot access reads
-  j on the host. The sparse measurement Jacobian H, whose only nonzero
-  columns are [0, 1, 2, jx, jy], enters as its (2, 5) block: Hσ̄, Ψ = Hσ̄Hᵀ
-  and KH are products with that block.
+- Rows are taken in their order, the invalid ones (NaN) exact no-ops, with
+  no host read, so a step can be captured as a CUDA graph
+  (:class:`EKFStepper`, the slam loop's chunks), the SPD repair included
+  (``spd.py``: a ``torch.where`` whose flag gates the eigensolver kernel),
+  which runs before the step. The dynamic and masked names are one step;
+  the row chain in PyTorch (:func:`_masked`) takes its fixed trip through
+  ``torch.where``.
+- The row chain's algebra (the reference form of the kernel's): every read
+  and write of landmark slot j goes through a one-element device index
+  (``index_select``, ``index_copy``), so no slot access reads j on the
+  host. The sparse measurement Jacobian H, whose only nonzero columns are
+  [0, 1, 2, jx, jy], enters as its (2, 5) block: Hσ̄, Ψ = Hσ̄Hᵀ and KH are
+  products with that block.
 - The covariance update is the factored Joseph sandwich (I−KH)σ̄(I−KH)ᵀ +
   KRKᵀ: the rank-2 expansion loses the 1e3 → 1e-5 collapse of a fresh
   landmark in float32. I−KH and the motion Jacobian G differ from the
@@ -38,8 +43,8 @@ kernel of its own.
   the caller's setting is restored afterwards: reduced-precision products
   break the Mahalanobis gates.
 - Noise injection is optional: a ``torch.Generator`` draws the reference's
-  motion and measurement noise (ekf_filter.cpp:505, :615); without one
-  the update is deterministic (the parity mode).
+  motion and measurement noise (ekf_filter.cpp:505, :615) before the step;
+  without one the update is deterministic (the parity mode).
 
 State convention as the reference: state[0]=theta, state[1]=x,
 state[2]=y, then (lm_x, lm_y) pairs.
@@ -56,9 +61,8 @@ import torch
 from ... import batch, capture
 from ...core.angles import normalize_angle_pi
 from ...device import DEFAULT_DEVICE, constant, full_precision_matmul, resolve
+from ...ops import ekf_rows
 from .spd import repair_if_needed
-
-_W_EPS = 1e-12  # almost_equal epsilon (ref: rigid2d.hpp:24-27)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,47 +126,15 @@ def motion_update(cfg: EKFConfig, state, u, w):
     sampled (or zero) motion noise triple. As the reference: theta is
     updated first and the position increment is evaluated at the updated
     heading. Only state[:3] is read and changed."""
-    om, vx = u[0], u[1]
-    theta = state[0]
-    small = torch.abs(om) < _W_EPS
-    om_safe = torch.where(small, torch.ones_like(om), om)
-
-    theta_new = normalize_angle_pi(
-        theta + torch.where(small, torch.zeros_like(om), om) + w[0])
-    s_new, c_new = torch.sin(theta_new), torch.cos(theta_new)
-    k = vx / om_safe
-    dx_gen = (-vx / om_safe) * s_new + k * torch.sin(theta_new + om)
-    dy_gen = k * c_new - k * torch.cos(theta_new + om)
-    x = state[1] + (torch.where(small, vx * c_new, dx_gen) + w[1])
-    y = state[2] + (torch.where(small, vx * s_new, dy_gen) + w[2])
-    return torch.cat([torch.stack([theta_new, x, y]), state[3:]])
+    return ekf_rows.motion_update(state, u, w)
 
 
 def uncertainty_update(cfg: EKFConfig, state, cov, u):
     """σ̄ = G Σ Gᵀ + Q with the sparse motion Jacobian G
     (ref: EKF::uncertaintyUpdate ekf_filter.cpp:536-565; G uses the PRIOR
     heading)."""
-    om, vx = u[0], u[1]
-    theta = state[0]
-    small = torch.abs(om) < _W_EPS
-    om_safe = torch.where(small, torch.ones_like(om), om)
-    k = vx / om_safe
-    g10 = torch.where(small, -vx * torch.sin(theta),
-                      (-vx / om_safe) * torch.cos(theta) +
-                      k * torch.cos(theta + om))
-    g20 = torch.where(small, vx * torch.cos(theta),
-                      (-vx / om_safe) * torch.sin(theta) +
-                      k * torch.sin(theta + om))
-    # G is the identity but for g = (0, g10, g20, 0, …) in column 0, so
-    # G Σ adds g_i · (row 0) to row i, and (G Σ) Gᵀ adds g_j · (column 0)
-    # to column j: the dense products' only nonzero terms, as elementwise
-    # operations, which round alike for one state and a batch of them.
-    zero = torch.zeros_like(g10)[None]
-    g = torch.cat([zero, g10[None], g20[None], zero.expand(
-        cfg.state_size - 3)])
-    g_sigma = cov + g[:, None] * cov[0]
     q = _const(tuple(cfg.motion_noise) + (0.0,) * (cfg.state_size - 3), cov)
-    return g_sigma + g_sigma[:, :1] * g + torch.diag(q)
+    return ekf_rows.uncertainty_update(state, cov, u, q)
 
 
 # ── Measurement model at slot j. ``idx`` is the (5,) long device index
@@ -365,14 +337,6 @@ def _maha_all(cfg: EKFConfig, k: _Update, state, cov, r, b_norm, v_i,
     return d2
 
 
-def _polar(meas_xy):
-    """Robot-frame (x, y) landmark measurements → (r, b)
-    (ref: EKF::measRobotToMap ekf_filter.cpp:627-648)."""
-    r = torch.hypot(meas_xy[..., 0], meas_xy[..., 1])
-    b = torch.atan2(meas_xy[..., 1], meas_xy[..., 0])
-    return r, b
-
-
 def _noise_draws(cfg: EKFConfig, generator: Optional[torch.Generator],
                  n_meas: int, like):
     """Motion-noise triple + per-measurement noise pairs.
@@ -395,23 +359,6 @@ def _full_precision(fn):
     return wrapped
 
 
-class _Prepared(NamedTuple):
-    """An update's prediction and its compacted measurement rows."""
-
-    state: torch.Tensor   # x̄ after the motion update
-    cov: torch.Tensor     # σ̄
-    r: torch.Tensor       # (M,) ranges, valid rows first
-    b: torch.Tensor       # (M,) bearings
-    b_norm: torch.Tensor  # (M,) bearings normalized to [-π, π)
-    v: torch.Tensor       # (M, 2) measurement noise
-    j: torch.Tensor       # (M,) long: each row's index before compaction
-    n_valid: int          # valid rows (the update's one host read)
-
-    def row(self, i):
-        """(r, b, normalized b, v) of compacted row ``i``."""
-        return self.r[i], self.b[i], self.b_norm[i], self.v[i]
-
-
 def _repair(cfg: EKFConfig, c):
     """The SPD repair (no host read), or symmetrization alone."""
     return repair_if_needed(c) if cfg.spd_repair else 0.5 * (c + c.T)
@@ -429,30 +376,6 @@ def _predict(cfg: EKFConfig, st: EKFState, meas_xy, u, generator):
     # The motion Jacobian is evaluated at the PRIOR state (ref: :536-565).
     sigma_bar = uncertainty_update(cfg, st.state, _repair(cfg, st.cov), u)
     return meas_xy, v, state_bar, sigma_bar
-
-
-def _polar_rows(meas_xy):
-    """Each row's validity (finite) and (r, b), invalid rows at (0, 0)."""
-    valid = torch.isfinite(meas_xy).all(dim=-1)
-    meas_safe = torch.where(valid[:, None], torch.nan_to_num(meas_xy), 0.0)
-    return (valid, *_polar(meas_safe))
-
-
-def _prepare(cfg: EKFConfig, st: EKFState, meas_xy, u, generator):
-    """The prediction (:func:`_predict`) and the valid measurement rows
-    compacted to the front in their order."""
-    meas_xy, v, state_bar, sigma_bar = _predict(cfg, st, meas_xy, u,
-                                                generator)
-    if meas_xy.shape[0] == 0:
-        empty = meas_xy[:, 0]
-        return _Prepared(state_bar, sigma_bar, empty, empty, empty, v,
-                         empty.long(), 0)
-    valid, r_all, b_all = _polar_rows(meas_xy)
-    order = torch.argsort((~valid).to(torch.uint8), stable=True)
-    n_valid = int(valid.sum())
-    b = b_all[order]
-    return _Prepared(state_bar, sigma_bar, r_all[order], b,
-                     normalize_angle_pi(b), v[order], order, n_valid)
 
 
 def _known_row(cfg: EKFConfig, k: _Update, carry, j, row):
@@ -509,10 +432,54 @@ def _unknown_row(cfg: EKFConfig, k: _Update, carry, row):
             torch.where(apply, new_cov, cov), active, count)
 
 
-def _check_meas(meas_xy):
+def _masked(cfg: EKFConfig, st: EKFState, meas_xy, u, generator, known):
+    """The row chain in PyTorch: the prediction (:func:`_predict`), then
+    every row in its order, each invalid one an exact no-op through
+    ``torch.where``; no host read."""
+    meas_xy, v, state, cov = _predict(cfg, st, meas_xy, u, generator)
+    n_meas = meas_xy.shape[0]
+    valid, r, b, b_norm = ekf_rows.polar_rows(meas_xy)
+    k = _update_consts(cfg, state)
+    slots = torch.arange(n_meas, device=state.device)  # known DA: row i is j
+    carry = (state, cov, st.active) if known else (state, cov, st.active,
+                                                   st.count)
+    for i in range(n_meas):
+        row = (r[i], b[i], b_norm[i], v[i])
+        new = (_known_row(cfg, k, carry, slots[i:i + 1], row)
+               if known else _unknown_row(cfg, k, carry, row))
+        carry = tuple(torch.where(valid[i], a, c) for a, c in zip(new, carry))
+    if known:
+        return EKFState(*carry, count=carry[2].sum(dtype=torch.int32))
+    return EKFState(*carry)
+
+
+def _filter_step(cfg: EKFConfig, st: EKFState, meas_xy, u, generator,
+                 known: bool) -> EKFState:
+    """Every public step: on the card one ``ops.ekf_rows.ekf_step`` (one
+    launch) after the noise draws and the SPD repair; on the CPU, or with
+    the repair before every row, which needs the eigensolver between rows,
+    the row chain in PyTorch (:func:`_masked`). Any other device raises in
+    the op."""
+    meas_xy = torch.as_tensor(meas_xy)
     if meas_xy.dim() != 2 or meas_xy.shape[-1] != 2:
         raise ValueError(f"measurements must be (M, 2), got "
                          f"{tuple(meas_xy.shape)}")
+    if known and meas_xy.shape[0] > cfg.num_landmarks:
+        raise ValueError(f"known DA takes at most one row per landmark "
+                         f"slot ({cfg.num_landmarks}), got "
+                         f"{meas_xy.shape[0]}")
+    if (cfg.spd_repair and cfg.spd_repair_per_meas) or \
+            st.state.device.type == "cpu":
+        return _masked(cfg, st, meas_xy, u, generator, known)
+    like = st.state
+    meas_xy = meas_xy.to(like.device, like.dtype)
+    u = torch.as_tensor(u).to(like.device, like.dtype)
+    w, v = _noise_draws(cfg, generator, meas_xy.shape[0], like)
+    return EKFState(*ekf_rows.ekf_step(
+        st.state, _repair(cfg, st.cov), st.active, st.count,
+        meas_xy.contiguous(), u[..., :2].contiguous(), w, v, known=known,
+        dmin=cfg.dmin, dmax=cfg.dmax, motion_noise=cfg.motion_noise,
+        measurement_noise=cfg.measurement_noise))
 
 
 @_full_precision
@@ -527,20 +494,7 @@ def known_correspondence_slam(cfg: EKFConfig, st: EKFState, meas_xy, u,
     the prediction alone. u: (≥2,) body twist [w, vx, ...].
     ``generator``: draws the motion and measurement noise; None = none.
     """
-    meas_xy = torch.as_tensor(meas_xy)
-    _check_meas(meas_xy)
-    if meas_xy.shape[0] > cfg.num_landmarks:
-        raise ValueError(f"known DA takes at most one row per landmark "
-                         f"slot ({cfg.num_landmarks}), got "
-                         f"{meas_xy.shape[0]}")
-    p = _prepare(cfg, st, meas_xy, u, generator)
-    k = _update_consts(cfg, p.state) if p.n_valid else None
-    carry = (p.state, p.cov, st.active)
-    for i in range(p.n_valid):
-        carry = _known_row(cfg, k, carry, p.j[i:i + 1], p.row(i))
-    state, cov, active = carry
-    return EKFState(state=state, cov=cov, active=active,
-                    count=active.sum(dtype=torch.int32))
+    return _filter_step(cfg, st, meas_xy, u, generator, True)
 
 
 @_full_precision
@@ -552,63 +506,25 @@ def slam_unknown_da(cfg: EKFConfig, st: EKFState, meas_xy, u,
     landmark; d* ≥ dmax → add a new one (if capacity); in between →
     ignore (ref: :210-244). meas_xy (M, 2), u and ``generator`` as in
     :func:`known_correspondence_slam`."""
-    meas_xy = torch.as_tensor(meas_xy)
-    _check_meas(meas_xy)
-    p = _prepare(cfg, st, meas_xy, u, generator)
-    k = _update_consts(cfg, p.state) if p.n_valid else None
-    carry = (p.state, p.cov, st.active, st.count)
-    for i in range(p.n_valid):
-        carry = _unknown_row(cfg, k, carry, p.row(i))
-    state, cov, active, count = carry
-    return EKFState(state=state, cov=cov, active=active, count=count)
-
-
-def _masked(cfg: EKFConfig, st: EKFState, meas_xy, u, generator, known):
-    """The masked form of :func:`_prepare` and the row loop: every row in
-    its order, each invalid one an exact no-op through ``torch.where``; no
-    host read."""
-    meas_xy, v, state, cov = _predict(cfg, st, meas_xy, u, generator)
-    n_meas = meas_xy.shape[0]
-    valid, r, b = _polar_rows(meas_xy)
-    b_norm = normalize_angle_pi(b)
-    k = _update_consts(cfg, state)
-    slots = torch.arange(n_meas, device=state.device)  # known DA: row i is j
-    carry = (state, cov, st.active) if known else (state, cov, st.active,
-                                                   st.count)
-    for i in range(n_meas):
-        row = (r[i], b[i], b_norm[i], v[i])
-        new = (_known_row(cfg, k, carry, slots[i:i + 1], row)
-               if known else _unknown_row(cfg, k, carry, row))
-        carry = tuple(torch.where(valid[i], a, c) for a, c in zip(new, carry))
-    return carry
+    return _filter_step(cfg, st, meas_xy, u, generator, False)
 
 
 @_full_precision
 def known_correspondence_slam_masked(cfg: EKFConfig, st: EKFState, meas_xy,
                                      u, generator: Optional[torch.Generator]
                                      = None) -> EKFState:
-    """:func:`known_correspondence_slam` in the masked form: a fixed trip
-    over all M rows, the same bits, no host read (capturable)."""
-    meas_xy = torch.as_tensor(meas_xy)
-    _check_meas(meas_xy)
-    if meas_xy.shape[0] > cfg.num_landmarks:
-        raise ValueError(f"known DA takes at most one row per landmark "
-                         f"slot ({cfg.num_landmarks}), got "
-                         f"{meas_xy.shape[0]}")
-    state, cov, active = _masked(cfg, st, meas_xy, u, generator, True)
-    return EKFState(state=state, cov=cov, active=active,
-                    count=active.sum(dtype=torch.int32))
+    """:func:`known_correspondence_slam`, the name the capturable callers
+    use: every step is a fixed trip over all M rows with no host read."""
+    return _filter_step(cfg, st, meas_xy, u, generator, True)
 
 
 @_full_precision
 def slam_unknown_da_masked(cfg: EKFConfig, st: EKFState, meas_xy, u,
                            generator: Optional[torch.Generator] = None
                            ) -> EKFState:
-    """:func:`slam_unknown_da` in the masked form: a fixed trip over all M
-    rows, the same bits, no host read (capturable)."""
-    meas_xy = torch.as_tensor(meas_xy)
-    _check_meas(meas_xy)
-    return EKFState(*_masked(cfg, st, meas_xy, u, generator, False))
+    """:func:`slam_unknown_da`, the name the capturable callers use: every
+    step is a fixed trip over all M rows with no host read."""
+    return _filter_step(cfg, st, meas_xy, u, generator, False)
 
 
 class EKFStepper:

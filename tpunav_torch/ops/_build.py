@@ -155,7 +155,8 @@ def load() -> ctypes.CDLL:
     for name, nargs in [("tpunav_mppi_solve", 12),
                         ("tpunav_likelihood_field", 7),
                         ("tpunav_map_update", 10), ("tpunav_edt", 5),
-                        ("tpunav_sym_eig", 7), ("tpunav_icp", 10)]:
+                        ("tpunav_sym_eig", 7), ("tpunav_icp", 10),
+                        ("tpunav_ekf_step", 14)]:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [vp] * nargs
