@@ -4441,6 +4441,7 @@ class CudaGraphs:
         run_course_chunked against its chunks' states and telemetry; a
         replayed window of 120-tick chunks."""
         from tpunav_torch.control import waypoint_loop as wl
+        from tpunav_torch.control.chunks import active_waypoint
 
         model, fm = self.s.model, self.s.fm
         table = fm.pack_obstacles(segs, obs_cfg, self.dev)
@@ -4482,7 +4483,7 @@ class CudaGraphs:
             want = {"pose": torch.stack([r.pose for r in rows]),
                     "wpt_idx": torch.stack([r.wpt_idx for r in rows]),
                     "d2g": torch.stack([wl._dist_to_goal(
-                        r.pose, wl._active_waypoint(wpts, r.wpt_idx))
+                        r.pose, active_waypoint(wpts, r.wpt_idx))
                         for r in rows])}
             tel_same &= all(torch.equal(tel[k], want[k]) for k in want)
             tel_same &= all(same_bits(s, states[(i + 1) * chunk] if
@@ -4837,6 +4838,7 @@ class CudaGraphs:
         ``part_seconds`` holds each part's host seconds, captures
         included."""
         from tpunav_torch.control import waypoint_loop as wl
+        from tpunav_torch.control.chunks import active_waypoint
 
         t0 = time.perf_counter()
         secs = {}
@@ -4870,7 +4872,7 @@ class CudaGraphs:
             rows["pose"].append(st.pose)
             rows["wpt_idx"].append(st.wpt_idx)
             rows["d2g"].append(wl._dist_to_goal(
-                st.pose, wl._active_waypoint(wpts, st.wpt_idx)))
+                st.pose, active_waypoint(wpts, st.wpt_idx)))
             st = wl.course_tick(cfg, course, model, wpts, st)
             if i == stop - 1:
                 at_stop = (st, st.generator.get_state())

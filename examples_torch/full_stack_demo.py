@@ -29,6 +29,7 @@ reference of the tests and ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -254,6 +255,16 @@ class ScanGraph:
             tick.add_(1)
 
         self.graph = capture.Graph(body, dev)
+        # The scan's normals, the plain solver's perturbations, the
+        # filter's (the eager stages' calls); injected: per tick the
+        # solve's, the scan's, the filter's.
+        self.draws = capture.Draws(self.graph, (chunk_noise, noise,
+                                                stepper.noise)).add(
+            noise, stages.scan_gen)
+        for p in () if perturb is None else perturb:
+            self.draws.add(p, stages.mppi_gen,
+                           functools.partial(sample_perturbations, cfg))
+        self.draws.slots += stepper.draws.slots
 
     def scan(self, target_xy, noise=None) -> np.ndarray:
         """One scan towards the world point ``target_xy``; returns ``out``
@@ -261,28 +272,13 @@ class ScanGraph:
         ``noise``: (per tick the solve's (N, K, 2) perturbations, the
         scan's (B,) normals, the filter's ``PFNoise``) in place of the
         draws (K1's only where ``injected``)."""
-        st = self.stages
         self.target.copy_(torch.tensor([target_xy[0], target_xy[1], 0.0]),
                           non_blocking=True)
         if noise is not None:
-            mppi, scan_noise, pf_noise = noise
-            chunk = (self.k1_noise if self.perturb is None
-                     else self.perturb.transpose(1, 2))
-            if chunk is None:
+            if self.perturb is None and self.k1_noise is None:
                 raise ValueError("K1's perturbations need injected=True")
-            capture.load((chunk, self.scan_noise),
-                         (torch.stack(list(mppi)), scan_noise))
-            self.stepper.draw(pf_noise)
-        else:
-            z = self.scan_noise
-            z.copy_(torch.randn(z.shape, generator=st.scan_gen,
-                                dtype=z.dtype, device=z.device))
-            if self.perturb is not None:
-                for p in self.perturb:
-                    p.copy_(sample_perturbations(
-                        st.mppi_cfg, st.mppi_gen, dtype=p.dtype,
-                        device=p.device))
-            self.stepper.draw()
+            noise = (torch.stack(list(noise[0])), *noise[1:])
+        self.draws(noise)
         self.graph()
         return self.out.to("cpu", copy=True).numpy()
 

@@ -162,16 +162,8 @@ class StepGraph:
         """One step, the sensor's normals drawn from ``generator`` (a
         batch: a tuple of B generators, one draw from each) or ``noise``;
         returns the static telemetry row ((B, 5) for a batch)."""
-        z = self.noise
-        if noise is not None:
-            z.copy_(noise)
-        elif isinstance(generator, tuple):
-            for g, rows in zip(generator, z, strict=True):
-                rows.copy_(torch.randn(rows.shape, generator=g,
-                                       dtype=z.dtype, device=z.device))
-        else:
-            z.copy_(torch.randn(z.shape, generator=generator, dtype=z.dtype,
-                                device=z.device))
+        capture.Draws(self.graph, self.noise).add(self.noise,
+                                                  generator)(noise)
         self.graph()
         return self.tel
 

@@ -47,7 +47,7 @@ import torch
 from examples_torch import device_parser, draw, out_path, synchronize
 from tpunav_torch import capture
 from tpunav_torch.control.mppi import MPPIConfig, init_controls
-from tpunav_torch.control.waypoint_loop import _active_waypoint
+from tpunav_torch.control.chunks import active_waypoint
 from tpunav_torch.core.angles import normalize_angle_pi
 from tpunav_torch.device import DEFAULT_DEVICE, resolve
 from tpunav_torch.estimation.rbpf import (GridConfig, PFConfig, PFState,
@@ -57,7 +57,6 @@ from tpunav_torch.estimation.rbpf.particle_filter import PFStepper
 from tpunav_torch.models.cart import CartParams, kinematic_cart
 from tpunav_torch.ops.fused_mppi import mppi_solve_fused
 from tpunav_torch.ops.rk4 import rk4_step
-from tpunav_torch.runtime import profiling
 from tpunav_torch.runtime.checkpoint import load_pytree, save_pytree
 from tpunav_torch.sim.lidar import box_segments, scan_segments
 from tpunav_torch.sim.motor import MotorParams, track
@@ -125,10 +124,10 @@ def control_tick(mppi_cfg: MPPIConfig, waypoints, wheel_bias, true_pose,
     by ``wheel_bias``. Returns (true_pose, odom_pose, u, wheel_vel,
     wpt_idx)."""
     n_wpts = waypoints.shape[0]
-    wpt = _active_waypoint(waypoints, wpt_idx)
+    wpt = active_waypoint(waypoints, wpt_idx)
     d2g = torch.hypot(odom_pose[1] - wpt[0], odom_pose[2] - wpt[1])
     wpt_idx = torch.where(d2g < 0.15, (wpt_idx + 1) % n_wpts, wpt_idx)
-    wpt = _active_waypoint(waypoints, wpt_idx)
+    wpt = active_waypoint(waypoints, wpt_idx)
     cmd, u = mppi_solve_fused(mppi_cfg, MODEL, u, seed, _xyt(odom_pose), wpt,
                               noise=noise)
     wheel_vel = track(MOTOR, wheel_vel, cmd, TICK_DT)
@@ -266,6 +265,12 @@ class ScanGraph:
             tick.add_(1)
 
         self.graph = capture.Graph(body, dev)
+        # The lidar's normals, then the filter's (the eager interval's
+        # calls); injected: K1's perturbations, the scan's, the filter's.
+        self.draws = capture.Draws(self.graph, (k1_noise, noise,
+                                                stepper.noise)).add(
+            noise, self.scan_gen)
+        self.draws.slots += stepper.draws.slots
 
     def step(self, noise=None) -> torch.Tensor:
         """One scan interval; returns the static (5,) sample. ``noise``:
@@ -282,15 +287,7 @@ class ScanGraph:
         :meth:`step`)."""
         if noise is not None and self.k1_noise is None:
             raise ValueError("K1's perturbations need injected=True")
-        with profiling.span("step.draw", self.graph):
-            if noise is None:
-                z = self.scan_noise
-                z.copy_(torch.randn(z.shape, generator=self.scan_gen,
-                                    dtype=z.dtype, device=z.device))
-                self.stepper.draw()
-            else:
-                capture.load((self.k1_noise, self.scan_noise), noise[:2])
-                self.stepper.draw(noise[2])
+        self.draws(noise)
 
     def load(self, st: ExploreState) -> None:
         """``st`` into the buffers and generators, in place."""
@@ -299,7 +296,7 @@ class ScanGraph:
                                   st.wheel_vel, st.wpt_idx))
         self.tick_dev.fill_(st.tick)
         self.tick = st.tick
-        capture.load((self.scan_gen,), (st.scan_gen,))
+        capture.load(self.scan_gen, st.scan_gen)
 
     def snapshot(self) -> ExploreState:
         """The state in the buffers, copied out with generators of its

@@ -17,6 +17,7 @@ import torch
 
 import plain_ekf_dense as ref
 from tpunav_torch import capture
+from tpunav_torch.control import chunks
 from tpunav_torch.control import slam_loop as sl
 from tpunav_torch.runtime import profiling
 from tpunav_torch.sim import dense_world as dw
@@ -71,7 +72,7 @@ def _same_state(a, b):
 def _copy(st):
     gens = tuple(torch.Generator().set_state(g.get_state())
                  for g in st.generator)
-    return sl._clone(st)._replace(generator=gens)
+    return chunks.clone(st, sl._FIELDS)._replace(generator=gens)
 
 
 def test_runner_equals_run_slam_course_and_each_serial_course(

@@ -191,8 +191,9 @@ def _rbpf_graph(twist, scan_hz, duration, monkeypatch):
         return step(st, ranges, u, cur, prev)
 
     theirs._step = their_step
-    monkeypatch.setattr(tpf, "draw_noise",
-                        lambda cfg, st: _jax_noise(jcfg, pre[-1].key))
+    monkeypatch.setattr(tpf.PFStepper, "draw",
+                        lambda self, noise=None: self.draws(
+                            _jax_noise(jcfg, pre[-1].key)))
     edges = _label_edges(jcfg.grid)
     checked = [0]
 

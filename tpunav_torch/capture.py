@@ -18,10 +18,11 @@ CUDA graph that each later step replays with one launch.
 - A capture or replay error raises: there is no return to the eager path.
 - Randomness: the bodies of this package draw nothing themselves. Their
   callers draw a step's normals eagerly from the state's
-  ``torch.Generator`` into static tensors before each replay (the
-  ``noise=`` seams), with the calls and shapes of the eager step, so the
-  graph sees the eager path's bits. K1's in-kernel Philox is keyed by a
-  device int32 seed and needs nothing.
+  ``torch.Generator`` into static tensors before each replay, with the
+  calls and shapes of the eager step, so the graph sees the eager path's
+  bits; every runner does so through :class:`Draws`, which also takes
+  injected noise (the ``noise=`` seams) and rewinds. K1's in-kernel
+  Philox is keyed by a device int32 seed and needs nothing.
 - Launch counters: the kernel wrappers count launches in Python, so a
   replay would not move them. Capture records each counter's change during
   the capture, takes it back (nothing ran), and adds it on every replay.
@@ -85,17 +86,78 @@ def counted(fn: Callable[[], None]) -> Dict[str, int]:
 
 
 def load(buffers, values) -> None:
-    """Copy ``values`` into ``buffers`` in place, field by field (two tuples
-    of one layout, such as a step's state and the state a step computed).
-    A ``torch.Generator`` field takes the other's state, unless it is that
-    generator: so a body may load the state it computed, which carries the
-    generator it shares."""
-    for buf, val in zip(buffers, values, strict=True):
-        if isinstance(buf, torch.Generator):
-            if buf is not val:
-                buf.set_state(val.get_state())
-        else:
-            buf.copy_(val)
+    """Copy ``values`` into ``buffers`` in place, field by field (a tensor,
+    or two tuples of one layout, nested or not, such as a step's state and
+    the state a step computed). A ``torch.Generator`` field takes the
+    other's state, unless it is that generator: so a body may load the
+    state it computed, which carries the generator it shares."""
+    if isinstance(buffers, (tuple, list)):
+        for buf, val in zip(buffers, values, strict=True):
+            load(buf, val)
+    elif isinstance(buffers, torch.Generator):
+        if buffers is not values:
+            buffers.set_state(values.get_state())
+    else:
+        buffers.copy_(values)
+
+
+def normal(generator: torch.Generator, out: torch.Tensor) -> torch.Tensor:
+    """Standard normals drawn into ``out`` in place: the bits of
+    ``torch.randn(out.shape, generator=generator)`` in ``out``'s dtype, on
+    its device."""
+    return torch.randn(out.shape, generator=generator, dtype=out.dtype,
+                       device=out.device, out=out)
+
+
+class Draws:
+    """A replayed step's eager draws (the module's randomness rule) into
+    static tensors before each replay. A slot (:meth:`add`, in the eager
+    step's call order) is a tensor, its generator and the eager call that
+    fills it in place, ``fill(generator, out=tensor)``; a seed batch's
+    slot takes a tuple of B generators, row i drawn from generator i. A
+    call draws every slot, or loads injected ``noise`` into ``inject``
+    (the step's own layout) instead; either is a ``step.draw`` span of
+    ``graph`` where it does anything."""
+
+    def __init__(self, graph=None, inject=None):
+        self.graph, self.inject = graph, inject
+        self.slots = []
+        self._began = ()
+
+    def add(self, out: torch.Tensor, generator, fill=normal) -> "Draws":
+        """One slot after the others; returns the draws."""
+        self.slots.append((out, generator, fill))
+        return self
+
+    def __call__(self, noise=None) -> None:
+        """Before a replay: every slot drawn, or ``noise`` loaded into
+        ``inject``."""
+        if noise is not None:
+            self._began = ()
+            with profiling.span("step.draw", self.graph):
+                load(self.inject, noise)
+        elif self.slots:
+            gens = {id(g): g for _, gen, _ in self.slots
+                    for g in (gen if isinstance(gen, tuple) else (gen,))}
+            self._began = [(g, g.get_state()) for g in gens.values()]
+            self._fill(len(self.slots))
+
+    def rewind(self, n: int) -> None:
+        """The generators back to their states before the last draw (none
+        after injected noise), and the first ``n`` slots drawn again."""
+        for g, state in self._began:
+            g.set_state(state)
+        if self._began and n:
+            self._fill(n)
+
+    def _fill(self, n: int) -> None:
+        with profiling.span("step.draw", self.graph):
+            for out, gen, fill in self.slots[:n]:
+                if isinstance(gen, tuple):
+                    for rows, g in zip(out, gen, strict=True):
+                        fill(g, out=rows)
+                else:
+                    fill(gen, out=out)
 
 
 def state_device(t: torch.Tensor, device=DEFAULT_DEVICE) -> torch.device:

@@ -14,6 +14,7 @@ reference of the fused kernel (``ops/fused_mppi.py``) and the course's
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -97,12 +98,16 @@ def cost_to_go(loss):
 
 
 def sample_perturbations(cfg: MPPIConfig, generator: torch.Generator,
-                         dtype=torch.float32, device=DEFAULT_DEVICE):
-    """(K, N, 2) Gaussian control perturbations with per-wheel std."""
-    device = resolve(device)
-    sig = _const([cfg.ul_var, cfg.ur_var], dtype, device).sqrt()
-    return torch.randn((cfg.rollouts, cfg.steps, 2), generator=generator,
-                       dtype=dtype, device=device) * sig
+                         dtype=torch.float32, device=DEFAULT_DEVICE,
+                         out: Optional[torch.Tensor] = None):
+    """(K, N, 2) Gaussian control perturbations with per-wheel std, drawn
+    into ``out`` in place where given (a static (K, N, 2) tensor, whose
+    dtype and device then hold)."""
+    if out is None:
+        out = torch.empty((cfg.rollouts, cfg.steps, 2), dtype=dtype,
+                          device=resolve(device))
+    sig = _const([cfg.ul_var, cfg.ur_var], out.dtype, out.device).sqrt()
+    return capture.normal(generator, out).mul_(sig)
 
 
 def update_controls(cfg: MPPIConfig, u, noise, j):
@@ -150,8 +155,8 @@ class MPPIController:
     the pose and the waypoint live in static tensors on ``device`` (default
     the CUDA card), and a solve is one ``capture.Graph`` step of
     :func:`mppi_solve` on them. Its perturbations are drawn eagerly before
-    each replay with :func:`sample_perturbations`' calls (the eager
-    solve's bits) into a static (K, N, 2) tensor, or taken from
+    each replay with :func:`sample_perturbations` (the eager solve's bits)
+    into a static (K, N, 2) tensor (``capture.Draws``), or taken from
     ``noise=``. ``u`` and ``xd`` are the static tensors; the setters
     write them in place."""
 
@@ -165,8 +170,7 @@ class MPPIController:
         like = dict(dtype=dtype, device=u.device)
         xd = self.xd = torch.zeros(3, **like)
         pose = self._pose = torch.zeros(3, **like)
-        noise = self._noise = torch.zeros((cfg.rollouts, cfg.steps, 2),
-                                          **like)
+        noise = torch.zeros((cfg.rollouts, cfg.steps, 2), **like)
         cmd = self._cmd = torch.zeros(2, **like)
 
         def body():
@@ -176,6 +180,9 @@ class MPPIController:
             u.copy_(u_next)
 
         self._graph = capture.Graph(body, u.device)
+        self._draws = capture.Draws(self._graph, noise).add(
+            noise, self.generator,
+            functools.partial(sample_perturbations, cfg))
 
     def set_waypoint(self, xd):
         self.xd.copy_(torch.as_tensor(xd, dtype=self.xd.dtype),
@@ -190,8 +197,6 @@ class MPPIController:
         ``noise`` ((K, N, 2) perturbations) replaces the draw."""
         self._pose.copy_(torch.as_tensor(pose_xyt, dtype=self._pose.dtype),
                          non_blocking=True)
-        self._noise.copy_(sample_perturbations(
-            self.cfg, self.generator, dtype=self.u.dtype,
-            device=self.u.device) if noise is None else noise)
+        self._draws(noise)
         self._graph()
         return self._cmd.clone()

@@ -16,21 +16,18 @@ and runs the filter's prediction alone on the others, which equals the
 filter's step on all-NaN rows. The waypoint index, visit count and done
 flag stay on the device.
 
-``run_slam_loop`` replays a chunk of ticks captured as one CUDA graph
-(``capture.Graph``), the counterpart of ``tpunav``'s one device program,
-with one host read per chunk, on either backend. The chunk is a multiple
-of the sensing period and starts on a sensing tick, so the schedule inside
-it is fixed; its sensing ticks take the filter's masked form (no host
-read). The chunk's draws are made eagerly from the state's generator into
-static tensors before each replay, with the eager loop's calls in its
-order: each tick's (K, N, 2) MPPI perturbations on the plain backend
-(one ``sample_perturbations`` call), then on a sensing tick the sensor's
-normals. A tick whose incoming state is done or at ``max_ticks`` keeps
-every field (on the fused backend its hold flag makes K1 return at once),
-and the generator is set back to where the eager loop leaves it (the last
-chunk's draws made again for its live ticks only), so the run ends in the
-eager loop's state, which stops on the tick of ``tpunav``'s
-``while_loop``.
+``run_slam_loop`` replays chunks of held ticks on a
+``chunks.ChunkRunner`` (one CUDA graph, the counterpart of ``tpunav``'s
+one device program), with one host read per chunk, on either backend. The
+chunk is a multiple of the sensing period and starts on a sensing tick,
+so the schedule inside it is fixed; its sensing ticks take the filter's
+masked form (no host read). The chunk's draws are made eagerly from the
+state's generator into static tensors before each replay, with the eager
+loop's calls in its order: each tick's (K, N, 2) MPPI perturbations on
+the plain backend (one ``sample_perturbations`` call), then on a sensing
+tick the sensor's normals; the last chunk's are rewound to its live
+ticks, so the run ends in the eager loop's state, which stops on the tick
+of ``tpunav``'s ``while_loop``.
 
 ``run_slam_course`` is ``tpunav``'s other form, a ``lax.scan`` of a fixed
 number of ticks with per-tick telemetry and no stop at ``done``
@@ -45,8 +42,8 @@ buffers in place, as a seed sweep runs course after course.
 While ``runtime.profiling``'s tracer is on, a sensing tick's sensor chain
 and filter step are its device phases ``slam.sense`` and ``ekf.update``
 (on a seed batch once per sensing tick for all B seeds, inside the mapped
-body), and a runner's eager draws and loads its ``step.draw`` and
-``step.load`` spans.
+body), and a runner's eager draws (``capture.Draws``) and loads its
+``step.draw`` and ``step.load`` spans.
 
 ``run_slam_course`` also runs that scan over a seed batch
 (``slam_batch_init``: B states and B generators), ``tpunav``'s
@@ -80,9 +77,8 @@ from ..ops import fused_mppi
 from ..ops.rk4 import rk4_step
 from ..runtime import profiling
 from ..sim.landmark_sensor import landmark_measurements
-from .mppi import (MPPIConfig, init_controls, mppi_solve,
-                   sample_perturbations, shift_controls)
-from .waypoint_loop import _active_waypoint
+from .chunks import ChunkRunner, advance, map_fields, solve
+from .mppi import MPPIConfig, init_controls, shift_controls
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,14 +170,7 @@ def _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st, sense,
     and the filter's step given; ``hold``: a held tick's device bool for
     K1 (fused backend), or None."""
     est_xyt, wpt, aim = _aim(cfg, waypoints, st)
-    if cfg.use_fused:
-        seed = cfg.fused_seed + st.ticks              # int32, on the device
-        cmd, u = fused_mppi.mppi_solve_fused_packed(
-            mppi_cfg, model, st.u, seed, est_xyt, wpt, noise, hold=hold)
-    else:
-        cmd, u = mppi_solve(mppi_cfg, model, st.u, st.generator, est_xyt,
-                            wpt, noise=None if noise is None
-                            else noise.transpose(0, 1))
+    cmd, u = solve(mppi_cfg, cfg, model, st, est_xyt, wpt, noise, hold)
     return _act(ekf_cfg, cfg, model, landmarks, st, aim, cmd, u, sense,
                 slam_step, meas_fn, meas_noise)
 
@@ -190,21 +179,12 @@ def _aim(cfg, waypoints, st):
     """The tick's part before the solve: the filter's pose as [x, y, θ],
     the waypoint it steers to, and (wpt_idx, visits, done) after the
     advance."""
-    n_wpts = waypoints.shape[0]
-
     # The controller sees the FILTER's pose (ref: mppi_waypoints consumes
     # the odometer/slam estimate, never gazebo truth).
     est_txy = robot_pose(st.ekf)                       # [theta, x, y]
     est_xyt = torch.stack([est_txy[1], est_txy[2], est_txy[0]])
-
-    wpt = _active_waypoint(waypoints, st.wpt_idx)
-    d2g = torch.hypot(est_xyt[0] - wpt[0], est_xyt[1] - wpt[1])
-    arrived = d2g < cfg.goal_thresh
-    visits = st.visits + arrived.to(torch.int32)
-    wpt_idx = torch.where(arrived, (st.wpt_idx + 1) % n_wpts, st.wpt_idx)
-    done = torch.logical_or(st.done, visits >= cfg.cycles * n_wpts)
-    return est_xyt, _active_waypoint(waypoints, wpt_idx), (wpt_idx, visits,
-                                                           done)
+    wpt, wpt_idx, visits, done = advance(cfg, waypoints, est_xyt, st)
+    return est_xyt, wpt, (wpt_idx, visits, done)
 
 
 def _act(ekf_cfg, cfg, model, landmarks, st, aim, cmd, u, sense, slam_step,
@@ -257,158 +237,75 @@ _FIELDS = ("true_pose", "odom", "ekf", "u", "wpt_idx", "visits", "ticks",
            "done")
 
 
-def _clone(st: SlamLoopState) -> SlamLoopState:
-    """``st`` with every tensor copied (the generator shared)."""
-    return st._replace(
-        **{f: getattr(st, f).clone() for f in _FIELDS if f != "ekf"},
-        ekf=EKFState(*(t.clone() for t in st.ekf)))
-
-
-def _held(st: SlamLoopState, new: SlamLoopState, hold) -> SlamLoopState:
-    """``new``, or every field of ``st`` where ``hold`` (a bool tensor)."""
-    keep = {f: torch.where(hold, getattr(st, f), getattr(new, f))
-            for f in _FIELDS if f != "ekf"}
-    ekf = EKFState(*(torch.where(hold, a, b) for a, b in zip(st.ekf,
-                                                              new.ekf)))
-    return new._replace(ekf=ekf, **keep)
-
-
-class _Chunks:
-    """``chunk`` ticks of the loop on static state buffers (a copy of
-    ``st``'s), as one ``capture.Graph`` step; each chunk starts on a
-    sensing tick, so its schedule is fixed. With ``bound`` (an int) the
-    ticks are held: a tick holds once the incoming state is done or its
-    device tick count reaches ``bound``; with None they run on past done
-    (a scan). ``status`` holds [done, ticks] after a step with ``bound``.
-
-    The sensor is the landmark sensor, or ``meas_fn(true_txy, generator,
-    noise=...)``, whose standard normals of shape ``meas_shape`` (None:
-    it draws none) are injected. On the plain backend tick i takes its
-    (K, N, 2) MPPI perturbations from ``perturb[i]``. :meth:`draw` makes
-    the draws eagerly before each step, in the eager ticks' order.
+class _Chunks(ChunkRunner):
+    """``chunk`` ticks of the loop as one :class:`ChunkRunner` step from a
+    sensing tick, so the schedule inside is fixed: held ticks with
+    ``bound`` (an int; :meth:`step` reads [done, ticks]), else a scan. The
+    sensor is the landmark sensor, or ``meas_fn(true_txy, generator,
+    noise=...)`` with injected standard normals of shape ``meas_shape``
+    (None: it draws none). Before each step the draws are made in the
+    eager ticks' order: each tick's (K, N, 2) MPPI perturbations (plain
+    backend), then on a sensing tick the sensor's normals.
     ``telemetry(state)`` gives a 1-D row per tick after the tick, stacked
-    into ``tel`` (chunk, F).
-
-    A seed batch ``st`` (:func:`slam_batch_init`; the fused backend, no
-    ``bound``) runs each tick through :func:`_batch_tick`; ``normals`` and
-    ``tel`` then lead with B, and :meth:`draw` draws each seed's normals
-    from its own generator."""
+    into ``rows`` (chunk, F). A seed batch ``st`` (:func:`slam_batch_init`;
+    the fused backend, no ``bound``) runs each tick through
+    :func:`_batch_tick`; the normals and ``rows`` then lead with B, each
+    seed's normals drawn from its own generator."""
 
     def __init__(self, mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
                  st, chunk: int, bound: Optional[int], meas_fn=None,
                  meas_shape=None, telemetry=None):
         dev = st.true_pose.device
-        every = self.every = cfg.sensor_every
-        self.bound, self.chunk, self.mppi_cfg = bound, chunk, mppi_cfg
+        every = cfg.sensor_every
         # A seed batch (slam_batch_init): every buffer leads with B.
         seeds = _seeds(st)
         lead = () if seeds is None else (seeds,)
         if seeds is not None and (bound is not None or not cfg.use_fused):
             raise ValueError("a seed batch runs the course form on the "
                              "fused backend only")
-        # The body holds the buffers, not self: a graph whose runner is
-        # dropped is freed at once, not by the cyclic collector.
-        state = self.state = _clone(st)
         # One draw per sensing tick, as landmark_measurements (an (M, 2)
         # draw) or the meas_fn draws.
         shape = (tuple(landmarks.shape) if meas_fn is None else meas_shape)
         draws = (-(-chunk // every)
                  if shape is not None and (meas_fn is not None or
                                            cfg.meas_noise_std > 0.0) else 0)
-        normals = self.normals = torch.zeros(
-            (*lead, draws, *(shape or ())), dtype=landmarks.dtype,
-            device=dev)
-        perturb = self.perturb = (None if cfg.use_fused else torch.zeros(
-            (chunk, mppi_cfg.rollouts, mppi_cfg.steps, 2),
-            dtype=st.u.dtype, device=dev))
-        status = self.status = torch.empty(2, dtype=torch.int32, device=dev)
+        normals = torch.zeros((*lead, draws, *(shape or ())),
+                              dtype=landmarks.dtype, device=dev)
         width = (0 if telemetry is None else
                  telemetry(st if seeds is None else seed_state(st, 0)).numel())
-        tel = self.tel = (None if telemetry is None else torch.empty(
+        rows = self.rows = (None if telemetry is None else torch.empty(
             (*lead, chunk, width), dtype=torch.float32, device=dev))
         slam_step = (known_correspondence_slam_masked if cfg.known_da
                      else slam_unknown_da_masked)
 
-        def sensor(slot):
-            return lambda txy, _: meas_fn(txy, None, noise=slot)
+        def slot(i):
+            """Tick i's sensor normals, or None."""
+            return (normals.select(len(lead), i // every)
+                    if i % every == 0 and draws else None)
 
-        def one_tick(s, i, sense, slot):
-            hold = (None if bound is None else
-                    torch.logical_or(s.done, s.ticks >= bound))
-            # _tick takes the (N, K, 2) layout of the fused seam.
+        def one_tick(s, i, hold, noise):
+            z = slot(i)
             new = _tick(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
-                        s, sense, slam_step,
-                        meas_fn=None if meas_fn is None else sensor(slot),
-                        noise=None if perturb is None
-                        else perturb[i].transpose(0, 1),
-                        meas_noise=None if meas_fn is not None else slot,
+                        s, i % every == 0, slam_step,
+                        meas_fn=None if meas_fn is None else
+                        lambda txy, _: meas_fn(txy, None, noise=z),
+                        noise=noise,
+                        meas_noise=None if meas_fn is not None else z,
                         hold=hold)
-            s = new if hold is None else _held(s, new, hold)
-            return s, None if tel is None else telemetry(s)
+            return new, None if rows is None else {"rows": telemetry(new)}
 
-        def batch_tick(s, i, sense, slot):
-            return _batch_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
-                               landmarks, s, sense, slam_step, meas_fn, slot,
-                               telemetry)
+        def batch_tick(s, i, hold, noise):
+            s, row = _batch_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
+                                 landmarks, s, i % every == 0, slam_step,
+                                 meas_fn, slot(i), telemetry)
+            return s, None if rows is None else {"rows": row}
 
-        tick = one_tick if seeds is None else batch_tick
-
-        def body():
-            s, rows = state, []
-            for i in range(chunk):
-                sense = i % every == 0
-                slot = (normals.select(len(lead), i // every)
-                        if sense and draws else None)
-                s, row = tick(s, i, sense, slot)
-                rows.append(row)
-            # Stacked before the state buffers are written.
-            if tel is not None:
-                tel.copy_(torch.stack(rows, dim=len(lead)))
-            for f in _FIELDS:
-                if f != "ekf":
-                    getattr(state, f).copy_(getattr(s, f))
-            for buf, val in zip(state.ekf, s.ekf):
-                buf.copy_(val)
-            if bound is not None:
-                status.copy_(torch.stack([s.done.to(torch.int32), s.ticks]))
-
-        self.graph = capture.Graph(body, dev)
-
-    def draw(self, n: int) -> None:
-        """The draws of the chunk's first ``n`` ticks from the generator,
-        in the eager ticks' order: each tick's MPPI perturbations (plain
-        backend), then on a sensing tick the sensor's normals."""
-        gen, normals, perturb = (self.state.generator, self.normals,
-                                 self.perturb)
-        if isinstance(gen, tuple):           # a seed batch: seed by seed
-            for g, rows in zip(gen, normals):
-                self._draw(n, g, rows, perturb)
-        else:
-            self._draw(n, gen, normals, perturb)
-
-    def _draw(self, n, gen, normals, perturb):
-        for i in range(n):
-            if perturb is not None:
-                perturb[i].copy_(sample_perturbations(
-                    self.mppi_cfg, gen, dtype=perturb.dtype,
-                    device=perturb.device))
-            if i % self.every == 0 and i // self.every < normals.shape[0]:
-                torch.randn(normals.shape[1:], generator=gen,
-                            dtype=normals.dtype, device=normals.device,
-                            out=normals[i // self.every])
-
-    def run(self) -> None:
-        """Draw the chunk's perturbations and normals and run it, with no
-        host read."""
-        with profiling.span("step.draw", self.graph):
-            self.draw(self.chunk)
-        self.graph()
-
-    def step(self):
-        """Draw the chunk's normals and run it: (stop, ticks after it)."""
-        self.run()
-        done, ticks = self.status.tolist()
-        return bool(done) or ticks >= self.bound, ticks
+        super().__init__(
+            st, _FIELDS, one_tick if seeds is None else batch_tick, chunk,
+            None if cfg.use_fused else mppi_cfg, bound,
+            lambda i: [] if slot(i) is None else [(slot(i), st.generator)],
+            None if rows is None else {"rows": rows.movedim(len(lead), 0)},
+            status=bound is not None)
 
 
 def default_chunk(sensor_every: int) -> int:
@@ -426,38 +323,23 @@ def run_slam_loop(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     the eager per-tick loop leaves it: eager ticks to the next sensing
     tick, then ``chunk`` ticks replayed per host read (default
     :func:`default_chunk`; see the module's docstring)."""
-    dev = st.true_pose.device
-    waypoints = torch.as_tensor(waypoints, dtype=torch.float32).to(dev)
-    landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
+    waypoints, landmarks, chunk = _inputs(cfg, st, waypoints, landmarks,
+                                          chunk)
     every = cfg.sensor_every
-    chunk = default_chunk(every) if chunk is None else chunk
-    _check_chunk(chunk, every)
-
-    def eager(until_aligned: bool):
-        nonlocal st
-        while st.host_ticks < max_ticks and not bool(st.done) and not (
-                until_aligned and st.host_ticks % every == 0):
-            st = slam_loop_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
-                                landmarks, st)
-
-    eager(True)                       # to the next sensing tick
+    while (st.host_ticks % every and st.host_ticks < max_ticks and
+           not bool(st.done)):               # to the next sensing tick
+        st = slam_loop_tick(mppi_cfg, ekf_cfg, cfg, model, waypoints,
+                            landmarks, st)
     if st.host_ticks >= max_ticks or bool(st.done):
         return st
     ticks0 = int(st.ticks)
     chunks = _Chunks(mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks,
                      st, chunk, max_ticks - st.host_ticks + ticks0)
-    start = ticks0
-    while True:
-        before = st.generator.get_state()
-        stop, ticks = chunks.step()
-        if stop:
-            break
-        start = ticks
-    # The eager loop draws on live ticks only: the last chunk's draws
-    # again from where it began, those of its live ticks.
-    st.generator.set_state(before)
-    chunks.draw(ticks - start)
-    return chunks.state._replace(host_ticks=st.host_ticks + ticks - ticks0)
+    while not chunks.step():
+        pass
+    chunks.rewind()
+    return chunks.state._replace(
+        host_ticks=st.host_ticks + chunks.ticks - ticks0)
 
 
 def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
@@ -489,12 +371,9 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
     i)``. ``telemetry(state)`` and ``meas_fn`` are then one seed's; the
     state's fields and the rows lead with B (rows (B, ticks, F)).
     """
-    dev = st.true_pose.device
-    waypoints = torch.as_tensor(waypoints, dtype=torch.float32).to(dev)
-    landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
+    waypoints, landmarks, chunk = _inputs(cfg, st, waypoints, landmarks,
+                                          chunk)
     every = cfg.sensor_every
-    chunk = default_chunk(every) if chunk is None else chunk
-    _check_chunk(chunk, every)
     batched = _seeds(st) is not None
     if batched and st.host_ticks % every:
         raise ValueError("a seed batch's course starts on a sensing tick")
@@ -510,7 +389,7 @@ def run_slam_course(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig,
         runner = SlamCourseRunner(
             mppi_cfg, ekf_cfg, cfg, model, waypoints, landmarks, st,
             chunk=length, tail=tail, meas_fn=meas_fn, meas_shape=meas_shape,
-            telemetry=telemetry, device=dev)
+            telemetry=telemetry, device=st.true_pose.device)
         for last in steps:
             runner.run(tail=last)
             if telemetry is not None:
@@ -530,22 +409,24 @@ def course_plan(ticks: int, chunk: int):
     return chunk, rest, [False] * full + [True] * bool(rest)
 
 
-def _check_chunk(chunk: int, every: int) -> None:
-    if chunk < 1 or chunk % every:
+def _inputs(cfg: SlamLoopConfig, st: SlamLoopState, waypoints, landmarks,
+            chunk: Optional[int]):
+    """A run's waypoints and landmarks as float32 on the state's device,
+    and its chunk (default :func:`default_chunk`), checked."""
+    dev = st.true_pose.device
+    chunk = default_chunk(cfg.sensor_every) if chunk is None else chunk
+    if chunk < 1 or chunk % cfg.sensor_every:
         raise ValueError(f"chunk {chunk} must be a positive multiple of "
-                         f"sensor_every ({every})")
+                         f"sensor_every ({cfg.sensor_every})")
+    return (torch.as_tensor(waypoints, dtype=torch.float32).to(dev),
+            torch.as_tensor(landmarks, dtype=torch.float32).to(dev), chunk)
 
 
 def _load_state(buffers: SlamLoopState, st: SlamLoopState) -> None:
     """``st``'s fields into the state ``buffers`` in place
     (``capture.load``), the generators' states with them."""
-    def flat(s):
-        gens = s.generator if isinstance(s.generator, tuple) else (
-            s.generator,)
-        return [*(getattr(s, f) for f in _FIELDS if f != "ekf"), *s.ekf,
-                *gens]
-
-    capture.load(flat(buffers), flat(st))
+    capture.load([getattr(buffers, f) for f in (*_FIELDS, "generator")],
+                 [getattr(st, f) for f in (*_FIELDS, "generator")])
 
 
 class SlamCourseRunner:
@@ -599,7 +480,7 @@ class SlamCourseRunner:
     def rows(self) -> Optional[torch.Tensor]:
         """The last run's telemetry rows (a static buffer, not a copy), or
         None without ``telemetry``."""
-        return self._current.tel
+        return self._current.rows
 
     def _aligned(self, host_ticks: int) -> None:
         if host_ticks % self.every:
@@ -645,19 +526,15 @@ def stack_states(states) -> SlamLoopState:
     if any(s.host_ticks != first.host_ticks for s in states):
         raise ValueError("a seed batch's states share one tick count")
     return first._replace(
-        **{f: torch.stack([getattr(s, f) for s in states])
-           for f in _FIELDS if f != "ekf"},
-        ekf=EKFState(*(torch.stack(t) for t in zip(*(s.ekf for s in
-                                                      states)))),
+        **map_fields(_FIELDS, lambda *t: torch.stack(t), *states),
         generator=tuple(s.generator for s in states))
 
 
 def seed_state(st: SlamLoopState, i: int) -> SlamLoopState:
     """Seed ``i`` of a batch as a serial state (views of the batch's
     tensors, and its generator)."""
-    return st._replace(
-        **{f: getattr(st, f)[i] for f in _FIELDS if f != "ekf"},
-        ekf=EKFState(*(t[i] for t in st.ekf)), generator=st.generator[i])
+    return st._replace(**map_fields(_FIELDS, lambda t: t[i], st),
+                       generator=st.generator[i])
 
 
 def slam_batch_init(mppi_cfg: MPPIConfig, ekf_cfg: EKFConfig, seeds,

@@ -6,21 +6,15 @@ tick (``torch.where``, a device index), so a tick makes no host sync on
 either backend: the plain solver (``control/mppi.py``) or the fused CUDA
 kernel (``ops/fused_mppi.py``).
 
-On either backend both runners replay a chunk of ticks captured as one
-CUDA graph (``capture.Graph``), the counterpart of ``tpunav``'s one device
-program per course or per chunk, and read the host once per chunk.
-``run_course_chunked``'s chunk is ``tpunav``'s scan: ticks go on past
-``done``. ``run_course``'s chunk is of held ticks: a tick whose incoming
-state is done or at ``max_ticks`` keeps every field, so the run ends in
-the state of ``tpunav``'s ``while_loop``; on the fused backend such a tick
-passes its hold flag to K1, whose blocks then return at once (the launch
-is still counted). The plain backend's perturbations come from the
-state's generator: before each replay the chunk's are drawn eagerly, one
-``sample_perturbations`` call per tick in tick order, into a static
-(chunk, K, N, 2) tensor, so the graph sees the eager ticks' bits; since
-the eager loop draws on live ticks only, ``run_course`` then sets the
-generator back to where the last chunk began and draws again as many as
-that chunk ran live.
+Both runners replay a chunk of ticks on a ``chunks.ChunkRunner`` (one
+CUDA graph, the counterpart of ``tpunav``'s one device program per course
+or per chunk) and read the host once per chunk. ``run_course_chunked``'s
+chunk is ``tpunav``'s scan: ticks go on past ``done``. ``run_course``'s
+ticks are held, so the run ends in the state of ``tpunav``'s
+``while_loop``. The plain backend's perturbations are drawn eagerly from
+the state's generator before each replay, one ``sample_perturbations``
+call per tick in tick order, so the graph sees the eager ticks' bits;
+``run_course`` then rewinds the last chunk's draws to its live ticks.
 
 Obstacles (BASELINE config 2) enter as in ``tpunav``: the plain backend
 takes an ``extra_cost`` (``control/obstacle_cost.py``), the fused backend
@@ -36,7 +30,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import capture
 from ..device import DEFAULT_DEVICE, resolve
 from ..models.cart import CartParams, kinematic_cart
 # A module import: ops.fused_mppi imports control.mppi, so a name import
@@ -44,8 +37,8 @@ from ..models.cart import CartParams, kinematic_cart
 from ..ops import fused_mppi
 from ..ops.rk4 import rk4_step
 from ..sim.motor import MotorParams, track
-from .mppi import (MPPIConfig, init_controls, mppi_solve,
-                   sample_perturbations)
+from .chunks import ChunkRunner, active_waypoint, advance, clone, solve
+from .mppi import MPPIConfig, init_controls
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +85,6 @@ def course_init(cfg: MPPIConfig, pose, seed: int = 0,
         wheel_vel=torch.zeros(2, dtype=torch.float32, device=device))
 
 
-def _active_waypoint(waypoints, idx):
-    """waypoints[idx] through a device index (no host read of idx)."""
-    return torch.index_select(waypoints, 0, idx.reshape(1))[0]
-
-
 def _dist_to_goal(pose, wpt):
     return torch.hypot(pose[0] - wpt[0], pose[1] - wpt[1])
 
@@ -139,24 +127,9 @@ def _tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
           noise=None, hold=None) -> CourseState:
     """:func:`course_tick` with the obstacle table already packed;
     ``hold``: a held tick's device bool for K1 (fused backend), or None."""
-    n_wpts = waypoints.shape[0]
-    d2g = _dist_to_goal(st.pose, _active_waypoint(waypoints, st.wpt_idx))
-
-    # Advance on arrival; cyclic with a total-visit stop.
-    arrived = d2g < course.goal_thresh
-    visits = st.visits + arrived.to(torch.int32)
-    wpt_idx = torch.where(arrived, (st.wpt_idx + 1) % n_wpts, st.wpt_idx)
-    done = torch.logical_or(st.done, visits >= course.cycles * n_wpts)
-    wpt = _active_waypoint(waypoints, wpt_idx)
-
-    if course.use_fused:
-        seed = course.fused_seed + st.ticks          # int32, on the device
-        cmd, u = fused_mppi.mppi_solve_fused_packed(
-            cfg, model, st.u, seed, st.pose, wpt, noise, table, hold)
-    else:
-        cmd, u = mppi_solve(cfg, model, st.u, st.generator, st.pose, wpt,
-                            extra_cost, noise=None if noise is None
-                            else noise.transpose(0, 1))
+    wpt, wpt_idx, visits, done = advance(course, waypoints, st.pose, st)
+    cmd, u = solve(cfg, course, model, st, st.pose, wpt, noise, hold,
+                   extra_cost, table)
     cmd = torch.where(done, torch.zeros_like(cmd), cmd)
 
     # Motor dynamics between command and plant (τ=0 → wheel_vel == cmd).
@@ -179,114 +152,33 @@ def _waypoints_on(st: CourseState, waypoints):
 _FIELDS = ("pose", "u", "wpt_idx", "visits", "ticks", "done", "wheel_vel")
 
 
-def _held_tick(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
-               waypoints, st: CourseState, extra_cost, table,
-               noise=None) -> CourseState:
-    """:func:`_tick`, except that a tick whose incoming state is done or at
-    ``max_ticks`` keeps every field (``tpunav``'s ``while_loop`` runs no
-    such tick), and K1 skips its solve."""
-    hold = torch.logical_or(st.done, st.ticks >= course.max_ticks)
-    new = _tick(cfg, course, model, waypoints, st, extra_cost, table, noise,
-                hold=hold if course.use_fused else None)
-    return new._replace(**{f: torch.where(hold, getattr(st, f),
-                                          getattr(new, f))
-                           for f in _FIELDS})
-
-
-class _Chunks:
-    """``chunk`` ticks on static state buffers (a copy of ``st``'s), with
-    per-tick telemetry where asked, as one ``capture.Graph`` step.
-    ``status`` holds [done, ticks] after a step: the one host read per
-    chunk. On the plain backend tick i takes its (K, N, 2) perturbations
-    from ``perturb[i]``, which :meth:`draw` fills from the state's
-    generator."""
+class _Chunks(ChunkRunner):
+    """``chunk`` ticks of the course (held with ``held``) as one
+    :class:`ChunkRunner` step, with ``status`` [done, ticks] after it. With
+    ``telemetry``, ``tel`` holds per-tick rows {"pose": (chunk, 3),
+    "wpt_idx": (chunk,), "d2g": (chunk,)}, row i the state tick i saw. On
+    the plain backend tick i takes its (K, N, 2) perturbations from
+    ``perturb[i]``, or injected ``noise=`` (chunk, K, N, 2)."""
 
     def __init__(self, cfg, course, model, waypoints, st, extra_cost, table,
                  chunk: int, held: bool, telemetry: bool):
         dev = st.pose.device
-        self.cfg = cfg
-        # The body holds the buffers, not self: a graph whose runner is
-        # dropped is freed at once, not by the cyclic collector.
-        state = self.state = st._replace(**{f: getattr(st, f).clone()
-                                            for f in _FIELDS})
         f32 = dict(dtype=st.pose.dtype, device=dev)
-        tel = self.tel = {
-            "pose": torch.empty((chunk, 3), **f32),
-            "wpt_idx": torch.empty(chunk, dtype=torch.int32, device=dev),
-            "d2g": torch.empty(chunk, **f32)} if telemetry else None
-        status = self.status = torch.empty(2, dtype=torch.int32, device=dev)
-        perturb = self.perturb = (None if course.use_fused else torch.zeros(
-            (chunk, cfg.rollouts, cfg.steps, 2), dtype=st.u.dtype,
-            device=dev))
-        tick = _held_tick if held else _tick
+        tel = {"pose": torch.empty((chunk, 3), **f32),
+               "wpt_idx": torch.empty(chunk, dtype=torch.int32, device=dev),
+               "d2g": torch.empty(chunk, **f32)} if telemetry else None
 
-        def body():
-            s = state
-            rows = {"pose": [], "wpt_idx": [], "d2g": []}
-            for i in range(chunk):
-                if telemetry:
-                    rows["pose"].append(s.pose)
-                    rows["wpt_idx"].append(s.wpt_idx)
-                    rows["d2g"].append(_dist_to_goal(
-                        s.pose, _active_waypoint(waypoints, s.wpt_idx)))
-                # _tick takes the (N, K, 2) layout of the fused seam.
-                s = tick(cfg, course, model, waypoints, s, extra_cost, table,
-                         None if perturb is None
-                         else perturb[i].transpose(0, 1))
-            # Row 0 is the state buffer itself: stack before it is written.
-            if telemetry:
-                for name, buf in tel.items():
-                    buf.copy_(torch.stack(rows[name]))
-            for f in _FIELDS:
-                getattr(state, f).copy_(getattr(s, f))
-            status.copy_(torch.stack([s.done.to(torch.int32), s.ticks]))
+        def tick(s, i, hold, noise):
+            row = {"pose": s.pose, "wpt_idx": s.wpt_idx,
+                   "d2g": _dist_to_goal(s.pose, active_waypoint(
+                       waypoints, s.wpt_idx))} if telemetry else None
+            return _tick(cfg, course, model, waypoints, s, extra_cost, table,
+                         noise, hold=hold), row
 
-        self.graph = capture.Graph(body, dev)
-        self.chunk, self.ticks = chunk, int(st.ticks)
-
-    def draw(self, n: int, noise=None) -> None:
-        """The plain backend's first ``n`` ticks' perturbations, drawn from
-        the generator in tick order as the eager ticks draw them (the
-        fused backend draws none), or ``noise``: (n, K, N, 2)
-        perturbations in place of the draws."""
-        if self.perturb is None:
-            return
-        if noise is not None:
-            self.perturb[:n].copy_(noise)
-            return
-        for i in range(n):
-            self.perturb[i].copy_(sample_perturbations(
-                self.cfg, self.state.generator, dtype=self.perturb.dtype,
-                device=self.perturb.device))
-
-    def step(self, max_ticks: int, noise=None) -> bool:
-        """Draw and run one chunk (``noise``: the plain backend's (chunk, K,
-        N, 2) perturbations in place of the draws); True once the course
-        is done or at ``max_ticks``. ``ticks`` is then the tick count after
-        it, and ``began`` the generator's state and the tick count before
-        it."""
-        gen = self.state.generator
-        self.began = (gen.get_state() if self.perturb is not None else None,
-                      self.ticks)
-        self.draw(self.chunk, noise)
-        self.graph()
-        done, self.ticks = self.status.tolist()
-        return bool(done) or self.ticks >= max_ticks
-
-    def rewind(self) -> None:
-        """The eager loop draws on live ticks only: the generator set back
-        to where the last chunk began, and that chunk's live draws made
-        again."""
-        gen_state, ticks = self.began
-        if gen_state is not None:
-            self.state.generator.set_state(gen_state)
-            self.draw(self.ticks - ticks)
-
-    def copies(self):
-        """The state and telemetry as copies that outlive the next chunk."""
-        return (self.state._replace(**{f: getattr(self.state, f).clone()
-                                       for f in _FIELDS}),
-                {name: buf.clone() for name, buf in self.tel.items()})
+        super().__init__(st, _FIELDS, tick, chunk,
+                         None if course.use_fused else cfg,
+                         course.max_ticks if held else None, tel=tel,
+                         status=True)
 
 
 def run_course(cfg: MPPIConfig, course: CourseConfig, model: CartParams,
@@ -329,6 +221,7 @@ def run_course_chunked(cfg: MPPIConfig, course: CourseConfig,
     while True:
         stop = chunks.step(course.max_ticks)
         if on_chunk is not None:
-            on_chunk(*chunks.copies())
+            on_chunk(clone(chunks.state, _FIELDS),
+                     {name: buf.clone() for name, buf in chunks.tel.items()})
         if stop:
             return chunks.state

@@ -366,10 +366,10 @@ class PFStepper:
     generator is shared. From then on the state lives in place: each
     :meth:`step` overwrites the buffers and returns them, so the state a
     step returned is consumed by the next, as ``tpunav``'s callers donate
-    theirs. Each step draws its normals eagerly from the generator (the
-    calls of :func:`draw_noise`, so the eager step's bits), or takes
-    ``noise``, and copies them and the scan's inputs into static tensors
-    before the replay.
+    theirs. Each step draws its normals eagerly from the generator into
+    static tensors (``draws``, a ``capture.Draws``: the calls of
+    :func:`draw_noise`, so the eager step's bits), or takes ``noise``, and
+    copies the scan's inputs in before the replay.
 
     ``inputs`` (the scan, the twist and the two odometry poses), ``noise``
     and ``update`` (the step's body on those tensors) let a caller run the
@@ -385,7 +385,6 @@ class PFStepper:
         dev = capture.state_device(st.poses, device)
         if step_fn is None:
             step_fn = functools.partial(pf_slam_step, cfg)
-        self.cfg = cfg
         # The body holds the buffers, not self: a graph whose stepper is
         # dropped is freed at once, not by the cyclic collector.
         state = self.state = PFState(*(t.clone() for t in st[:-1]),
@@ -406,13 +405,15 @@ class PFStepper:
 
         self.update = update
         self.graph = capture.Graph(update, dev, error_mode)
+        # draw_noise's calls, in its order: PFNoise's fields.
+        self.draws = capture.Draws(self.graph, noise)
+        for t in noise:
+            self.draws.add(t, st.generator)
 
     def draw(self, noise: Optional[PFNoise] = None) -> None:
-        """Copy the next update's normals into the static tensors: ``noise``,
-        or those :func:`draw_noise` draws from the generator."""
-        with profiling.span("step.draw", self.graph):
-            capture.load(self.noise, draw_noise(self.cfg, self.state)
-                         if noise is None else noise)
+        """The next update's normals into the static tensors: ``noise``, or
+        those :func:`draw_noise` draws from the generator."""
+        self.draws(noise)
 
     def step(self, ranges, u, cur_odom, prev_odom,
              noise: Optional[PFNoise] = None) -> PFState:

@@ -36,6 +36,7 @@ eager functions stay the way to run gloo ranks on one card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -222,8 +223,9 @@ class PlainShardedStepper(_ShardedSolveGraph):
     solve, on static tensors on ``device`` (default the card; raises
     without CUDA; ``u`` must lie there, on the mesh's device). Each solve
     draws this rank's (K/S, N, 2) perturbations from ``generator`` eagerly
-    into a static tensor (:meth:`draw`: the eager solve's call, so its
-    bits), or takes them injected. Raises on a host-staged mesh."""
+    into a static tensor (``draw(noise=None)``, a ``capture.Draws``: the
+    eager solve's call, so its bits), or takes them injected. Raises on a
+    host-staged mesh."""
 
     def __init__(self, cfg: MPPIConfig, model: CartParams, mesh: ShardMesh,
                  u, generator: torch.Generator, device=DEFAULT_DEVICE):
@@ -235,14 +237,9 @@ class PlainShardedStepper(_ShardedSolveGraph):
             (self.local.rollouts, self.local.steps, 2), dtype=u.dtype,
             device=u.device)
         self._capture(lambda u_, pose, xd: solve(u_, noise, pose, xd))
-
-    def draw(self, noise: Optional[torch.Tensor] = None) -> None:
-        """The next solve's (K/S, N, 2) perturbations into the static
-        tensor: ``noise``, or :func:`sample_perturbations`' draw from the
-        generator."""
-        self.noise.copy_(sample_perturbations(
-            self.local, self.generator, dtype=self.u.dtype,
-            device=self.u.device) if noise is None else noise)
+        self.draw = capture.Draws(self.graph, noise).add(
+            noise, generator,
+            functools.partial(sample_perturbations, self.local))
 
     def step(self, pose_xyt, xd, noise: Optional[torch.Tensor] = None):
         """One solve from the (3,) pose toward the (3,) waypoint; returns
